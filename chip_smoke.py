@@ -11,20 +11,44 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: compile the CUDA kernels from ``graphsage_torch/csrc``.
 3. data: synthetic Cora files at full size (2708 x 1433) through
-   ``load_cora``, and the synthetic Pubmed graph (19717 x 500).
+   ``load_cora``, the synthetic Pubmed graph (19717 x 500), synthetic
+   Pubmed files for training, and a heavy-tailed Pubmed-sized stand-in
+   (``power_law_graph``: 19717 x 500, 44338 edges, degrees up to the
+   hundreds) on which hop 1's fanout of 25 is really sampled.
 4. kernel checks: each kernel against its plain PyTorch version at the
-   serving path's shapes (f32 and bf16, all-masked rows, masked slots holding
-   out-of-range ids, a zero-degree CSR row), ``rtol=atol=1e-5``.
-5. timings: CUDA events over many launches at the serving shapes, beside the
-   plain version, one PyTorch library call computing the same function, and
-   the bound (bytes over 3.35 TB/s, or operations over 67 TFLOP/s f32).
+   serving and training shapes (f32 and bf16, all-masked rows, repeated ids,
+   masked slots holding out-of-range ids, a zero-degree CSR row), and the
+   SpMM backward against the plain version's autograd, symmetric and
+   directed; ``rtol=atol=1e-5`` (a bf16 gradient: one bf16 rounding step;
+   a plain sum, as the unnormalised SpMM and its backward give: ``rtol``
+   of the sum of its terms' magnitudes, since hub rows sum hundreds).
+5. timings: device time per call (profiler) on each graph's sampled
+   frontier, beside the plain version, one PyTorch library call computing
+   the same function, and the bound (the bytes the call must move over
+   3.35 TB/s, or its operations over 67 TFLOP/s f32, whichever is larger;
+   bytes count only the rows and ids that this frontier's valid slots
+   need); per-call time through the wrapper (CUDA events).
 6. serving: the ``cora`` and ``pubmed`` presets at full width, random
    weights from a seeded generator, through the table tier and the sampled
    tier; launch counters are set to 0 just before each tier and read just
    after. Checks: finite logits, identical answers to a repeated request,
    sampled == table at covering fanouts, the card's forward == the CPU
    forward on one frontier.
-7. a ``{"kernels": [...]}`` line, then the last line
+7. training: ``run_preset("cora")`` (100 steps) and ``run_preset("pubmed")``
+   (200 steps) at full width, counters set to 0 just before and read just
+   after: the gather-mean and scatter-mean kernels launch once per step;
+   finite losses, the last below 0.7x the first, validation micro-F1 above
+   0.5. Host and device time per step, and the device's idle share. Then
+   Cora for 20 steps with ``gather_impl="dma"``: its kernel launches on
+   every step and its losses match the default route's (``rtol=1e-4``: the
+   scatter's atomics sum in another order). Then the Pubmed preset on the
+   heavy-tailed stand-in (200 steps, lr 0.1), with the same checks. Then
+   the card's parameter gradients against the CPU's, on freshly initialised
+   models (large gradients), for one sampled step on each graph and for the
+   full-graph loss over Cora's train split: each leaf within 1e-4 of its own
+   largest entry (the SpMM kernel must launch in the full-graph backward).
+   Then one step on each graph timed with ``project_first`` on and off.
+8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -44,18 +68,41 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import graphsage_torch.ops.gather_dma as dma_kernel
 import graphsage_torch.ops.gather_mean as gm_kernel
+import graphsage_torch.ops.scatter_mean as sm_kernel
 import graphsage_torch.ops.spmm as spmm_kernel
-from graphsage_torch import PRESETS, GraphSAGE, ServingEngine, load_cora
-from graphsage_torch.data.synthetic import synth_cora_files, synthetic_pubmed_graph
+from graphsage_torch import PRESETS, GraphSAGE, ServingEngine, load_cora, run_preset
+from graphsage_torch.data.synthetic import (
+    power_law_graph,
+    synth_cora_files,
+    synth_pubmed_files,
+    synthetic_pubmed_graph,
+)
 from graphsage_torch.ops import _build
+from graphsage_torch.train.experiments import build_model, preset_config
+from graphsage_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the tensor cores.
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# The kernels and their plain versions sum in different orders.
+# The kernels and their plain versions sum in different orders (the scatter
+# with atomics, in an order that changes from run to run).
 TOL = dict(rtol=1e-5, atol=1e-5)
+# A bf16 gradient is an f32 sum rounded once to bf16: sums taken in another
+# order may round to the neighbouring bf16 value, one step of 2**-7 relative.
+BF16_GRAD_TOL = dict(rtol=2.0**-7, atol=1e-5)
+# Training runs that differ only in the order of the scatter's sums.
+LOSS_RTOL = 1e-4
+# Card against CPU gradients: f32 products and sums in other orders; each
+# leaf is held to this fraction of its own largest entry.
+GRAD_RTOL = 1e-4
+# The preset each graph trains and serves with. The heavy-tailed stand-in
+# trains at lr 0.1, as the JAX package's power-law presets do: at the Pubmed
+# preset's 0.7 the loss diverges on its unit-scale Gaussian features.
+PRESET_OF = {"cora": "cora", "pubmed": "pubmed", "pubmed heavy-tailed": "pubmed"}
+OVERRIDES_OF = {"pubmed heavy-tailed": {"learning_rate": 0.1}}
 KERNELS = {
     "gather_mean": dict(
         route="cuda",
@@ -68,6 +115,18 @@ KERNELS = {
         source="graphsage_torch/csrc/spmm_mean.cu",
         replaces="graphsage_tpu/ops/pallas_spmm.py:84",
         module=spmm_kernel,
+    ),
+    "scatter_mean": dict(
+        route="cuda",
+        source="graphsage_torch/csrc/scatter_mean.cu",
+        replaces="graphsage_tpu/ops/pallas_onehot.py:127",
+        module=sm_kernel,
+    ),
+    "gather_mean_dma": dict(
+        route="cuda",
+        source="graphsage_torch/csrc/gather_mean_dma.cu",
+        replaces="graphsage_tpu/ops/pallas_gather.py:39",
+        module=dma_kernel,
     ),
 }
 
@@ -105,23 +164,31 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int = 20) -> dict:
+def device_profile(fn, iters: int = 20, attempts: int = 3) -> dict:
     """Device time per call of ``fn``, by kernel name, from CUPTI through
-    ``torch.profiler`` (idle gaps between kernels do not count)."""
+    ``torch.profiler`` (idle gaps between kernels do not count).
+
+    Now and then a session records no device activity at all, and a second
+    session started at once can come back empty too, so an empty session is
+    repeated after a pause of a second, ``attempts`` times at most."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with warnings.catch_warnings():  # "profiler clears events at the end of each cycle"
-        warnings.simplefilter("ignore", UserWarning)
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    by_name = {e.key: e.self_device_time_total / iters / 1e3
-               for e in prof.key_averages() if e.self_device_time_total > 0}
-    if not by_name:
-        raise RuntimeError("the profiler saw no device time")
-    return by_name
+    for attempt in range(attempts):
+        if attempt:
+            print(f"   (the profiler saw no device time; attempt {attempt + 1})")
+            time.sleep(1.0)
+        with warnings.catch_warnings():  # "profiler clears events at the end of each cycle"
+            warnings.simplefilter("ignore", UserWarning)
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        by_name = {e.key: e.self_device_time_total / iters / 1e3
+                   for e in prof.key_averages() if e.self_device_time_total > 0}
+        if by_name:
+            return by_name
+    raise RuntimeError(f"the profiler saw no device time in {attempts} sessions")
 
 
 def device_ms(fn, kernel: str | None = None) -> float:
@@ -139,10 +206,25 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+def max_err(got: torch.Tensor, want: torch.Tensor, what: str, tol=TOL,
+            magnitude: torch.Tensor | None = None) -> float:
+    """Largest |got - want|, after checking it against ``tol``. A sum of
+    many f32 terms (a CSR row of a hub, hundreds long) rounds in proportion
+    to its partial sums, not to its result: given ``magnitude``, the sum of
+    the terms' absolute values for each element, each element is held to
+    ``atol + rtol * magnitude`` instead."""
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **TOL, msg=lambda m: f"{what}: {m}")
-    return float((got - want).abs().max())
+    diff = (got.float() - want.float()).abs()
+    if magnitude is None:
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{what}: {m}")
+    else:
+        excess = diff - (tol["atol"] + tol["rtol"] * magnitude)
+        if not bool((excess <= 0).all()):
+            i = int(excess.argmax())
+            raise AssertionError(
+                f"{what}: |got - want| {float(diff.flatten()[i]):.3g} above "
+                f"{tol} of the terms' magnitude {float(magnitude.flatten()[i]):.3g}")
+    return float(diff.max())
 
 
 # ----------------------------------------------------------------- inputs
@@ -182,6 +264,7 @@ def frontier_inputs(model, graph, batch, seed):
 def check_kernels(graphs) -> dict:
     dev = graphs["cora"].device
     errs = {name: 0.0 for name in KERNELS}
+    # (the scatter's training shapes are the first two: N, F=128, B, k=10)
     shapes = [("cora", 2708, 128, 2560), ("pubmed", 19717, 128, 25600),
               ("cora mean-first", 2708, 1433, 2560),
               ("pubmed mean-first", 19717, 500, 25600)]
@@ -207,23 +290,107 @@ def check_kernels(graphs) -> dict:
         for normalize in (True, False):
             want = spmm_kernel.spmm_mean_plain(x, indptr, edge_dst, normalize)
             got = spmm_kernel.spmm_mean(x, indptr, edge_dst, normalize)
-            e = max_err(got, want, f"spmm_mean {label} normalize={normalize}")
+            magnitude = (None if normalize else
+                         spmm_kernel.spmm_mean_plain(x.abs(), indptr, edge_dst, False))
+            e = max_err(got, want, f"spmm_mean {label} normalize={normalize}",
+                        magnitude=magnitude)
             if not bool((got[-1] == 0).all()):
                 raise AssertionError(f"spmm_mean {label}: zero-degree row is not 0")
             print(f"   spmm_mean {label} N={g.num_nodes + 1} E={g.num_edges} F=128 "
                   f"normalize={normalize}: max_abs_err={e:.3g}")
             errs["spmm_mean"] = max(errs["spmm_mean"], e)
+
+    # The training kernels: the scatter at the training shapes (Cora's and
+    # Pubmed's layer 0), rows 7..15 sending every slot to one id so that
+    # their atomics collide; the dma gather at the four shapes above.
+    for i, (label, n, f, b) in enumerate(shapes):
+        x, idx, mask = gather_case(n, f, b, 10, seed=200 + i, dev=dev)
+        if f == 128:
+            idx[7:16], mask[7:16] = 3, True
+            g = torch.randn(b, f, generator=torch.Generator().manual_seed(i)).to(dev)
+            e32 = max_err(sm_kernel.scatter_mean(g, idx, mask, n),
+                          sm_kernel.scatter_mean_plain(g, idx, mask, n),
+                          f"scatter_mean f32 {label}")
+            # Through the autograd Function with a bf16 table: bf16 gradient.
+            xb = x.to(torch.bfloat16).requires_grad_(True)
+            gm_kernel.gather_mean(xb, idx, mask).backward(g)
+            if xb.grad.dtype != torch.bfloat16:
+                raise AssertionError(f"bf16 table got a {xb.grad.dtype} gradient")
+            want_b = sm_kernel.scatter_mean_plain(g, idx, mask, n).to(torch.bfloat16)
+            ebf = max_err(xb.grad.float(), want_b.float(),
+                          f"scatter_mean bf16 grad {label}", BF16_GRAD_TOL)
+            print(f"   scatter_mean {label} N={n} F={f} B={b} k=10: "
+                  f"f32 max_abs_err={e32:.3g} bf16-table grad max_abs_err={ebf:.3g}")
+            errs["scatter_mean"] = max(errs["scatter_mean"], e32)
+        got = dma_kernel.gather_mean_dma(x, idx, mask)
+        e = max_err(got, dma_kernel.gather_mean_dma_plain(x, idx, mask),
+                    f"gather_mean_dma {label}")
+        if not bool((got[:7] == 0).all()):
+            raise AssertionError(f"gather_mean_dma {label}: all-masked rows are not 0")
+        print(f"   gather_mean_dma {label} N={n} F={f} B={b} k=10: max_abs_err={e:.3g}")
+        errs["gather_mean_dma"] = max(errs["gather_mean_dma"], e)
+
+    # The SpMM backward: symmetric (the kernel again, unnormalised, on
+    # g / deg) and directed (a plain transpose), each with a zero-degree row.
+    for label, g in graphs.items():
+        for symmetric in (True, False):
+            indptr, edge_dst = (with_isolated_row(g) if symmetric
+                                else directed_csr(g))
+            n = indptr.numel() - 1
+            rng = np.random.default_rng(8)
+            x = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
+            gout = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
+            x_plain = x.clone().requires_grad_(True)
+            spmm_kernel.spmm_mean_plain(x_plain, indptr, edge_dst).backward(gout)
+            x_kern = x.clone().requires_grad_(True)
+            before = spmm_kernel.launches
+            spmm_kernel.spmm_mean(x_kern, indptr, edge_dst, symmetric=symmetric).backward(gout)
+            want_launches = 2 if symmetric else 1
+            if spmm_kernel.launches - before != want_launches:
+                raise AssertionError(f"spmm_mean {label} symmetric={symmetric}: "
+                                     f"{spmm_kernel.launches - before} launches")
+            x_abs = x.clone().requires_grad_(True)
+            spmm_kernel.spmm_mean_plain(x_abs, indptr, edge_dst).backward(gout.abs())
+            e = max_err(x_kern.grad, x_plain.grad,
+                        f"spmm_mean backward {label} symmetric={symmetric}",
+                        magnitude=x_abs.grad)
+            print(f"   spmm_mean backward {label} N={n} E={int(indptr[-1])} F=128 "
+                  f"symmetric={symmetric}: max_abs_err={e:.3g}")
+            errs["spmm_mean"] = max(errs["spmm_mean"], e)
     return errs
 
 
+def directed_csr(graph):
+    """A directed CSR from the graph's edges ``u -> v`` with ``u < v`` only,
+    plus one zero-degree row appended."""
+    e = graph.num_edges
+    src = graph.edge_src[:e].cpu().numpy()
+    dst = graph.edge_dst[:e].cpu().numpy()
+    keep = src < dst
+    n = graph.num_nodes + 1
+    indptr = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(src[keep], minlength=n), out=indptr[1:])
+    dev = graph.device
+    return (torch.from_numpy(indptr).to(dev),
+            torch.from_numpy(dst[keep].astype(np.int32)).to(dev))
+
+
 def time_kernels(models, graphs) -> dict:
-    """Per kernel, one timing record per serving shape."""
+    """Per kernel, one timing record per graph, on a sampled frontier of the
+    preset's batch size.
+
+    Bounds count what the call must move on this frontier: the mask (one
+    byte per slot), the ids of valid slots only, the distinct table rows the
+    gather reads (the scatter: the gradient rows with a valid slot), and the
+    output once."""
     out = {name: [] for name in KERNELS}
-    for label, batch in (("cora", 256), ("pubmed", 1024)):
-        table, idx, mask = frontier_inputs(models[label], graphs[label], batch, seed=3)
+    for label, g in graphs.items():
+        batch = PRESETS[PRESET_OF[label]].train.batch_size
+        table, idx, mask = frontier_inputs(models[label], g, batch, seed=3)
         b, k = idx.shape
         n, f = table.shape
-        valid = mask.sum()
+        valid = int(mask.sum())
+        live = int(mask.any(1).sum())  # rows with a valid slot
         flat = idx[mask].long()
         offsets = torch.cat([mask.new_zeros(1, dtype=torch.long),
                              mask.sum(1).cumsum(0)[:-1]])
@@ -231,19 +398,52 @@ def time_kernels(models, graphs) -> dict:
         max_err(lib(), gm_kernel.gather_mean_plain(table, idx, mask),
                 f"embedding_bag yardstick {label}")
         distinct = torch.unique(flat).numel()
-        bd, by = bound(distinct * f * 4 + b * k * 5 + b * f * 4,
-                       int(valid) * f + b * f)
+        bd, by = bound(distinct * f * 4 + b * k + valid * 4 + b * f * 4,
+                       valid * f + live * f)
         kernel = lambda: gm_kernel.gather_mean(table, idx, mask)  # noqa: E731
         out["gather_mean"].append(dict(
+            label=label,
             shape=f"{label} sampled layer 0: table [{n},{f}] f32, B={b}, k={k}, "
-                  f"{int(valid)} valid slots, {distinct} distinct rows",
+                  f"{valid} valid slots, {live} rows with one, "
+                  f"{distinct} distinct rows",
             ms=device_ms(kernel, "gather_mean_kernel"),
             plain_ms=device_ms(lambda: gm_kernel.gather_mean_plain(table, idx, mask)),
             library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
             call_ms=call_ms(kernel),
         ))
+        # The dma kernel computes the same function on the same inputs.
+        kernel = lambda: dma_kernel.gather_mean_dma(table, idx, mask)  # noqa: E731
+        out["gather_mean_dma"].append(dict(
+            out["gather_mean"][-1],
+            ms=device_ms(kernel, "gather_mean_dma_kernel"),
+            plain_ms=device_ms(lambda: dma_kernel.gather_mean_dma_plain(table, idx, mask)),
+            call_ms=call_ms(kernel),
+        ))
 
-        g = graphs[label]
+        # The scatter (layer 0's backward) on the same frontier: the
+        # cotangent [B, F] into a zeroed [N, F]. Library: index_add_ of the
+        # precomputed per-slot rows g[b] / cnt[b] over the valid ids alone.
+        grad = torch.randn(b, f, generator=torch.Generator().manual_seed(4)).to(table.device)
+        cnt = mask.sum(1, keepdim=True).clamp(min=1).float()
+        rows = (grad / cnt).repeat_interleave(k, dim=0)[mask.reshape(-1)]
+        acc = torch.zeros(n, f, device=table.device)
+        lib = lambda: acc.index_add_(0, flat, rows)  # noqa: E731
+        max_err(torch.zeros_like(acc).index_add_(0, flat, rows),
+                sm_kernel.scatter_mean_plain(grad, idx, mask, n),
+                f"index_add_ yardstick {label}")
+        bd, by = bound(live * f * 4 + b * k + valid * 4 + n * f * 4,
+                       valid * f + live * f)
+        kernel = lambda: sm_kernel.scatter_mean(grad, idx, mask, n)  # noqa: E731
+        out["scatter_mean"].append(dict(
+            label=label,
+            shape=f"{label} training layer-0 backward: g [{b},{f}] f32 into "
+                  f"[{n},{f}], k={k}, {valid} valid slots, {live} rows with one",
+            ms=device_ms(kernel, "scatter_mean_kernel"),
+            plain_ms=device_ms(lambda: sm_kernel.scatter_mean_plain(grad, idx, mask, n)),
+            library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
+            call_ms=call_ms(kernel),
+        ))
+
         rng = np.random.default_rng(11)
         x = torch.from_numpy(
             rng.standard_normal((g.num_nodes, 128), dtype=np.float32)).to(g.device)
@@ -263,6 +463,7 @@ def time_kernels(models, graphs) -> dict:
         bd, by = bound(2 * n * f * 4 + (n + 1) * 4 + e * 4, e * f + n * f)
         kernel = lambda: spmm_kernel.spmm_mean(x, g.indptr, g.edge_dst)  # noqa: E731
         out["spmm_mean"].append(dict(
+            label=label,
             shape=f"{label} table refresh: X [{n},{f}] f32, E={e}",
             ms=device_ms(kernel, "spmm_mean_kernel"),
             plain_ms=device_ms(
@@ -356,6 +557,147 @@ def serve_preset(name, graph, requests, main_launches) -> None:
           f"forward (max diff {float((on_card - on_cpu).abs().max()):.3g})")
 
 
+def step_device_ms(trainer, iters: int = 10) -> tuple[float, list]:
+    """Device time of one training step (profiler, summed over kernels) and
+    the four kernels that take most of it."""
+    seeds = next(trainer.batches())
+    by_name = device_profile(lambda: trainer.step(seeds), iters=iters)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return sum(by_name.values()), [(k.split("(")[0][-48:], v) for k, v in top]
+
+
+def train_preset(name, root, main_launches, overrides=None, graph=None) -> dict:
+    """``run_preset`` (given ``graph``, the preset's ``Trainer`` on it) with
+    the launch counters set to 0 just before it and read just after; checks
+    the launches per step and that the losses are finite."""
+    cfg = preset_config(name, overrides)
+    steps = cfg.train.num_steps
+    log: list[str] = []
+    reset_launches()
+    if graph is None:
+        result = run_preset(name, data_root=root, log=log.append, overrides=overrides)
+    else:
+        trainer = Trainer(build_model(cfg, graph), graph, cfg.train)
+        result = trainer.run(log=log.append)
+        result["trainer"] = trainer
+    launches = read_launches()
+    losses = np.asarray(result["losses"])
+    evals = 0 if cfg.train.eval_fanouts is None else 1  # the sampled evaluation
+    route = "gather_mean_dma" if cfg.model.gather_impl == "dma" else "gather_mean"
+    want = {name_: 0 for name_ in KERNELS}
+    want.update({route: steps + evals, "scatter_mean": steps})
+    print(f"   {name} {overrides or ''}: {steps} steps, launches {launches}; "
+          f"{log[-2]}; {log[-1]}")
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: losses {losses}")
+    result["launches"] = launches
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    return result
+
+
+def check_learning(name, result) -> dict:
+    losses = result["losses"]
+    print(f"   {name}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (bar: below "
+          f"{0.7 * losses[0]:.4f}); val micro-F1 {result['val_micro_f1']:.4f} "
+          f"(bar: above 0.5)")
+    if not (losses[-1] < 0.7 * losses[0] and result["val_micro_f1"] > 0.5):
+        raise AssertionError(f"{name}: the run did not learn")
+    host_ms = result["mean_step_time"] * 1e3
+    dev_ms, top = step_device_ms(result["trainer"])
+    stats = dict(host_ms_per_step=host_ms, device_ms_per_step=dev_ms,
+                 device_idle_share=1.0 - dev_ms / host_ms, top_kernels=top)
+    print(f"   {name}: {stats}")
+    return stats
+
+
+def card_vs_cpu_grads(what, model, loss_fn, graph, *args) -> dict:
+    """Parameter gradients of ``loss_fn(model, graph, *args)`` on the card
+    against a CPU copy of the model on the same inputs, each leaf within
+    ``GRAD_RTOL`` of its own largest entry (a leaf with no gradient fails:
+    the check would have no power); returns the kernel launches of the
+    card's forward and backward."""
+    model.zero_grad(set_to_none=True)
+    reset_launches()
+    loss_fn(model, graph, *args).backward()
+    launches = read_launches()
+    card = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    loss_fn(cpu_model, graph.to("cpu"), *(a.to("cpu") for a in args)).backward()
+    for k, p in cpu_model.named_parameters():
+        scale = float(p.grad.abs().max())
+        diff = float((card[k] - p.grad).abs().max())
+        print(f"   {what}: grad {k} {tuple(p.shape)}: max |grad| {scale:.4g}, "
+              f"max |card - CPU| {diff:.3g} ({diff / scale if scale else float('nan'):.3g}"
+              f" of the largest entry)")
+        if not (scale > 0 and diff <= GRAD_RTOL * scale):
+            raise AssertionError(f"{what}: grad {k}: card differs from the CPU by "
+                                 f"{diff:.3g}, its largest entry is {scale:.3g}")
+    print(f"   {what}: card == CPU gradients; launches {launches}")
+    return launches
+
+
+def sampled_loss(model, graph, frontier, seeds):
+    return model.loss(graph.features, frontier, graph.labels[seeds.long()])
+
+
+def full_graph_loss(model, graph, nodes):
+    logits = model.forward_full_graph(graph)[nodes]
+    return model.classification_loss(logits, graph.labels[nodes]).mean()
+
+
+def check_gradients(trainers) -> None:
+    """Card against CPU gradients of freshly initialised models (the trained
+    ones have gradients near 0) on each trainer's graph and first batch."""
+    fresh = {label: build_model(preset_config(PRESET_OF[label]), tr.graph)
+             for label, tr in trainers.items()}
+    for label, tr in trainers.items():
+        seeds = torch.from_numpy(next(tr.batches())).to(tr.device)
+        gen = torch.Generator(device=tr.device).manual_seed(11)
+        frontier = fresh[label].sample(gen, tr.graph, seeds)
+        launches = card_vs_cpu_grads(f"{label} sampled step", fresh[label],
+                                     sampled_loss, tr.graph, frontier, seeds)
+        if launches["scatter_mean"] != 1:
+            raise AssertionError(f"{label}: the sampled backward did not scatter")
+    tr, model = trainers["cora"], fresh["cora"]
+    nodes = torch.from_numpy(tr.train_nodes).to(tr.device).long()
+    with torch.no_grad():
+        reset_launches()
+        model.forward_full_graph(tr.graph)
+        forward_only = read_launches()["spmm_mean"]
+    launches = card_vs_cpu_grads("cora full-graph loss over the train split",
+                                 model, full_graph_loss, tr.graph, nodes)
+    backward = launches["spmm_mean"] - forward_only
+    print(f"   cora full-graph loss: spmm_mean launched {forward_only} times in "
+          f"the forward and {backward} in the backward")
+    if backward <= 0:
+        raise AssertionError("the full-graph backward did not launch spmm_mean")
+
+
+def project_first_times(trainers, iters: int = 10) -> dict:
+    """Host and device ms of one training step of each preset with layer 0
+    projecting first and aggregating first, on the same graph."""
+    out = {}
+    for name, tr in trainers.items():
+        for pf in (True, False):
+            cfg = preset_config(PRESET_OF[name],
+                                {**OVERRIDES_OF.get(name, {}), "project_first": pf})
+            t = Trainer(build_model(cfg, tr.graph), tr.graph, cfg.train)
+            seeds = next(t.batches())
+            for _ in range(3):
+                t.step(seeds)
+            _, ms = timed(lambda: [t.step(seeds) for _ in range(iters)])
+            dev_ms, _ = step_device_ms(t)
+            out[f"{name} project_first={pf}"] = dict(host_ms=ms / iters, device_ms=dev_ms)
+    for k, v in out.items():
+        print(f"   {k}: host ms per step {v['host_ms']:.3f}, device ms per step "
+              f"{v['device_ms']:.3f}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -376,18 +718,24 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("   " + line.strip())
     with phase("data"):
-        root = synth_cora_files(os.path.join(REPO, "build", "chip_smoke", "cora"))
-        graphs = {"cora": load_cora(root), "pubmed": synthetic_pubmed_graph()}
-        for g in graphs.values():
-            print(f"   {g}")
+        data = os.path.join(REPO, "build", "chip_smoke")
+        roots = {"cora": synth_cora_files(os.path.join(data, "cora")),
+                 "pubmed": synth_pubmed_files(os.path.join(data, "pubmed"))}
+        graphs = {"cora": load_cora(roots["cora"]), "pubmed": synthetic_pubmed_graph(),
+                  "pubmed heavy-tailed": power_law_graph(
+                      19717, 44338, num_feats=500, num_classes=3, homophily=0.8)}
+        for label, g in graphs.items():
+            deg = g.degrees
+            print(f"   {label}: {g}; degree mean {float(deg.float().mean()):.3f}, "
+                  f"max {int(deg.max())}, {int((deg > 25).sum())} nodes above 25")
     with phase("kernel checks"):
         errs = check_kernels(graphs)
     with phase("timings"):
         models = {
-            name: GraphSAGE.from_config(
-                PRESETS[name].model, g.num_features, g.num_classes,
+            label: GraphSAGE.from_config(
+                PRESETS[PRESET_OF[label]].model, g.num_features, g.num_classes,
                 generator=torch.Generator().manual_seed(0))
-            for name, g in graphs.items()
+            for label, g in graphs.items()
         }
         timings = time_kernels(models, graphs)
     main_launches = {name: 0 for name in KERNELS}
@@ -401,11 +749,35 @@ def main() -> int:
         n = graphs["pubmed"].num_nodes
         serve_preset("pubmed", graphs["pubmed"], [rng.integers(0, n, 1024)],
                      main_launches)
+    results = {}
+    for name in ("cora", "pubmed"):
+        with phase(f"training {name}"):
+            results[name] = train_preset(name, roots[name], main_launches)
+            results[name].update(check_learning(name, results[name]))
+    with phase("training cora, gather_impl='dma'"):
+        dma = train_preset("cora", roots["cora"], main_launches,
+                           overrides={"gather_impl": "dma", "num_steps": 20})
+        want = results["cora"]["losses"][:20]
+        np.testing.assert_allclose(dma["losses"], want, rtol=LOSS_RTOL,
+                                   err_msg="dma losses != default-route losses")
+        diff = np.max(np.abs(np.asarray(dma["losses"]) - want) / np.abs(want))
+        print(f"   dma route: 20 losses match the default route's (largest "
+              f"relative difference {diff:.3g})")
+    label = "pubmed heavy-tailed"
+    with phase(f"training {label}"):
+        results[label] = train_preset("pubmed", None, main_launches,
+                                      overrides=OVERRIDES_OF[label], graph=graphs[label])
+        results[label].update(check_learning(label, results[label]))
+    trainers = {name: r["trainer"] for name, r in results.items()}
+    with phase("gradients, card against CPU"):
+        check_gradients(trainers)
+    with phase("project-first step times"):
+        project_first_times(trainers)
 
     kernels = []
     for name, meta in KERNELS.items():
         recs = timings[name]
-        head = recs[-1]  # the Pubmed serving shape, the larger of the two
+        head = next(r for r in recs if r["label"] == "pubmed")
         kernels.append(dict(
             name=name, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], launches=main_launches[name],

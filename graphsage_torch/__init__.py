@@ -13,7 +13,8 @@ Every entry point places its tensors on ``cuda`` unless the caller passes
   ops     — sampler, aggregators, Hopper kernels
   models  — GraphSAGE layers + supervised classifier
   serve   — table and sampled serving tiers
-  train   — configs and presets
+  train   — configs, presets, the sampled trainer and its CLI
+  utils   — metrics
 """
 
 from graphsage_torch._device import resolve_device
@@ -22,6 +23,8 @@ from graphsage_torch.data.loaders import load_cora, load_pubmed
 from graphsage_torch.models.graphsage import Frontier, GraphSAGE
 from graphsage_torch.serve import ServingEngine
 from graphsage_torch.train.config import ExperimentConfig, ModelConfig, PRESETS, TrainConfig
+from graphsage_torch.train.experiments import run_preset
+from graphsage_torch.train.trainer import Trainer
 from graphsage_torch.convert import params_from_numpy
 
 __version__ = "0.1.0"
@@ -39,6 +42,8 @@ __all__ = [
     "ModelConfig",
     "TrainConfig",
     "PRESETS",
+    "Trainer",
+    "run_preset",
     "params_from_numpy",
     "__version__",
 ]

@@ -1,6 +1,7 @@
 from graphsage_torch.data.graph import Graph, build_graph
 from graphsage_torch.data.loaders import load_cora, load_pubmed
 from graphsage_torch.data.synthetic import (
+    power_law_graph,
     synth_cora_files,
     synth_pubmed_files,
     synthetic_cora_graph,
@@ -12,6 +13,7 @@ __all__ = [
     "build_graph",
     "load_cora",
     "load_pubmed",
+    "power_law_graph",
     "synth_cora_files",
     "synth_pubmed_files",
     "synthetic_cora_graph",

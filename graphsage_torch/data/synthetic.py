@@ -2,8 +2,9 @@
 ``graphsage_tpu/data/synthetic.py``.
 
 Format-identical stand-ins for Cora and Pubmed with class-correlated
-features and homophilous edges. From the same seed they give the same arrays
-as the JAX package's generators (the numpy draws are made in the same order).
+features and homophilous edges, and :func:`power_law_graph`, a graph with
+heavy-tailed degrees. From the same seed they give the same arrays as the
+JAX package's generators (the numpy draws are made in the same order).
 """
 
 from __future__ import annotations
@@ -178,3 +179,64 @@ def synth_pubmed_files(
         for k, (a, b) in enumerate(edges):
             f.write(f"{k}\tpaper:{200000 + a}\t|\tpaper:{200000 + b}\n")
     return root
+
+
+def power_law_graph(
+    num_nodes: int,
+    num_edges: int,
+    num_feats: int = 128,
+    num_classes: int = 16,
+    seed: int = 0,
+    max_degree: int | None = None,
+    homophily: float = 0.0,
+    device=None,
+) -> Graph:
+    """In-memory synthetic graph with heavy-tailed degrees: edge sources are
+    drawn from a Zipf-like node distribution (hubs spread over a random
+    permutation), destinations uniformly.
+
+    ``homophily`` redraws that fraction of edge destinations from the
+    source's class; with 0 (the default) edges are label-random, and a model
+    that sees only neighbour means cannot learn the labels. Nodes left
+    without an edge are chained to their successor (minimum degree 1).
+    """
+    rng = np.random.default_rng(seed)
+    ranks = rng.permutation(num_nodes) + 1
+    weights = 1.0 / ranks**0.75
+    weights /= weights.sum()
+
+    labels = rng.integers(0, num_classes, num_nodes).astype(np.int32)
+    src = rng.choice(num_nodes, size=num_edges, p=weights)
+    dst = rng.integers(0, num_nodes, size=num_edges)
+    if homophily > 0.0:
+        order = np.argsort(labels, kind="stable")
+        counts = np.bincount(labels, minlength=num_classes)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        c = labels[src]
+        # An empty class keeps the uniform destination.
+        safe = np.maximum(counts[c], 1)
+        pick = order[
+            np.minimum(
+                starts[c] + (rng.random(num_edges) * safe).astype(np.int64),
+                num_nodes - 1,
+            )
+        ]
+        redraw = (rng.random(num_edges) < homophily) & (counts[c] > 0)
+        dst = np.where(redraw, pick, dst)
+    keep = src != dst
+    edges = np.stack([src[keep], dst[keep]], axis=1).astype(np.int64)
+    touched = np.zeros(num_nodes, dtype=bool)
+    touched[edges.reshape(-1)] = True
+    isolated = np.flatnonzero(~touched)
+    if len(isolated):
+        extra = np.stack([isolated, (isolated + 1) % num_nodes], axis=1)
+        edges = np.concatenate([edges, extra], axis=0)
+
+    centers = rng.normal(size=(num_classes, num_feats)).astype(np.float32)
+    features = centers[labels] + 0.5 * rng.normal(size=(num_nodes, num_feats)).astype(
+        np.float32
+    )
+    return build_graph(
+        features, labels, edges, num_classes=num_classes, undirected=True,
+        max_degree=max_degree, device=device,
+    )

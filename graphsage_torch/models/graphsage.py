@@ -8,7 +8,8 @@ and ``layer0="sampled"``.
   2. ``forward`` — layer 0 is the fused masked gather-mean (Hopper kernel 1
      on the card), then the upper layers fold inward: reshape to
      ``[parents, k, d]``, masked mean, project, ReLU.
-  3. a linear classification head.
+  3. a linear classification head; ``loss`` is its mean softmax
+     cross-entropy, the training objective.
 
 Hop ``h`` is built with the fanout of layer ``L-h`` (0-based): the top
 layer's fanout governs the first expansion. With ``concat_self`` or
@@ -16,7 +17,10 @@ layer's fanout governs the first expansion. With ``concat_self`` or
 
 ``forward_full_graph`` runs the same layers over every node with complete
 neighborhoods through the CSR mean-SpMM (Hopper kernel 2 on the card) — the
-deterministic inference path behind the serving table tier.
+deterministic inference path behind the serving table tier and evaluation
+with ``eval_fanouts=None``. Both kernels have backward kernels
+(:mod:`graphsage_torch.ops.scatter_mean`; the SpMM kernel itself on a
+symmetric graph), so both paths train.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from graphsage_torch._device import resolve_device
@@ -63,6 +68,7 @@ _NOT_PORTED = {
     "layer0": ("sampled", 6),
     "sampling": ("floyd", 9),
     "compute_dtype": (None, 8),
+    "multilabel": (False, 7),
 }
 
 
@@ -88,6 +94,7 @@ class GraphSAGE(nn.Module):
         layer0: str = "sampled",
         sampling: str = "floyd",
         compute_dtype=None,
+        multilabel: bool = False,
         gather_impl: str = "auto",
         spmm_impl: str = "auto",
         project_first: bool | str = "auto",
@@ -100,7 +107,7 @@ class GraphSAGE(nn.Module):
         if self_loop and concat_self:
             raise ValueError("self_loop and concat_self are mutually exclusive")
         given = {"aggregator": aggregator, "layer0": layer0, "sampling": sampling,
-                 "compute_dtype": compute_dtype}
+                 "compute_dtype": compute_dtype, "multilabel": multilabel}
         for name, (supported, item) in _NOT_PORTED.items():
             if given[name] != supported:
                 raise NotImplementedError(
@@ -157,8 +164,14 @@ class GraphSAGE(nn.Module):
 
     def use_project_first(self, layer: int, d_in: int) -> bool:
         """Whether layer ``layer`` aggregates after projecting. ``"auto"``
-        projects whenever the layer shrinks its width: without a backward
-        pass, gathering ``d_out``-wide rows is always the cheaper order."""
+        projects whenever the layer shrinks its width (``d_in > d_out``), so
+        the gather-mean (or SpMM) moves ``d_out``-wide rows. That is the
+        traffic rule; it does not weigh what projecting first adds to a
+        training step (the ``[N, d_in] x [d_in, d_out]`` product over the
+        whole table and the backward scatter into the projected table), so
+        which order is cheaper there depends on N against the number of
+        gathered rows and on the widths. The H100 step times of both orders
+        for the ``cora`` and ``pubmed`` presets are in ``PERF.md``."""
         if self.project_first == "auto":
             return d_in > self.hidden_dims[layer]
         return bool(self.project_first)
@@ -246,6 +259,35 @@ class GraphSAGE(nn.Module):
             return h
         return h @ self.head
 
+    def apply_sampled(
+        self, generator: torch.Generator, graph: Graph, seeds: torch.Tensor
+    ) -> torch.Tensor:
+        """``sample`` + ``forward`` in one call: logits ``[B, C]`` (the JAX
+        model's ``apply``; the name ``apply`` stays ``nn.Module``'s)."""
+        return self(graph.features, self.sample(generator, graph, seeds))
+
+    def embed(
+        self, generator: torch.Generator, graph: Graph, seeds: torch.Tensor
+    ) -> torch.Tensor:
+        """Sampled node representations ``[B, hidden[-1]]`` (what the head
+        consumes); :meth:`embed_full_graph` gives deterministic ones."""
+        return self(graph.features, self.sample(generator, graph, seeds),
+                    return_embeddings=True)
+
+    # ----------------------------------------------------------------- loss
+    def loss(
+        self, features: torch.Tensor, frontier: Frontier, labels: torch.Tensor
+    ) -> torch.Tensor:
+        """Mean softmax cross-entropy of the frontier's seeds against their
+        integer ``labels`` (reference model.py:35-37)."""
+        return self.classification_loss(self(features, frontier), labels).mean()
+
+    def classification_loss(
+        self, logits: torch.Tensor, labels: torch.Tensor
+    ) -> torch.Tensor:
+        """Per-example softmax cross-entropy ``[B]`` on integer labels."""
+        return F.cross_entropy(logits, labels.reshape(-1).long(), reduction="none")
+
     # --------------------------------------------------------- full graph
     def forward_full_graph(
         self, graph: Graph, return_embeddings: bool = False
@@ -257,6 +299,7 @@ class GraphSAGE(nn.Module):
             mean = spmm_mean(
                 x, graph.edge_src, graph.edge_dst, graph.edge_mask,
                 graph.num_nodes, indptr=graph.indptr, impl=self.spmm_impl,
+                symmetric=graph.symmetric,
             )
             return mean, graph.degrees
 

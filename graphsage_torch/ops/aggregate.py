@@ -4,12 +4,14 @@ Masked means over gathered neighborhoods (the minibatch path) and CSR
 segment means (the full-graph path). The dispatchers keep the JAX package's
 ``impl`` names so that configurations carry over:
 
-* :func:`gather_mean` — ``"auto"`` and ``"onehot_pallas"`` run Hopper kernel
-  1 (:mod:`graphsage_torch.ops.gather_mean`); ``"take"`` and ``"unrolled"``
-  are PyTorch ops; ``"dma"`` is not ported yet.
-* :func:`spmm_mean` — ``"auto"`` and ``"pallas_vmem"`` run Hopper kernel 2
-  (:mod:`graphsage_torch.ops.spmm`) at any N; ``"xla"`` is a per-edge gather
-  plus ``index_add_`` over the COO list.
+* :func:`gather_mean` — ``"auto"`` and ``"onehot_pallas"`` run the
+  gather-mean kernel (:mod:`graphsage_torch.ops.gather_mean`), ``"dma"`` the
+  kernel with asynchronous row copies (:mod:`graphsage_torch.ops.gather_dma`);
+  both backwards run the scatter-mean kernel. ``"take"`` and ``"unrolled"``
+  are PyTorch ops.
+* :func:`spmm_mean` — ``"auto"`` and ``"pallas_vmem"`` run the CSR SpMM
+  kernel (:mod:`graphsage_torch.ops.spmm`) at any N, forward and backward;
+  ``"xla"`` is a per-edge gather plus ``index_add_`` over the COO list.
 
 Denominators follow the reference (quirk Q8): the number of *valid*
 neighbors; rows with none give 0 (the guarded mean, quirk Q4).
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from graphsage_torch.ops.gather_dma import gather_mean_dma as _gather_mean_dma_kernel
 from graphsage_torch.ops.gather_mean import gather_mean as _gather_mean_kernel
 from graphsage_torch.ops.spmm import spmm_mean as _spmm_mean_kernel
 
@@ -68,7 +71,8 @@ def gather_mean(
 ) -> torch.Tensor:
     """Fused ``masked_mean(features[idx], mask)`` -> ``[B, F]`` dispatcher.
 
-    ``bf16`` applies to the kernel route only, as in the JAX package.
+    ``bf16`` applies to the ``"auto"``/``"onehot_pallas"`` route only, as in
+    the JAX package; ``"dma"`` reads the table as f32.
     """
     if impl in ("auto", "onehot_pallas"):
         return _gather_mean_kernel(features, idx, mask, bf16=bf16)
@@ -84,10 +88,7 @@ def gather_mean(
     if impl == "take":
         return masked_mean(gather(features, idx), mask)
     if impl == "dma":
-        raise NotImplementedError(
-            "gather_mean impl='dma' comes with the port of "
-            "ops/pallas_gather.py:_gather_mean_kernel (ROADMAP Queue 2 item 4)"
-        )
+        return _gather_mean_dma_kernel(features.to(torch.float32), idx, mask)
     raise ValueError(f"unknown gather_mean impl {impl!r}")
 
 
@@ -99,13 +100,16 @@ def spmm_mean(
     num_nodes: int,
     indptr: torch.Tensor | None = None,
     impl: str = "auto",
+    symmetric: bool = True,
 ) -> torch.Tensor:
     """Full-graph mean aggregation ``out[v] = mean_{(v,u) in E} features[u]``
-    (the row-normalized SpMM ``D^-1 A X``), f32 on the kernel route."""
+    (the row-normalized SpMM ``D^-1 A X``), f32 on the kernel route.
+    ``symmetric`` (``Graph.symmetric``) picks the kernel route's backward."""
     if impl in ("auto", "pallas_vmem"):
         if indptr is None:
             raise ValueError(f"spmm_mean impl={impl!r} requires indptr")
-        return _spmm_mean_kernel(features.to(torch.float32), indptr, edge_dst)
+        return _spmm_mean_kernel(features.to(torch.float32), indptr, edge_dst,
+                                 symmetric=symmetric)
     if impl == "xla":
         return segment_mean_csr(gather(features, edge_dst), edge_src, edge_mask, num_nodes)
     raise ValueError(f"unknown spmm_mean impl {impl!r}")

@@ -9,13 +9,23 @@ A CUDA tensor goes to the kernel (or an exception); a CPU tensor goes to the
 plain PyTorch version :func:`gather_mean_plain`, which also serves as the
 reference the kernel is held against on the card. Ids in masked slots are
 never read and may hold anything; ids in valid slots must lie in ``[0, N)``.
+
+Both devices go through one ``autograd.Function`` (:class:`GatherMean`,
+which the DMA route of :mod:`graphsage_torch.ops.gather_dma` shares), whose
+backward is the scatter-mean of :mod:`graphsage_torch.ops.scatter_mean` (its
+kernel on the card, its plain version on the CPU): the CPU runs the same
+backward formula as the card, not an autograd derivation of the plain
+forward. The gradient has the table's dtype; its sums are f32.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from graphsage_torch.ops import _build
+from graphsage_torch.ops.scatter_mean import scatter_mean
 
 # Kernel launches since the last reset (a run sets it to 0 and reads it back
 # to show that its path went through the kernel).
@@ -77,14 +87,28 @@ def _launch(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> to
     return out
 
 
-class _GatherMean(torch.autograd.Function):
+class GatherMean(torch.autograd.Function):
+    """``apply(features, idx, mask, fwd)`` runs ``fwd(features, idx, mask)``
+    (a kernel wrapper or a plain version); the backward scatters the
+    cotangent with :func:`scatter_mean` and casts it to the table's dtype."""
+
     @staticmethod
-    def forward(ctx, features, idx, mask):
-        return _launch(features, idx, mask)
+    def forward(ctx, features, idx, mask, fwd):
+        ctx.save_for_backward(idx, mask)
+        ctx.num_rows, ctx.dtype = features.shape[0], features.dtype
+        return fwd(features, idx, mask)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError("backward kernel comes with the training slice")
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        idx, mask = ctx.saved_tensors
+        dx = scatter_mean(grad.to(torch.float32).contiguous(), idx, mask, ctx.num_rows)
+        return dx.to(ctx.dtype), None, None, None
+
+
+def _as_bf16(fwd: Callable) -> Callable:
+    return lambda features, idx, mask: fwd(features.to(torch.bfloat16), idx, mask)
 
 
 def gather_mean(
@@ -96,13 +120,16 @@ def gather_mean(
     """Masked gather-mean ``[B, F]`` f32 (see module docstring).
 
     ``bf16=True`` rounds the table to bfloat16 first, as the TPU kernel's
-    flag does; a bfloat16 table is read as it is. Sums are f32 either way.
+    flag does; a bfloat16 table is read as it is. Sums are f32 either way,
+    and the gradient keeps the dtype of the table passed in.
     """
     _check(features, idx, mask)
-    if bf16:
-        features = features.to(torch.bfloat16)
     if features.device.type == "cpu":
-        return gather_mean_plain(features, idx, mask)
-    if features.device.type != "cuda":
+        fwd = gather_mean_plain
+    elif features.device.type == "cuda":
+        fwd = _launch
+    else:
         raise ValueError(f"no gather_mean for device {features.device}")
-    return _GatherMean.apply(features, idx, mask)
+    if bf16 and features.dtype != torch.bfloat16:
+        fwd = _as_bf16(fwd)
+    return GatherMean.apply(features, idx, mask, fwd)

@@ -6,11 +6,19 @@
     out[v] = scale(v) * sum_{e in [indptr[v], indptr[v+1])} features[edge_dst[e]]
 
 with ``scale(v) = 1 / max(deg v, 1)`` under ``normalize`` (the mean) and 1
-without it (the plain sum, which the symmetric backward of the training
-slice reuses). Only ``edge_dst[:indptr[N]]`` is read, so padded edges never
-count. A CUDA tensor goes to the kernel (or an exception); a CPU tensor goes
-to the plain PyTorch version :func:`spmm_mean_plain`, which also serves as
-the reference the kernel is held against on the card. ``indptr`` must be a
+without it (the plain sum). Only ``edge_dst[:indptr[N]]`` is read, so padded
+edges never count.
+
+The backward follows ``graphsage_tpu/ops/pallas_spmm.py:_bwd``: with
+``gs = g / max(deg, 1)`` (under ``normalize``), a symmetric adjacency gives
+``dX = A gs``, the same kernel with ``normalize=False``; a directed one gives
+the transpose ``dX = A^T gs``, a plain ``index_add_`` on either device (the
+JAX package leaves it to XLA). Both devices go through one
+``autograd.Function``, so the CPU runs the card's backward formula.
+
+A CUDA tensor goes to the kernel (or an exception); a CPU tensor goes to
+the plain PyTorch version :func:`spmm_mean_plain`, which also serves as the
+reference the kernel is held against on the card. ``indptr`` must be a
 valid CSR offset array into ``edge_dst`` and every used id must lie in
 ``[0, N)``, as :func:`graphsage_torch.data.graph.build_graph` guarantees.
 """
@@ -43,6 +51,20 @@ def spmm_mean_plain(
     if normalize:
         out = out / deg.clamp(min=1).to(torch.float32)[:, None]
     return out
+
+
+def spmm_transpose_plain(
+    g: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor
+) -> torch.Tensor:
+    """``A^T g`` for the CSR adjacency ``A``: ``out[edge_dst[e]] += g[v]`` for
+    each edge ``e`` of row ``v``, f32 (the directed backward)."""
+    n = indptr.numel() - 1
+    deg = (indptr[1:] - indptr[:-1]).long()
+    e = int(indptr[-1])
+    src = torch.repeat_interleave(torch.arange(n, device=g.device), deg)
+    return torch.zeros((n, g.shape[1]), dtype=torch.float32,
+                       device=g.device).index_add_(0, edge_dst[:e].long(),
+                                                   g.to(torch.float32)[src])
 
 
 def _check(features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor) -> None:
@@ -90,13 +112,31 @@ def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
 
 
 class _SpmmMean(torch.autograd.Function):
+    """``forward(features, indptr, edge_dst, normalize, symmetric, fwd)``
+    runs ``fwd`` (the kernel wrapper or the plain version); see the module
+    docstring for the backward."""
+
     @staticmethod
-    def forward(ctx, features, indptr, edge_dst, normalize):
-        return _launch(features, indptr, edge_dst, normalize)
+    def forward(ctx, features, indptr, edge_dst, normalize, symmetric, fwd):
+        ctx.save_for_backward(indptr, edge_dst)
+        ctx.normalize, ctx.symmetric, ctx.fwd = normalize, symmetric, fwd
+        return fwd(features, indptr, edge_dst, normalize)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError("backward kernel comes with the training slice")
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        indptr, edge_dst = ctx.saved_tensors
+        gs = grad.to(torch.float32)
+        if ctx.normalize:
+            deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(torch.float32)
+            gs = gs / deg[:, None]
+        gs = gs.contiguous()
+        if ctx.symmetric:
+            dx = ctx.fwd(gs, indptr, edge_dst, False)
+        else:
+            dx = spmm_transpose_plain(gs, indptr, edge_dst)
+        return dx, None, None, None, None, None
 
 
 def spmm_mean(
@@ -104,11 +144,15 @@ def spmm_mean(
     indptr: torch.Tensor,
     edge_dst: torch.Tensor,
     normalize: bool = True,
+    symmetric: bool = True,
 ) -> torch.Tensor:
-    """CSR (mean-)SpMM ``[N, F]`` f32 (see module docstring)."""
+    """CSR (mean-)SpMM ``[N, F]`` f32 (see module docstring). ``symmetric``
+    says that the adjacency equals its transpose, which picks the backward."""
     _check(features, indptr, edge_dst)
     if features.device.type == "cpu":
-        return spmm_mean_plain(features, indptr, edge_dst, normalize)
-    if features.device.type != "cuda":
+        fwd = spmm_mean_plain
+    elif features.device.type == "cuda":
+        fwd = _launch
+    else:
         raise ValueError(f"no spmm_mean for device {features.device}")
-    return _SpmmMean.apply(features, indptr, edge_dst, normalize)
+    return _SpmmMean.apply(features, indptr, edge_dst, normalize, symmetric, fwd)

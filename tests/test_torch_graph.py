@@ -111,6 +111,27 @@ def test_synthetic_graphs_identical_to_jax(name):
                       getattr(synthetic, name)(device="cpu", **kw))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(homophily=0.0),
+    dict(homophily=0.8, num_classes=3),
+    dict(homophily=0.8, max_degree=5, seed=2),
+])
+def test_power_law_graph_identical_to_jax(kw):
+    kw = dict(num_nodes=300, num_edges=1500, num_feats=12, **kw)
+    jg = jax_synthetic.power_law_graph(**kw)
+    tg = synthetic.power_law_graph(device="cpu", **kw)
+    assert_same_graph(jg, tg)
+    assert int(tg.degrees.min()) >= 1
+
+
+def test_power_law_graph_caps_its_ell_view():
+    # Hubs above the ELL cap keep their full neighbour lists in CSR.
+    tg = synthetic.power_law_graph(num_nodes=2000, num_edges=20000,
+                                   homophily=0.8, device="cpu")
+    assert not tg.ell_covers_all and tg.neighbors.shape[1] == 256
+    assert int(tg.degrees.max()) > 256
+
+
 def test_homophilous_edges_identical_to_jax():
     labels = np.random.default_rng(0).integers(0, 3, 80)
     np.testing.assert_array_equal(
@@ -144,6 +165,7 @@ def test_data_entry_points_default_to_cuda(monkeypatch, synth_cora_root,
         lambda: loaders.load_cora(synth_cora_root),
         lambda: loaders.load_pubmed(synth_pubmed_root),
         lambda: synthetic.synthetic_cora_graph(num_nodes=40, num_feats=40, num_edges=60),
+        lambda: synthetic.power_law_graph(num_nodes=40, num_edges=80),
         lambda: graph.build_graph(np.zeros((3, 2), np.float32), np.zeros(3),
                                   [[0, 1]], device="cpu").to("cuda"),
     ]

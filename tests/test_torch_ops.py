@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import graphsage_torch.ops.gather_dma as gd
 import graphsage_torch.ops.gather_mean as gm
 import graphsage_torch.ops.spmm as sp
 from graphsage_tpu.data.graph import build_graph as jax_build_graph
@@ -15,6 +16,7 @@ from graphsage_tpu.ops.aggregate import gather_mean as jax_gather_mean
 from graphsage_tpu.ops.aggregate import masked_mean as jax_masked_mean
 from graphsage_tpu.ops.aggregate import segment_mean_csr as jax_segment_mean_csr
 from graphsage_tpu.ops.aggregate import spmm_mean as jax_spmm_mean
+from graphsage_tpu.ops.pallas_gather import gather_mean as gather_mean_dma_pallas
 from graphsage_tpu.ops.pallas_onehot import onehot_gather_mean
 from graphsage_tpu.ops.pallas_spmm import _spmm_impl, spmm_mean_vmem
 from graphsage_torch.data.graph import build_graph
@@ -81,9 +83,14 @@ def test_gather_mean_impls_match_jax(case, impl):
 
 
 def test_gather_mean_dma_and_unknown_impls(case):
+    feats, idx, mask = case
+    want = gather_mean_dma_pallas(jnp.asarray(feats), jnp.asarray(idx),
+                                  jnp.asarray(mask), 8, True)
     args = _t(*case)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        gather_mean(*args, impl="dma")
+    before = gd.launches
+    got = gather_mean(*args, impl="dma")
+    assert gd.launches == before and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     with pytest.raises(ValueError):
         gather_mean(*args, impl="nope")
 

@@ -17,23 +17,30 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    hundreds) on which hop 1's fanout of 25 is really sampled.
 4. kernel checks: each kernel against its plain PyTorch version at the
    serving and training shapes (f32 and bf16, all-masked rows, repeated ids,
-   masked slots holding out-of-range ids, a zero-degree CSR row), and the
+   masked slots holding out-of-range ids, k = 25 and 40 slots per row, a
+   zero-degree CSR row, a star whose centre row holds 5000 edges), and the
    SpMM backward against the plain version's autograd, symmetric and
    directed; ``rtol=atol=1e-5`` (a bf16 gradient: one bf16 rounding step;
    a plain sum, as the unnormalised SpMM and its backward give: ``rtol``
-   of the sum of its terms' magnitudes, since hub rows sum hundreds).
+   of the sum of its terms' magnitudes, since hub rows sum thousands). The
+   gather-mean and SpMM kernels sum in a fixed order: a second launch must
+   be bitwise equal to the first.
 5. timings: device time per call (profiler) on each graph's sampled
-   frontier, beside the plain version, one PyTorch library call computing
+   frontier (the gather-mean also over the raw features, as layer 0 reads
+   them when it aggregates first), beside the plain version, one PyTorch library call computing
    the same function, and the bound (the bytes the call must move over
    3.35 TB/s, or its operations over 67 TFLOP/s f32, whichever is larger;
    bytes count only the rows and ids that this frontier's valid slots
    need); per-call time through the wrapper (CUDA events).
 6. serving: the ``cora`` and ``pubmed`` presets at full width, random
    weights from a seeded generator, through the table tier and the sampled
-   tier; launch counters are set to 0 just before each tier and read just
-   after. Checks: finite logits, identical answers to a repeated request,
-   sampled == table at covering fanouts, the card's forward == the CPU
-   forward on one frontier.
+   tier, and the ``pubmed`` preset again on the heavy-tailed stand-in (its
+   refresh runs the SpMM over a row of 949 edges); launch counters are set
+   to 0 just before each tier and read just after. Checks: finite logits,
+   identical answers to a repeated request, sampled == table at covering
+   fanouts (on the stand-in for an 8-node request: covering fanouts of 949
+   grow each hop 949-fold), the card's forward == the CPU forward on one
+   frontier. A warm table refresh is timed (host and device ms).
 7. training: ``run_preset("cora")`` (100 steps) and ``run_preset("pubmed")``
    (200 steps) at full width, counters set to 0 just before and read just
    after: the gather-mean and scatter-mean kernels launch once per step;
@@ -240,6 +247,21 @@ def gather_case(n, f, b, k, seed, dev):
     return x, torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
 
 
+def check_repeat(got: torch.Tensor, again, what: str) -> None:
+    """The kernels sum in a fixed order: a second launch is bitwise equal."""
+    if not torch.equal(got, again()):
+        raise AssertionError(f"{what}: two launches differ")
+
+
+def star_csr(leaves: int, dev):
+    """Undirected star CSR: row 0 holds ``leaves`` edges, each leaf one edge
+    back to 0, and one zero-degree row at the end."""
+    indptr = np.concatenate([[0], leaves + np.arange(leaves + 1), [2 * leaves]])
+    edge_dst = np.concatenate([np.arange(1, leaves + 1), np.zeros(leaves)])
+    return (torch.from_numpy(indptr.astype(np.int32)).to(dev),
+            torch.from_numpy(edge_dst.astype(np.int32)).to(dev))
+
+
 def with_isolated_row(graph):
     """The graph's CSR with one zero-degree row appended."""
     indptr = torch.cat([graph.indptr, graph.indptr[-1:]]).contiguous()
@@ -273,6 +295,8 @@ def check_kernels(graphs) -> dict:
         want = gm_kernel.gather_mean_plain(x, idx, mask)
         got = gm_kernel.gather_mean(x, idx, mask)
         e32 = max_err(got, want, f"gather_mean f32 {label}")
+        check_repeat(got, lambda: gm_kernel.gather_mean(x, idx, mask),
+                     f"gather_mean f32 {label}")
         xb = x.to(torch.bfloat16)
         want_b = gm_kernel.gather_mean_plain(xb.float(), idx, mask)
         got_b = gm_kernel.gather_mean(xb, idx, mask)
@@ -282,22 +306,36 @@ def check_kernels(graphs) -> dict:
         print(f"   gather_mean {label} N={n} F={f} B={b} k=10: "
               f"f32 max_abs_err={e32:.3g} bf16 max_abs_err={ebf:.3g}")
         errs["gather_mean"] = max(errs["gather_mean"], e32, ebf)
-    for label, g in graphs.items():
-        indptr, edge_dst = with_isolated_row(g)
+    # Slots of one row above a warp's 32 lanes and 32 // k rows per warp.
+    for k in (25, 40):
+        x, idx, mask = gather_case(19717, 128, 2560, k, seed=300 + k, dev=dev)
+        got = gm_kernel.gather_mean(x, idx, mask)
+        e = max_err(got, gm_kernel.gather_mean_plain(x, idx, mask),
+                    f"gather_mean f32 k={k}")
+        check_repeat(got, lambda: gm_kernel.gather_mean(x, idx, mask),
+                     f"gather_mean k={k}")
+        print(f"   gather_mean N=19717 F=128 B=2560 k={k}: max_abs_err={e:.3g}")
+        errs["gather_mean"] = max(errs["gather_mean"], e)
+    csrs = {label: with_isolated_row(g) for label, g in graphs.items()}
+    csrs["star"] = star_csr(5000, dev)
+    for label, (indptr, edge_dst) in csrs.items():
+        n = indptr.numel() - 1
         rng = np.random.default_rng(7)
-        x = torch.from_numpy(
-            rng.standard_normal((g.num_nodes + 1, 128), dtype=np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
         for normalize in (True, False):
             want = spmm_kernel.spmm_mean_plain(x, indptr, edge_dst, normalize)
             got = spmm_kernel.spmm_mean(x, indptr, edge_dst, normalize)
+            check_repeat(got, lambda: spmm_kernel.spmm_mean(x, indptr, edge_dst, normalize),
+                         f"spmm_mean {label} normalize={normalize}")
             magnitude = (None if normalize else
                          spmm_kernel.spmm_mean_plain(x.abs(), indptr, edge_dst, False))
             e = max_err(got, want, f"spmm_mean {label} normalize={normalize}",
                         magnitude=magnitude)
             if not bool((got[-1] == 0).all()):
                 raise AssertionError(f"spmm_mean {label}: zero-degree row is not 0")
-            print(f"   spmm_mean {label} N={g.num_nodes + 1} E={g.num_edges} F=128 "
-                  f"normalize={normalize}: max_abs_err={e:.3g}")
+            print(f"   spmm_mean {label} N={n} E={int(indptr[-1])} F=128 "
+                  f"normalize={normalize}: max_abs_err={e:.3g}; two launches "
+                  f"bitwise equal")
             errs["spmm_mean"] = max(errs["spmm_mean"], e)
 
     # The training kernels: the scatter at the training shapes (Cora's and
@@ -332,31 +370,30 @@ def check_kernels(graphs) -> dict:
 
     # The SpMM backward: symmetric (the kernel again, unnormalised, on
     # g / deg) and directed (a plain transpose), each with a zero-degree row.
-    for label, g in graphs.items():
-        for symmetric in (True, False):
-            indptr, edge_dst = (with_isolated_row(g) if symmetric
-                                else directed_csr(g))
-            n = indptr.numel() - 1
-            rng = np.random.default_rng(8)
-            x = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
-            gout = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
-            x_plain = x.clone().requires_grad_(True)
-            spmm_kernel.spmm_mean_plain(x_plain, indptr, edge_dst).backward(gout)
-            x_kern = x.clone().requires_grad_(True)
-            before = spmm_kernel.launches
-            spmm_kernel.spmm_mean(x_kern, indptr, edge_dst, symmetric=symmetric).backward(gout)
-            want_launches = 2 if symmetric else 1
-            if spmm_kernel.launches - before != want_launches:
-                raise AssertionError(f"spmm_mean {label} symmetric={symmetric}: "
-                                     f"{spmm_kernel.launches - before} launches")
-            x_abs = x.clone().requires_grad_(True)
-            spmm_kernel.spmm_mean_plain(x_abs, indptr, edge_dst).backward(gout.abs())
-            e = max_err(x_kern.grad, x_plain.grad,
-                        f"spmm_mean backward {label} symmetric={symmetric}",
-                        magnitude=x_abs.grad)
-            print(f"   spmm_mean backward {label} N={n} E={int(indptr[-1])} F=128 "
-                  f"symmetric={symmetric}: max_abs_err={e:.3g}")
-            errs["spmm_mean"] = max(errs["spmm_mean"], e)
+    cases = [(label, True, csr) for label, csr in csrs.items()]
+    cases += [(label, False, directed_csr(g)) for label, g in graphs.items()]
+    for label, symmetric, (indptr, edge_dst) in cases:
+        n = indptr.numel() - 1
+        rng = np.random.default_rng(8)
+        x = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
+        gout = torch.from_numpy(rng.standard_normal((n, 128), dtype=np.float32)).to(dev)
+        x_plain = x.clone().requires_grad_(True)
+        spmm_kernel.spmm_mean_plain(x_plain, indptr, edge_dst).backward(gout)
+        x_kern = x.clone().requires_grad_(True)
+        before = spmm_kernel.launches
+        spmm_kernel.spmm_mean(x_kern, indptr, edge_dst, symmetric=symmetric).backward(gout)
+        want_launches = 2 if symmetric else 1
+        if spmm_kernel.launches - before != want_launches:
+            raise AssertionError(f"spmm_mean {label} symmetric={symmetric}: "
+                                 f"{spmm_kernel.launches - before} launches")
+        x_abs = x.clone().requires_grad_(True)
+        spmm_kernel.spmm_mean_plain(x_abs, indptr, edge_dst).backward(gout.abs())
+        e = max_err(x_kern.grad, x_plain.grad,
+                    f"spmm_mean backward {label} symmetric={symmetric}",
+                    magnitude=x_abs.grad)
+        print(f"   spmm_mean backward {label} N={n} E={int(indptr[-1])} F=128 "
+              f"symmetric={symmetric}: max_abs_err={e:.3g}")
+        errs["spmm_mean"] = max(errs["spmm_mean"], e)
     return errs
 
 
@@ -417,6 +454,25 @@ def time_kernels(models, graphs) -> dict:
             out["gather_mean"][-1],
             ms=device_ms(kernel, "gather_mean_dma_kernel"),
             plain_ms=device_ms(lambda: dma_kernel.gather_mean_dma_plain(table, idx, mask)),
+            call_ms=call_ms(kernel),
+        ))
+        # Layer 0 aggregating first (project_first=False): the same frontier
+        # over the raw features (F = 1433 or 500, single-element loads at 1433).
+        raw = g.features.contiguous()
+        fr = raw.shape[1]
+        lib = lambda: F.embedding_bag(flat, raw, offsets, mode="mean")  # noqa: E731
+        bd, by = bound(distinct * fr * 4 + b * k + valid * 4 + b * fr * 4,
+                       valid * fr + live * fr)
+        kernel = lambda: gm_kernel.gather_mean(raw, idx, mask)  # noqa: E731
+        max_err(kernel(), gm_kernel.gather_mean_plain(raw, idx, mask),
+                f"gather_mean mean-first {label}")
+        out["gather_mean"].append(dict(
+            label=f"{label} mean-first",
+            shape=f"{label} sampled layer 0, mean-first: features [{n},{fr}] f32, "
+                  f"B={b}, k={k}, {valid} valid slots",
+            ms=device_ms(kernel, "gather_mean_kernel"),
+            plain_ms=device_ms(lambda: gm_kernel.gather_mean_plain(raw, idx, mask)),
+            library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
             call_ms=call_ms(kernel),
         ))
 
@@ -516,32 +572,48 @@ def serve_tier(model, graph, requests, mode, **kw) -> tuple[list, dict, dict]:
                  top_kernels=[(name.split("(")[0][-48:], ms) for name, ms in top],
                  max_memory_allocated=torch.cuda.max_memory_allocated(),
                  **eng.memory_stats())
+    if mode == "table":  # a warm refresh: host ms (mean of 5) and device ms
+        stats["refresh_ms"] = timed(lambda: [eng.refresh() for _ in range(5)])[1] / 5
+        stats["refresh_device_ms"] = device_ms(eng.refresh)
     return answers, launches, stats
 
 
-def serve_preset(name, graph, requests, main_launches) -> None:
+def serve_preset(name, graph, requests, main_launches, label=None,
+                 cover_requests=None) -> None:
+    """Serve preset ``name`` on ``graph`` (``label`` in the output) through
+    both tiers; the covering-fanout check runs on ``cover_requests``
+    (default: ``requests``), which a graph with hub rows keeps small, since
+    covering fanouts grow each hop by the largest degree."""
+    label = label or name
     model = GraphSAGE.from_config(
         PRESETS[name].model, graph.num_features, graph.num_classes,
         generator=torch.Generator().manual_seed(0),
     )
     table, l_table, s_table = serve_tier(model, graph, requests, "table")
     sampled, l_sampled, s_sampled = serve_tier(model, graph, requests, "sampled")
-    print(f"   {name} table tier: launches {l_table}, {s_table}")
-    print(f"   {name} sampled tier: launches {l_sampled}, {s_sampled}")
+    print(f"   {label} table tier: launches {l_table}, {s_table}")
+    print(f"   {label} sampled tier: launches {l_sampled}, {s_sampled}")
     if l_table["spmm_mean"] == 0 or l_table["gather_mean"] != 0:
-        raise AssertionError(f"{name}: the table tier launched {l_table}")
+        raise AssertionError(f"{label}: the table tier launched {l_table}")
     if l_sampled["gather_mean"] == 0 or l_sampled["spmm_mean"] != 0:
-        raise AssertionError(f"{name}: the sampled tier launched {l_sampled}")
+        raise AssertionError(f"{label}: the sampled tier launched {l_sampled}")
     main_launches["spmm_mean"] += l_table["spmm_mean"]
     main_launches["gather_mean"] += l_sampled["gather_mean"]
 
     # Covering fanouts see complete neighborhoods: sampled == table.
     max_deg = int(graph.degrees.max())
-    cover, _, _ = serve_tier(model, graph, requests, "sampled",
-                             eval_fanouts=(max_deg,) * model.num_layers)
-    for c, t in zip(cover, table):
+    kw = {}
+    if cover_requests is None:
+        cover_requests, cover_table = requests, table
+    else:  # no padding to the serving buckets: a bucket of 256 would sample
+        # 256 * max_deg**2 slots at the deepest hop
+        kw["batch_buckets"] = (max(len(r) for r in cover_requests),)
+        cover_table = [ServingEngine(model, graph).logits(r) for r in cover_requests]
+    cover, _, _ = serve_tier(model, graph, cover_requests, "sampled",
+                             eval_fanouts=(max_deg,) * model.num_layers, **kw)
+    for c, t in zip(cover, cover_table):
         np.testing.assert_allclose(c, t, rtol=1e-4, atol=1e-5,
-                                   err_msg=f"{name}: covering sampled != table")
+                                   err_msg=f"{label}: covering sampled != table")
 
     # One sampled frontier through the card's forward and the CPU forward.
     gen = torch.Generator(device=graph.device).manual_seed(5)
@@ -552,8 +624,8 @@ def serve_preset(name, graph, requests, main_launches) -> None:
         cpu_model = copy.deepcopy(model).to("cpu")
         on_cpu = cpu_model(graph.features.cpu(), fr.to("cpu"))
     np.testing.assert_allclose(on_card.numpy(), on_cpu.numpy(), atol=1e-4,
-                               err_msg=f"{name}: card forward != CPU forward")
-    print(f"   {name}: covering fanout {max_deg} sampled == table; card == CPU "
+                               err_msg=f"{label}: card forward != CPU forward")
+    print(f"   {label}: covering fanout {max_deg} sampled == table; card == CPU "
           f"forward (max diff {float((on_card - on_cpu).abs().max()):.3g})")
 
 
@@ -749,6 +821,12 @@ def main() -> int:
         n = graphs["pubmed"].num_nodes
         serve_preset("pubmed", graphs["pubmed"], [rng.integers(0, n, 1024)],
                      main_launches)
+    label = "pubmed heavy-tailed"
+    with phase(f"serving {label}"):
+        n = graphs[label].num_nodes
+        serve_preset("pubmed", graphs[label], [rng.integers(0, n, 1024)],
+                     main_launches, label=label,
+                     cover_requests=[rng.integers(0, n, 8)])
     results = {}
     for name in ("cora", "pubmed"):
         with phase(f"training {name}"):
@@ -763,7 +841,6 @@ def main() -> int:
         diff = np.max(np.abs(np.asarray(dma["losses"]) - want) / np.abs(want))
         print(f"   dma route: 20 losses match the default route's (largest "
               f"relative difference {diff:.3g})")
-    label = "pubmed heavy-tailed"
     with phase(f"training {label}"):
         results[label] = train_preset("pubmed", None, main_launches,
                                       overrides=OVERRIDES_OF[label], graph=graphs[label])

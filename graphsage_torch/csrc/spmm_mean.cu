@@ -1,4 +1,4 @@
-// CSR mean-SpMM for Hopper (sm_90a).
+// CSR mean-SpMM for Hopper (sm_90a), balanced over edges (merge path).
 //
 // Replaces graphsage_tpu/ops/pallas_spmm.py:_kernel, reached through
 // _spmm_impl / spmm_mean_vmem (forward, and with normalize=False its
@@ -13,17 +13,33 @@
 // What bounds it on the H100: bytes. Each edge reads one F-wide row and adds
 // it (a quarter of an operation per byte read), far below the ridge point;
 // the least time is X read once, out written once, indptr and the used edge
-// ids read once, over the memory rate. The TPU kernel pinned the whole table
-// in VMEM and walked the edges with scalar reads; here rows come from device
-// memory through L2, which holds a 128-wide table at these sizes (10 MB at
-// Pubmed), so repeated neighbor reads are cache hits. No VMEM-fit gate: the
-// kernel works at any N.
+// ids read once, over the memory rate. The table (10 MB at Pubmed, 128 wide)
+// stays resident in the 50 MB L2, so repeated neighbour rows are L2 hits.
 //
-// Design: one warp per CSR row. The warp loads 32 edge ids at a time (one
-// per lane) from its own range, so padded edges past indptr[N] are never
-// touched, then broadcasts each id with a shuffle while every lane adds its
-// 16-byte piece of the neighbor row (single elements when F is not a
-// multiple of 4) in f32 registers. Loop bounds are uniform across the warp.
+// What held the earlier design back: one warp per CSR row, so a hub row of
+// 949 edges was walked by a single warp, one 512-byte row load in flight at a
+// time, while the rest of the card sat idle (30x the bound on a heavy-tailed
+// Pubmed-sized graph, 13x its time on a graph of degree 15).
+//
+// Design: merge-path SpMM (Merrill & Garland, SC 2016). The N + E merge
+// items (row ends and edges, in CSR order) are cut into equal chunks of
+// `chunk` items, one warp per chunk, whatever the degrees; the wrapper picks
+// `chunk` so that about 4096 warps run (ops/spmm.py:chunking). There is no
+// host-side schedule: the 256 threads of a block find where the block's 8
+// chunks start with one 256-way search of indptr (two rounds at N = 20000),
+// copy the indptr and edge_dst windows that those chunks can touch into
+// shared memory, and each warp then finds its own chunk's start and end
+// there. Lanes own 16-byte column pieces (single elements when F is not a
+// multiple of 4 or X is not 16-byte aligned); a warp issues the row loads of
+// kDepth edges before it adds them. Few registers matter more than deep
+// batches: the kernel is bound by the latency of each warp's chain of
+// dependent loads, and more resident warps hide more of it. A row that ends
+// inside the chunk is written directly, scaled. A row cut by a chunk
+// boundary is finished by spmm_mean_kernel_fixup: the piece at a chunk's end
+// goes to that chunk's carry row in the scratch buffer, the piece at a row's
+// end is written to out unscaled, and the fix-up adds the carries in chunk
+// order, then that piece, and scales. No atomics: the result is bitwise
+// repeatable.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,34 +48,125 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kDepth = 4;  // row loads in flight per warp
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int VEC>
-__device__ __forceinline__ void load(const float* p, float* v) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-    v[0] = *p;
+struct Vec;
+
+template <>
+struct Vec<4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
   }
+  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
+    acc[0] += r.x;
+    acc[1] += r.y;
+    acc[2] += r.z;
+    acc[3] += r.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec<1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const float* p) { return *p; }
+  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
+    acc[0] += r;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *p = v[0];
+  }
+};
+
+// The first x in [lo, hi) with ptr[x+1-base] > d - x - 1, else hi: the row
+// coordinate where diagonal d of the merge path crosses indptr (ptr holds
+// indptr from row `base` on). The predicate is monotone in x, so each round
+// the block's threads (or one warp's lanes) probe evenly spaced points and
+// the count of probes below the path narrows the range.
+template <int kProbes>
+__device__ __forceinline__ int merge_search(const int32_t* ptr, int base, int d,
+                                            int lo, int hi, int* s_count) {
+  const int t = kProbes == kWarp ? threadIdx.x % kWarp : threadIdx.x;
+  while (lo < hi) {  // uniform: every probe sees the same lo and hi
+    const int step = (hi - lo + kProbes - 1) / kProbes;
+    const int p = lo + t * step;
+    const bool below = p < hi && ptr[p + 1 - base] <= d - p - 1;
+    int m = __popc(__ballot_sync(kFull, below));
+    if constexpr (kProbes > kWarp) {  // sum the warps' counts
+      if (t % kWarp == 0) s_count[t / kWarp] = m;
+      __syncthreads();
+      m = 0;
+#pragma unroll
+      for (int w = 0; w < kProbes / kWarp; ++w) m += s_count[w];
+      __syncthreads();
+    }
+    if (m == 0) return lo;
+    const int last = lo + (m - 1) * step;  // the last probe below the path
+    lo = last + 1;
+    hi = min(last + step, hi);
+  }
+  return lo;
 }
 
 template <int VEC>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 spmm_mean_kernel(const float* __restrict__ x, const int32_t* __restrict__ indptr,
                  const int32_t* __restrict__ edge_dst, float* __restrict__ out,
-                 int N, int F, int normalize) {
+                 float* __restrict__ carry, int32_t* __restrict__ carry_row,
+                 int N, int F, int normalize, int chunk, int num_chunks) {
+  using V = Vec<VEC>;
+  constexpr int kThreads = kWarp * kWarpsPerBlock;
+  extern __shared__ int32_t smem[];  // window of indptr, then of edge_dst
+  __shared__ int s_count[kWarpsPerBlock];
   const int lane = threadIdx.x % kWarp;
-  const long long v =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (v >= N) return;  // uniform across the warp
-  const int start = indptr[v];
-  const int end = indptr[v + 1];
-  const int deg = end - start;
-  const float denom = normalize ? static_cast<float>(deg > 1 ? deg : 1) : 1.f;
+  const int c = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int E = indptr[N];
+  const int total = N + E;
+  // The block's kWarpsPerBlock consecutive chunks: span items from diagonal D0.
+  const int span = kWarpsPerBlock * chunk;
+  const int D0 = blockIdx.x * span;
+  if (D0 >= total) {  // chunks past the last item (E_pad > E)
+    if (lane == 0 && c < num_chunks) carry_row[c] = -1;
+    return;  // uniform across the block
+  }
+  const int I0 = merge_search<kThreads>(indptr, 0, D0, max(D0 - E, 0), min(D0, N),
+                                        s_count);
+  const int J0 = D0 - I0;
+  // Rows I0 .. I0+rows and edges J0 .. J0+edges cover every row end and edge
+  // of the block (at most span items); copy both windows to shared memory.
+  const int rows = min(N - I0, span);
+  const int edges = min(E - J0, span);
+  int32_t* s_ptr = smem;               // s_ptr[i] = indptr[I0 + i], i <= rows
+  int32_t* s_dst = smem + span + 1;    // s_dst[i] = edge_dst[J0 + i], i < edges
+  for (int i = threadIdx.x; i <= rows; i += kThreads) s_ptr[i] = indptr[I0 + i];
+  for (int i = threadIdx.x; i < edges; i += kThreads) s_dst[i] = edge_dst[J0 + i];
+  __syncthreads();
+
+  const int d0 = c * chunk;
+  if (c >= num_chunks) return;
+  if (d0 >= total) {
+    if (lane == 0) carry_row[c] = -1;
+    return;
+  }
+  const int d1 = d0 + min(chunk, total - d0);  // no int overflow near 2^31
+  const int row_hi = I0 + rows;  // the window's last row
+  const int i0 = merge_search<kWarp>(s_ptr, I0, d0, max(I0, d0 - E),
+                                     min(min(d0, N), row_hi), nullptr);
+  const int j0 = d0 - i0;
+  const int i1 = merge_search<kWarp>(s_ptr, I0, d1, max(i0, d1 - E),
+                                     min(min(d1, N), min(row_hi, i0 + (d1 - d0))),
+                                     nullptr);
+  const int j1 = d1 - i1;
+  // Rows i0..i1-1 end in this chunk; row i1 (if < N) is open at its end.
+  // Only row i0 can have begun in an earlier chunk (i0 < N since d0 < total).
+  const int first_start = s_ptr[i0 - I0];
+  const bool first_cut = first_start < j0;
+  bool carries = false;  // row i1 has begun: the next chunk finds it cut
 
   for (int c0 = 0; c0 < F; c0 += kWarp * VEC) {
     const int col = c0 + lane * VEC;
@@ -67,46 +174,134 @@ spmm_mean_kernel(const float* __restrict__ x, const int32_t* __restrict__ indptr
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    for (int e0 = start; e0 < end; e0 += kWarp) {
-      const int e = e0 + lane;
-      const int my_dst = e < end ? edge_dst[e] : 0;
-      const int n_here = end - e0 < kWarp ? end - e0 : kWarp;
-      for (int j = 0; j < n_here; ++j) {
-        const int r = __shfl_sync(kFull, my_dst, j);
-        if (active) {
-          float t[VEC];
-          load<VEC>(x + static_cast<size_t>(r) * F + col, t);
+    int r = i0, rstart = first_start;
+
+    // Write row r (its end item lies in this chunk) and move to row r + 1.
+    auto flush = [&]() {
+      const int rend = s_ptr[r + 1 - I0];
+      if (active) {
+        float v[VEC];
+        const bool cut = r == i0 && first_cut;  // the fix-up scales it
+        const float denom = normalize && !cut
+            ? static_cast<float>(max(rend - rstart, 1)) : 1.f;
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[i] += t[i];
+        for (int i = 0; i < VEC; ++i) {
+          v[i] = acc[i] / denom;
+          acc[i] = 0.f;
+        }
+        V::store(out + static_cast<size_t>(r) * F + col, v);
+      }
+      rstart = rend;
+      ++r;
+    };
+
+    for (int e0 = j0; e0 < j1; e0 += kDepth) {
+      const int n = min(kDepth, j1 - e0);
+      typename V::Raw v[kDepth];
+#pragma unroll
+      for (int t = 0; t < kDepth; ++t) {
+        if (t < n && active) {
+          const int src = s_dst[e0 + t - J0];
+          v[t] = V::load(x + static_cast<size_t>(src) * F + col);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kDepth; ++t) {
+        if (t < n) {
+          // Edge e0+t belongs to row i1 at the latest, so r + 1 - I0 stays
+          // inside the window while this loop reads it.
+          while (e0 + t >= s_ptr[r + 1 - I0]) flush();
+          if (active) V::add(v[t], acc);
         }
       }
     }
-    if (active) {
-      float* o = out + static_cast<size_t>(v) * F + col;
+    while (r < i1) flush();
+    carries = i1 < N && rstart < j1;  // here r == i1 and rstart == indptr[i1]
+    if (carries && active) V::store(carry + static_cast<size_t>(c) * F + col, acc);
+  }
+  if (lane == 0) carry_row[c] = carries ? i1 : -1;
+}
+
+// One warp per chunk; the first chunk that carries row r sums the carries of
+// r in chunk order, adds the piece the main kernel wrote at r's end, scales.
+template <int VEC>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+spmm_mean_kernel_fixup(const int32_t* __restrict__ indptr, float* __restrict__ out,
+                       const float* __restrict__ carry,
+                       const int32_t* __restrict__ carry_row, int F, int normalize,
+                       int num_chunks) {
+  using V = Vec<VEC>;
+  const int lane = threadIdx.x % kWarp;
+  const int c = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (c >= num_chunks) return;
+  const int r = carry_row[c];
+  if (r < 0 || (c > 0 && carry_row[c - 1] == r)) return;
+  // The chunks carrying r are consecutive: find where the run ends.
+  int c_end = c + 1;
+  for (;;) {
+    const int q = c_end + lane;
+    const unsigned same = __ballot_sync(kFull, q < num_chunks && carry_row[q] == r);
+    const int run = same == kFull ? kWarp : __ffs(~same) - 1;
+    c_end += run;
+    if (run < kWarp) break;
+  }
+  const float denom = normalize
+      ? static_cast<float>(max(indptr[r + 1] - indptr[r], 1)) : 1.f;
+  for (int c0 = 0; c0 < F; c0 += kWarp * VEC) {
+    const int col = c0 + lane * VEC;
+    if (col >= F) break;
+    float acc[VEC];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) o[i] = acc[i] / denom;
+    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    for (int q0 = c; q0 < c_end; q0 += kDepth) {  // kDepth loads in flight
+      typename V::Raw v[kDepth];
+#pragma unroll
+      for (int t = 0; t < kDepth; ++t)
+        if (q0 + t < c_end) v[t] = V::load(carry + static_cast<size_t>(q0 + t) * F + col);
+#pragma unroll
+      for (int t = 0; t < kDepth; ++t)
+        if (q0 + t < c_end) V::add(v[t], acc);
     }
+    float* o = out + static_cast<size_t>(r) * F + col;
+    V::add(V::load(o), acc);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] /= denom;
+    V::store(o, acc);
   }
 }
 
 template <int VEC>
 int launch(const void* x, const void* indptr, const void* edge_dst, void* out,
-           int N, int F, int normalize, void* stream) {
+           void* scratch, int N, int F, int normalize, int chunk, int num_chunks,
+           void* stream) {
   const int threads = kWarp * kWarpsPerBlock;
-  const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  spmm_mean_kernel<VEC><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int32_t*>(indptr),
-      static_cast<const int32_t*>(edge_dst), static_cast<float*>(out), N, F,
-      normalize);
+  const int blocks = (num_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* carry = static_cast<float*>(scratch);
+  int32_t* carry_row = reinterpret_cast<int32_t*>(carry + static_cast<size_t>(num_chunks) * F);
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const size_t smem = (2 * static_cast<size_t>(kWarpsPerBlock) * chunk + 1) * sizeof(int32_t);
+  spmm_mean_kernel<VEC><<<blocks, threads, smem, s>>>(
+      static_cast<const float*>(x), ip, static_cast<const int32_t*>(edge_dst),
+      static_cast<float*>(out), carry, carry_row, N, F, normalize, chunk, num_chunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  spmm_mean_kernel_fixup<VEC><<<blocks, threads, 0, s>>>(
+      ip, static_cast<float*>(out), carry, carry_row, F, normalize, num_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// scratch: num_chunks * F floats of carry rows, then num_chunks int32 row
+// ids; chunk * num_chunks >= N + indptr[N] (the wrapper sizes both).
 extern "C" int gsage_spmm_mean_f32(const void* x, const void* indptr,
-                                   const void* edge_dst, void* out, int N, int F,
-                                   int normalize, void* stream) {
+                                   const void* edge_dst, void* out, void* scratch,
+                                   int N, int F, int normalize, int chunk,
+                                   int num_chunks, void* stream) {
   if (F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
-    return launch<4>(x, indptr, edge_dst, out, N, F, normalize, stream);
-  return launch<1>(x, indptr, edge_dst, out, N, F, normalize, stream);
+    return launch<4>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
+                     num_chunks, stream);
+  return launch<1>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
+                   num_chunks, stream);
 }

@@ -7,7 +7,9 @@
 
 with ``scale(v) = 1 / max(deg v, 1)`` under ``normalize`` (the mean) and 1
 without it (the plain sum). Only ``edge_dst[:indptr[N]]`` is read, so padded
-edges never count.
+edges never count. The kernel splits the row ends and edges into equal
+chunks (merge path, :func:`chunking`), so a hub row is shared by many warps;
+its pieces are summed in a fixed order, and the result is bitwise repeatable.
 
 The backward follows ``graphsage_tpu/ops/pallas_spmm.py:_bwd``: with
 ``gs = g / max(deg, 1)`` (under ``normalize``), a symmetric adjacency gives
@@ -94,17 +96,44 @@ def _check(features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor)
         raise ValueError("features, indptr and edge_dst must be contiguous")
 
 
+# About 31 warps for each of the H100's 132 SMs: the kernel is bound by the
+# latency of each warp's dependent loads, so more, shorter chunks run faster
+# until the per-chunk search and carry cost more than they save.
+TARGET_CHUNKS = 4096
+MIN_CHUNK, MAX_CHUNK = 16, 512  # MAX_CHUNK: a block's windows fit 48 KB
+
+
+def chunking(num_items: int) -> tuple[int, int]:
+    """``(chunk, num_chunks)``: the kernel's merge-path split of ``num_items``
+    row ends and edges into equal chunks, one warp each, about
+    ``TARGET_CHUNKS`` of them."""
+    chunk = min(MAX_CHUNK, max(MIN_CHUNK, -(-num_items // TARGET_CHUNKS)))
+    return chunk, max(1, -(-num_items // chunk))
+
+
 def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
     global launches
     n, f = features.shape
     out = torch.empty((n, f), dtype=torch.float32, device=features.device)
     if n == 0 or f == 0:
         return out
+    # E = indptr[N] lives on the card; edge_dst's length bounds it, and the
+    # chunks past the last item return at once.
+    items = n + edge_dst.numel()
+    if items >= 2**31:
+        raise ValueError(f"spmm_mean kernel: N + E_pad = {items} needs 64-bit offsets")
+    chunk, num_chunks = chunking(items)
+    # Per chunk: one F-wide f32 carry row, then one int32 row id. Freed on
+    # return: the caching allocator gives it out again only to work queued
+    # after these kernels on this stream.
+    scratch = torch.empty(num_chunks * (f + 1), dtype=torch.float32,
+                          device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
     with torch.cuda.device(features.device):
         err = _build.library().gsage_spmm_mean_f32(
             features.data_ptr(), indptr.data_ptr(), edge_dst.data_ptr(),
-            out.data_ptr(), n, f, int(normalize), stream,
+            out.data_ptr(), scratch.data_ptr(), n, f, int(normalize), chunk,
+            num_chunks, stream,
         )
     _build.check(err, "spmm_mean kernel")
     launches += 1

@@ -267,3 +267,93 @@ def test_spmm_gradient_matches_plain(cuda, symmetric, n, f):
     x_plain = x.clone().requires_grad_(True)
     sp.spmm_mean_plain(x_plain, indptr, edge_dst).backward(g)
     torch.testing.assert_close(x_kern.grad, x_plain.grad, **TOL)
+
+
+# ------------------------------------------------ shapes of the redesigns
+# The gather-mean serves 32 // k rows per warp (one when k > 32); the SpMM
+# cuts row ends and edges into equal chunks (``sp.chunking``), so hub rows,
+# rows about a chunk long and runs of empty rows cross chunk boundaries.
+
+
+@pytest.mark.parametrize("dtype,f", [
+    (torch.float32, 128),   # 16-byte loads
+    (torch.bfloat16, 128),  # 8-element bf16 loads
+    (torch.bfloat16, 500),  # 4-element bf16 loads
+    (torch.bfloat16, 45),   # 1-element loads
+])
+@pytest.mark.parametrize("k", [1, 10, 25, 32, 33, 40])
+# 37 rows: one row per warp. 24577: B // 8192 = 3 rows per warp when
+# 32 // k allows it (k = 1, 10), and not a multiple of 3.
+@pytest.mark.parametrize("b", [37, 24577])
+def test_gather_mean_kernel_slot_groups(cuda, dtype, f, k, b):
+    x, idx, mask = _gather_case(300, f, b, k, seed=k + f, dev=cuda, dtype=dtype)
+    mask[5:9] = False  # a run of all-masked rows inside one warp's rows
+    idx[5:9] = 300      # ids >= N in masked slots
+    got = gm.gather_mean(x, idx, mask)
+    again = gm.gather_mean(x, idx, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gm.gather_mean_plain(x.float(), idx, mask), **TOL)
+    assert (got[0] == 0).all() and (got[5:9] == 0).all()
+    assert torch.equal(got, again)  # a fixed summation order
+
+
+def _csr_from_degrees(deg, seed, dev):
+    """CSR with the given row degrees, random in-range ids, and padding past
+    ``indptr[N]`` that holds ids the kernel must never read."""
+    rng = np.random.default_rng(seed)
+    deg = np.asarray(deg, np.int32)
+    n = deg.size
+    indptr = np.zeros(n + 1, np.int32)
+    np.cumsum(deg, out=indptr[1:])
+    e = int(indptr[-1])
+    edge_dst = np.full(-(-max(e, 1) // 128) * 128 + 128, 2**30, np.int32)
+    edge_dst[:e] = rng.integers(0, n, e)
+    return torch.from_numpy(indptr).to(dev), torch.from_numpy(edge_dst).to(dev)
+
+
+CHUNK = sp.MIN_CHUNK  # the chunk length of every graph below (checked in the test)
+SPMM_GRAPHS = {
+    "star": [5000] + [0] * 5000,  # one row holding every edge
+    "about a chunk": [CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 5] * 6 + [1] * 9,
+    "empty runs": [3] * 5 + [0] * 100 + [2 * CHUNK] + [0] * 70 + [CHUNK + 3, 0, 0, 4]
+                  + [0] * 40,
+    "one node": [3],
+    "one isolated node": [0],
+}
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("f", [1, 45, 128, 500])
+@pytest.mark.parametrize("graph", list(SPMM_GRAPHS))
+def test_spmm_kernel_chunk_boundaries(cuda, graph, f, normalize):
+    indptr, edge_dst = _csr_from_degrees(SPMM_GRAPHS[graph], seed=f, dev=cuda)
+    n = indptr.numel() - 1
+    assert sp.chunking(n + edge_dst.numel())[0] == CHUNK
+    x = torch.randn(n, f, generator=torch.Generator().manual_seed(f)).to(cuda)
+    got = sp.spmm_mean(x, indptr, edge_dst, normalize)
+    again = sp.spmm_mean(x, indptr, edge_dst, normalize)
+    torch.cuda.synchronize()
+    _assert_spmm_close(got, x, indptr, edge_dst, normalize)
+    assert torch.equal(got, again)  # no atomics: bitwise repeatable
+
+
+def _assert_spmm_close(got, x, indptr, edge_dst, normalize):
+    """Means within ``TOL``; a plain sum (hub rows sum thousands of terms)
+    within ``rtol`` of the sum of its terms' magnitudes."""
+    want = sp.spmm_mean_plain(x, indptr, edge_dst, normalize)
+    if normalize:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        magnitude = sp.spmm_mean_plain(x.abs(), indptr, edge_dst, False)
+        assert ((got - want).abs() <= TOL["atol"] + TOL["rtol"] * magnitude).all()
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_spmm_kernel_unaligned_table_at_a_hub(cuda, normalize):
+    indptr, edge_dst = _csr_from_degrees(SPMM_GRAPHS["star"][:600], seed=3, dev=cuda)
+    n = indptr.numel() - 1
+    x = torch.randn(n * 128 + 1, device=cuda)[1:].view(n, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0  # single-element loads
+    got = sp.spmm_mean(x, indptr, edge_dst, normalize)
+    _assert_spmm_close(got, x, indptr, edge_dst, normalize)
+    assert torch.equal(got, sp.spmm_mean(x, indptr, edge_dst, normalize))

@@ -1,8 +1,11 @@
 """The port's aggregation ops and the plain versions of its two kernels
 against the JAX package: kernel 1's plain version against the Pallas one-hot
 kernel in interpret mode, kernel 2's against the Pallas CSR SpMM in
-interpret mode, and every dispatcher ``impl`` name against JAX."""
+interpret mode (also at a hub row longer than any of the kernel's chunks,
+forward and symmetric backward), and every dispatcher ``impl`` name against
+JAX."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,6 +135,56 @@ def test_spmm_plain_matches_pallas_kernel(csr, normalize):
     got2 = sp.spmm_mean(torch.from_numpy(x), tg.indptr, tg.edge_dst, normalize)
     assert sp.launches == before
     torch.testing.assert_close(got2, got)
+
+
+@pytest.fixture(scope="module")
+def star():
+    """An undirected star: node 0 has 400 leaves, a row longer than any of
+    the kernel's merge-path chunks at this size; nodes 401..409 isolated."""
+    rng = np.random.default_rng(5)
+    n = 410
+    edges = np.array([[0, i] for i in range(1, 401)])
+    feats = rng.normal(size=(n, 8)).astype(np.float32)
+    labels = np.zeros(n)
+    return (jax_build_graph(feats, labels, edges, num_classes=1),
+            build_graph(feats, labels, edges, num_classes=1, device="cpu"),
+            rng.normal(size=(n, 16)).astype(np.float32))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_spmm_plain_matches_pallas_kernel_at_a_hub(star, normalize):
+    jg, tg, x = star
+    hub = int(tg.indptr[1] - tg.indptr[0])
+    assert hub == 400 and hub > sp.chunking(tg.num_nodes + tg.edge_dst.numel())[0]
+    want = _spmm_impl(jnp.asarray(x), jg.indptr, jg.edge_dst, normalize=normalize,
+                      interpret=True)
+    got = sp.spmm_mean(torch.from_numpy(x), tg.indptr, tg.edge_dst, normalize)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(got[401:].numpy(), 0.0)
+
+
+def test_spmm_symmetric_backward_matches_pallas_at_a_hub(star):
+    jg, tg, x = star
+    g = np.random.default_rng(6).normal(size=x.shape).astype(np.float32)
+
+    def jax_loss(feats):
+        out = spmm_mean_vmem(feats, jg.indptr, jg.edge_dst, True, 8, True)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    assert tg.symmetric
+    sp.spmm_mean(xt, tg.indptr, tg.edge_dst, symmetric=True).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("items", [1, 15, 16, 17, 13588, 108421, 10**6, 2**31 - 1])
+def test_spmm_chunking_covers_every_item(items):
+    chunk, num_chunks = sp.chunking(items)
+    assert sp.MIN_CHUNK <= chunk <= sp.MAX_CHUNK
+    assert (num_chunks - 1) * chunk < items <= num_chunks * chunk
+    # The kernel's diagonals c * chunk stay in int32.
+    assert (num_chunks - 1) * chunk < 2**31
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas_vmem", "xla"])

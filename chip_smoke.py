@@ -23,15 +23,19 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    directed; ``rtol=atol=1e-5`` (a bf16 gradient: one bf16 rounding step;
    a plain sum, as the unnormalised SpMM and its backward give: ``rtol``
    of the sum of its terms' magnitudes, since hub rows sum thousands). The
-   gather-mean and SpMM kernels sum in a fixed order: a second launch must
-   be bitwise equal to the first.
+   gather-mean, SpMM and DMA gather-mean kernels sum in a fixed order: a
+   second launch must be bitwise equal to the first. Kernels 2 and 4 also at
+   the edges of their launch geometry (``redesign_cases``).
 5. timings: device time per call (profiler) on each graph's sampled
-   frontier (the gather-mean also over the raw features, as layer 0 reads
-   them when it aggregates first), beside the plain version, one PyTorch library call computing
-   the same function, and the bound (the bytes the call must move over
-   3.35 TB/s, or its operations over 67 TFLOP/s f32, whichever is larger;
-   bytes count only the rows and ids that this frontier's valid slots
-   need); per-call time through the wrapper (CUDA events).
+   frontier (both gather-means also over the raw features, as layer 0
+   reads them when it aggregates first), beside the plain version, one
+   PyTorch library call computing the same function (the scatter's:
+   ``torch.zeros`` then ``index_add_``), and the bound (the bytes the call
+   must move over 3.35 TB/s, or its operations over 67 TFLOP/s f32,
+   whichever is larger; bytes count only the rows and ids that this
+   frontier's valid slots need); per-call time through the wrapper (CUDA
+   events). Kernel 2's device time by kernel name (zero fill against
+   scatter).
 6. serving: the ``cora`` and ``pubmed`` presets at full width, random
    weights from a seeded generator, through the table tier and the sampled
    tier, and the ``pubmed`` preset again on the heavy-tailed stand-in (its
@@ -253,6 +257,35 @@ def check_repeat(got: torch.Tensor, again, what: str) -> None:
         raise AssertionError(f"{what}: two launches differ")
 
 
+def redesign_cases(dev):
+    """Kernels 2 and 4 at the edges of their redesigns: ``(label, table,
+    cotangent, idx, mask)`` with B not a multiple of the rows per warp, 25,
+    40 and 200 slots per row (above 32: 32 slots at a time), 40000 rows of
+    100 slots, 64 rows whose first 10 slots name the last id,
+    a full row between empty ones, F not a multiple of 4, an unaligned table
+    and cotangent (views one or three elements in), and F=1433 tables whose
+    last row's 16-byte envelope ends past the table (N=2709) or with it
+    (N=2708)."""
+    shapes = [("3 rows per warp, B=24577", 19717, 128, 24577, 10, 0),
+              ("k=25", 19717, 128, 2560, 25, 0), ("k=40", 2708, 128, 2560, 40, 0),
+              ("k=200", 2708, 128, 2560, 200, 0), ("k=100, B=40000", 2708, 16, 40000, 100, 0),
+              ("F=45", 2708, 45, 2560, 10, 0), ("F=1433 N=2709", 2709, 1433, 2560, 10, 0),
+              ("F=1433 N=2708", 2708, 1433, 2560, 25, 0),
+              ("unaligned F=128", 2708, 128, 2560, 10, 1),
+              ("unaligned F=1433", 2708, 1433, 2560, 10, 3)]
+    for i, (label, n, f, b, k, offset) in enumerate(shapes):
+        x, idx, mask = gather_case(n, f, b, k, seed=500 + i, dev=dev)
+        mask[9:12] = torch.tensor([False, True, False], device=dev)[:, None]
+        idx[10] = torch.arange(k, device=dev) % n
+        idx[20:84, :10], mask[20:84, :10] = n - 1, True
+        idx[84] = 0
+        g = torch.randn(b, f, generator=torch.Generator().manual_seed(i)).to(dev)
+        if offset:
+            x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(n, f)
+            g = torch.cat([g.new_zeros(offset), g.flatten()])[offset:].view(b, f)
+        yield label, x, g, idx, mask
+
+
 def star_csr(leaves: int, dev):
     """Undirected star CSR: row 0 holds ``leaves`` edges, each leaf one edge
     back to 0, and one zero-degree row at the end."""
@@ -365,8 +398,37 @@ def check_kernels(graphs) -> dict:
                     f"gather_mean_dma {label}")
         if not bool((got[:7] == 0).all()):
             raise AssertionError(f"gather_mean_dma {label}: all-masked rows are not 0")
-        print(f"   gather_mean_dma {label} N={n} F={f} B={b} k=10: max_abs_err={e:.3g}")
+        check_repeat(got, lambda: dma_kernel.gather_mean_dma(x, idx, mask),
+                     f"gather_mean_dma {label}")
+        print(f"   gather_mean_dma {label} N={n} F={f} B={b} k=10: max_abs_err={e:.3g}; "
+              f"two launches bitwise equal")
         errs["gather_mean_dma"] = max(errs["gather_mean_dma"], e)
+
+    # Kernels 2 and 4 at the edges of their redesigns. The last id sums 640
+    # terms: held to rtol of the terms' summed magnitude.
+    for label, x, g, idx, mask in redesign_cases(dev):
+        n = x.shape[0]
+        want = sm_kernel.scatter_mean_plain(g, idx, mask, n)
+        magnitude = sm_kernel.scatter_mean_plain(g.abs(), idx, mask, n)
+        es = max_err(sm_kernel.scatter_mean(g, idx, mask, n), want,
+                     f"scatter_mean {label}", magnitude=magnitude)
+        got = dma_kernel.gather_mean_dma(x, idx, mask)
+        e = max_err(got, dma_kernel.gather_mean_dma_plain(x, idx, mask),
+                    f"gather_mean_dma {label}")
+        check_repeat(got, lambda: dma_kernel.gather_mean_dma(x, idx, mask),
+                     f"gather_mean_dma {label}")
+        if not bool((got[:7] == 0).all() and (got[9] == 0).all()):
+            raise AssertionError(f"gather_mean_dma {label}: all-masked rows are not 0")
+        print(f"   {label} (N={n}, g {tuple(g.shape)}, k={idx.shape[1]}): scatter_mean "
+              f"max_abs_err={es:.3g}; gather_mean_dma max_abs_err={e:.3g}, bitwise repeat")
+        errs["scatter_mean"] = max(errs["scatter_mean"], es)
+        errs["gather_mean_dma"] = max(errs["gather_mean_dma"], e)
+    before = (sm_kernel.launches, dma_kernel.launches)
+    empty = sm_kernel.scatter_mean(g[:0], idx[:0], mask[:0], n)
+    if not (empty.shape == (n, g.shape[1]) and bool((empty == 0).all())
+            and dma_kernel.gather_mean_dma(x, idx[:0], mask[:0]).shape == (0, x.shape[1])
+            and (sm_kernel.launches, dma_kernel.launches) == before):
+        raise AssertionError("an empty batch launched a kernel or gave a wrong shape")
 
     # The SpMM backward: symmetric (the kernel again, unnormalised, on
     # g / deg) and directed (a plain transpose), each with a zero-degree row.
@@ -475,29 +537,43 @@ def time_kernels(models, graphs) -> dict:
             library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
             call_ms=call_ms(kernel),
         ))
+        kernel = lambda: dma_kernel.gather_mean_dma(raw, idx, mask)  # noqa: E731
+        max_err(kernel(), gm_kernel.gather_mean_plain(raw, idx, mask),
+                f"gather_mean_dma mean-first {label}")
+        out["gather_mean_dma"].append(dict(
+            out["gather_mean"][-1],
+            ms=device_ms(kernel, "gather_mean_dma_kernel"),
+            plain_ms=device_ms(lambda: dma_kernel.gather_mean_dma_plain(raw, idx, mask)),
+            call_ms=call_ms(kernel),
+        ))
 
         # The scatter (layer 0's backward) on the same frontier: the
-        # cotangent [B, F] into a zeroed [N, F]. Library: index_add_ of the
-        # precomputed per-slot rows g[b] / cnt[b] over the valid ids alone.
+        # cotangent [B, F] into [N, F], zeros included. Library: torch.zeros
+        # and index_add_ of the precomputed per-slot rows g[b] / cnt[b] over
+        # the valid ids alone (the division is left out of its time).
         grad = torch.randn(b, f, generator=torch.Generator().manual_seed(4)).to(table.device)
         cnt = mask.sum(1, keepdim=True).clamp(min=1).float()
         rows = (grad / cnt).repeat_interleave(k, dim=0)[mask.reshape(-1)]
-        acc = torch.zeros(n, f, device=table.device)
-        lib = lambda: acc.index_add_(0, flat, rows)  # noqa: E731
-        max_err(torch.zeros_like(acc).index_add_(0, flat, rows),
-                sm_kernel.scatter_mean_plain(grad, idx, mask, n),
-                f"index_add_ yardstick {label}")
+        lib = lambda: torch.zeros(n, f, device=table.device).index_add_(0, flat, rows)  # noqa: E731
+        max_err(lib(), sm_kernel.scatter_mean_plain(grad, idx, mask, n),
+                f"zeros + index_add_ yardstick {label}")
         bd, by = bound(live * f * 4 + b * k + valid * 4 + n * f * 4,
                        valid * f + live * f)
         kernel = lambda: sm_kernel.scatter_mean(grad, idx, mask, n)  # noqa: E731
+        # Device ms by kernel name: the zero fill against the scatter.
+        split = device_profile(kernel)
+        if not any("scatter_mean" in name for name in split):
+            raise AssertionError(f"no scatter_mean among the kernels run: {list(split)}")
+        split = {name.split("::")[-1].split("(")[0]: ms for name, ms in split.items()}
+        print(f"   scatter_mean {label}: device ms by kernel {split}")
         out["scatter_mean"].append(dict(
             label=label,
             shape=f"{label} training layer-0 backward: g [{b},{f}] f32 into "
                   f"[{n},{f}], k={k}, {valid} valid slots, {live} rows with one",
-            ms=device_ms(kernel, "scatter_mean_kernel"),
+            ms=sum(split.values()),
             plain_ms=device_ms(lambda: sm_kernel.scatter_mean_plain(grad, idx, mask, n)),
             library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
-            call_ms=call_ms(kernel),
+            call_ms=call_ms(kernel), split=split,
         ))
 
         rng = np.random.default_rng(11)

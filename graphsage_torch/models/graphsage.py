@@ -16,7 +16,7 @@ layer's fanout governs the first expansion. With ``concat_self`` or
 ``self_loop`` each frontier row carries the parent in column 0.
 
 ``forward_full_graph`` runs the same layers over every node with complete
-neighborhoods through the CSR mean-SpMM (Hopper kernel 2 on the card) — the
+neighborhoods through the CSR mean-SpMM (Hopper kernel 3 on the card) — the
 deterministic inference path behind the serving table tier and evaluation
 with ``eval_fanouts=None``. Both kernels have backward kernels
 (:mod:`graphsage_torch.ops.scatter_mean`; the SpMM kernel itself on a

@@ -35,8 +35,8 @@ SIGNATURES = {
     "gsage_gather_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gsage_gather_mean_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gsage_spmm_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gsage_scatter_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "gsage_gather_mean_dma_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "gsage_scatter_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gsage_gather_mean_dma_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Masked scatter-mean, the gather-mean backward: Hopper kernel 3
+"""Masked scatter-mean, the gather-mean backward: Hopper kernel 2
 (``csrc/scatter_mean.cu``), the port of
 ``graphsage_tpu/ops/pallas_onehot.py:_scatter_kernel``.
 
@@ -13,6 +13,10 @@ also serves as the reference the kernel is held against on the card. Ids in
 masked slots are never read and may hold anything; ids in valid slots must
 lie in ``[0, num_rows)``. The kernel sums with atomics, in an order that
 changes from run to run.
+
+The kernel's entry point writes the whole output, zeros included (a
+zeroing kernel, then the scatter kernel, on the stream), so the wrapper
+allocates it with ``torch.empty``.
 """
 
 from __future__ import annotations
@@ -67,14 +71,14 @@ def _launch(g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     global launches
     b, k = idx.shape
     f = g.shape[1]
-    dx = torch.zeros((num_rows, f), dtype=torch.float32, device=g.device)
-    if b == 0 or f == 0 or k == 0:
-        return dx
+    if b == 0 or f == 0 or k == 0:  # nothing to scatter
+        return torch.zeros((num_rows, f), dtype=torch.float32, device=g.device)
+    dx = torch.empty((num_rows, f), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
         err = _build.library().gsage_scatter_mean_f32(
             g.data_ptr(), idx.data_ptr(), mask.data_ptr(), dx.data_ptr(),
-            b, k, f, stream,
+            num_rows, b, k, f, stream,
         )
     _build.check(err, "scatter_mean kernel")
     launches += 1

@@ -1,4 +1,4 @@
-"""CSR mean-SpMM: Hopper kernel 2 (``csrc/spmm_mean.cu``), the port of
+"""CSR mean-SpMM: Hopper kernel 3 (``csrc/spmm_mean.cu``), the port of
 ``graphsage_tpu/ops/pallas_spmm.py:_kernel``.
 
 ``spmm_mean(features[N, F], indptr[N+1], edge_dst[E_pad]) -> [N, F]`` f32:

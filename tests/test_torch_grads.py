@@ -2,7 +2,7 @@
 
 The port's backward formulas run on the CPU through the same
 ``autograd.Function`` as on the card, with the plain versions of the kernels:
-the scatter-mean (the gather-mean backward, kernel 3) against the Pallas
+the scatter-mean (the gather-mean backward, kernel 2) against the Pallas
 transposed one-hot kernel in interpret mode and against ``jax.vjp`` of the
 JAX ``gather_mean``; the DMA route against ``pallas_gather.gather_mean`` in
 interpret mode; the CSR SpMM backward against ``jax.vjp`` of

@@ -357,3 +357,105 @@ def test_spmm_kernel_unaligned_table_at_a_hub(cuda, normalize):
     got = sp.spmm_mean(x, indptr, edge_dst, normalize)
     _assert_spmm_close(got, x, indptr, edge_dst, normalize)
     assert torch.equal(got, sp.spmm_mean(x, indptr, edge_dst, normalize))
+
+
+# ------------------------------------------ the scatter's and dma's redesigns
+# The scatter writes its whole output, zeros included, and takes rows of
+# more than 32 slots 32 at a time. The dma
+# gather serves up to 32 // k rows per warp (``gd.rows_per_warp``: 3 at
+# B >= 24576 and k = 10) and streams rows through a ring of
+# ``gd.plan(...).stages`` TMA copies: whole rows (F % 4 == 0, aligned
+# table) or 16-byte envelopes, read directly where an envelope would leave
+# the table.
+
+
+def _scatter_case(n, f, b, k, seed, dev):
+    _, idx, mask = _gather_case(n, f, b, k, seed=seed, dev=dev)
+    mask[9:12] = torch.tensor([False, True, False])[:, None]  # a full row between empty ones
+    idx[10] = torch.arange(k) % n
+    idx[20:84, :10], mask[20:84, :10] = n - 1, True  # 640 slots on the last id: colliding atomics
+    g = torch.randn(b, f, generator=torch.Generator().manual_seed(seed)).to(dev)
+    return g, idx, mask
+
+
+@pytest.mark.parametrize("n,f,b,k", [
+    (19717, 128, 25600, 10),  # Pubmed's training shape
+    (19717, 128, 25600, 25),  # one row of 25 slots per warp
+    (300, 64, 32769, 3),      # k = 3
+    (300, 128, 500, 40),      # more than 32 slots per row
+    (300, 16, 300, 200),      # 200 slots per row, 32 at a time
+    (300, 45, 600, 10),       # F not a multiple of 4: scalar atomics, envelopes
+    (300, 1433, 300, 10),     # scalar atomics across 45 column chunks
+    (300, 16, 40000, 100),    # 40000 rows of 100 slots
+])
+def test_scatter_mean_kernel_collisions_and_long_rows(cuda, n, f, b, k):
+    g, idx, mask = _scatter_case(n, f, b, k, seed=n + k, dev=cuda)
+    before = sm.launches
+    got = sm.scatter_mean(g, idx, mask, n)
+    torch.cuda.synchronize()
+    assert sm.launches == before + 1
+    assert got.shape == (n, f)
+    _assert_scatter_close(got, g, idx, mask, n)
+
+
+def _assert_scatter_close(got, g, idx, mask, n):
+    """Within ``TOL``, the ``rtol`` part taken of the sum of the terms'
+    magnitudes: the last id sums 640 terms, in an order the atomics pick."""
+    want = sm.scatter_mean_plain(g, idx, mask, n)
+    magnitude = sm.scatter_mean_plain(g.abs(), idx, mask, n)
+    assert ((got - want).abs() <= TOL["atol"] + TOL["rtol"] * magnitude).all()
+
+
+def test_scatter_mean_kernel_unaligned_cotangent_and_empty_batch(cuda):
+    _, idx, mask = _scatter_case(300, 128, 100, 10, seed=5, dev=cuda)
+    g = torch.randn(100 * 128 + 1, device=cuda)[1:].view(100, 128)
+    assert g.is_contiguous() and g.data_ptr() % 16 != 0
+    _assert_scatter_close(sm.scatter_mean(g, idx, mask, 300), g, idx, mask, 300)
+    before = sm.launches
+    empty = sm.scatter_mean(g[:0], idx[:0], mask[:0], 300)
+    assert sm.launches == before and empty.shape == (300, 128) and (empty == 0).all()
+
+
+def _dma_case(n, f, b, k, seed, dev, table=None):
+    x, idx, mask = _gather_case(n, f, b, k, seed=seed, dev=dev)
+    mask[3:6] = False             # a run of all-masked rows
+    mask[6:9] = True              # rows with k valid slots: more than the stages
+    idx[6], idx[7] = n - 1, 0     # the table's last and first rows
+    idx[8] = torch.arange(k) % n
+    return (x if table is None else table), idx, mask
+
+
+def _check_dma(x, idx, mask):
+    before = gd.launches
+    got = gd.gather_mean_dma(x, idx, mask)
+    again = gd.gather_mean_dma(x, idx, mask)
+    torch.cuda.synchronize()
+    assert gd.launches == before + 2
+    torch.testing.assert_close(got, gd.gather_mean_dma_plain(x, idx, mask), **TOL)
+    assert (got[0] == 0).all() and (got[3:6] == 0).all()
+    assert torch.equal(got, again)  # slots summed in order: bitwise repeatable
+
+
+@pytest.mark.parametrize("n,f,b,k", [
+    (300, 128, 24577, 10),   # 3 rows per warp, B % 3 == 1; 4 stages
+    (300, 128, 300, 25),     # 25 valid slots through 4 stages
+    (300, 128, 100, 40),     # more than 32 slots per row
+    (300, 128, 100, 200),    # 200 slots per row, 32 at a time
+    (300, 500, 24577, 10),   # 4 chunks per pass, 2 stages
+    (301, 1433, 300, 10),    # envelopes, 2 stages; the last row's leaves the table
+    (300, 1433, 64, 25),     # the last row's envelope ends with the table
+    (91, 45, 21, 6),         # F not a multiple of 4, one chunk
+    (40, 3000, 20, 5),       # two passes of 2048 columns
+])
+def test_gather_mean_dma_kernel_ring_and_passes(cuda, n, f, b, k):
+    _check_dma(*_dma_case(n, f, b, k, seed=n + f + k, dev=cuda))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("f", [128, 1433])
+def test_gather_mean_dma_kernel_table_at_an_odd_offset(cuda, offset, f):
+    # Row 0's envelope would start before the table: read directly.
+    n = 64
+    table = torch.randn(n * f + 4, device=cuda)[offset:offset + n * f].view(n, f)
+    assert table.is_contiguous() and table.data_ptr() % 16 != 0
+    _check_dma(*_dma_case(n, f, 40, 10, seed=offset, dev=cuda, table=table))

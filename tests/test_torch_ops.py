@@ -1,9 +1,9 @@
-"""The port's aggregation ops and the plain versions of its two kernels
-against the JAX package: kernel 1's plain version against the Pallas one-hot
-kernel in interpret mode, kernel 2's against the Pallas CSR SpMM in
-interpret mode (also at a hub row longer than any of the kernel's chunks,
-forward and symmetric backward), and every dispatcher ``impl`` name against
-JAX."""
+"""The port's aggregation ops and the plain versions of its kernels against
+the JAX package: kernel 1's plain version against the Pallas one-hot kernel
+in interpret mode, kernel 3's against the Pallas CSR SpMM in interpret mode
+(also at a hub row longer than any of the kernel's chunks, forward and
+symmetric backward), and every dispatcher ``impl`` name against JAX; the
+launch plans the wrappers of kernels 3 and 4 compute."""
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +32,7 @@ from graphsage_torch.ops.aggregate import (
 
 torch.set_num_threads(1)
 
-# Kernel 1 (f32 sums of at most 6 rows) and kernel 2 against Pallas.
+# Kernel 1 (f32 sums of at most 6 rows) and kernel 3 against Pallas.
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
@@ -185,6 +185,47 @@ def test_spmm_chunking_covers_every_item(items):
     assert (num_chunks - 1) * chunk < items <= num_chunks * chunk
     # The kernel's diagonals c * chunk stay in int32.
     assert (num_chunks - 1) * chunk < 2**31
+
+
+@pytest.mark.parametrize("b,k,want", [
+    (2560, 10, 1),    # Cora's frontier: too few rows to share warps
+    (25600, 10, 3),   # Pubmed's: 32 // 10
+    (25600, 25, 1),
+    (10**6, 40, 1),   # more than 32 slots: one row per warp
+    (10**6, 1, 32),
+    (32769, 3, 4),    # 32769 // 8192
+    (5, 0, 1),
+])
+def test_rows_per_warp(b, k, want):
+    r = gd.rows_per_warp(b, k)
+    assert r == want
+    assert r == 1 or r * k <= 32  # one ballot covers the warp's slots
+
+
+# Whole-row copies need F % 4 == 0.
+@pytest.mark.parametrize("f,whole_rows", [
+    (f, whole) for f in (1, 3, 45, 64, 128, 129, 500, 512, 513, 1433, 2048, 3703)
+    for whole in (True, False) if not (whole and f % 4)])
+def test_dma_plan_fits_every_copy(f, whole_rows):
+    p = gd.plan(25600, 10, f, whole_rows)
+    width = min(f, 128 * p.chunks)
+    assert p.chunks in gd.CHUNKS and (width == f or p.chunks == gd.CHUNKS[-1])
+    assert 2 <= p.stages <= gd.MAX_STAGES and p.stage_floats % 4 == 0
+    assert p.rows_per_warp == 3
+    # The widest copy of a pass: the row itself, or its 16-byte-aligned
+    # envelope from any 4-byte-aligned start.
+    for start in ((0,) if whole_rows else (0, 4, 8, 12)):
+        lo, hi = 0, -(-(start + 4 * width) // 16) * 16
+        assert hi - lo <= 4 * p.stage_floats
+    # A block's barriers and rings fit the shared memory of one SM.
+    warps = gd.WARPS_PER_BLOCK
+    assert warps * p.stages * (8 + 4 * p.stage_floats) + 16 <= 227 * 1024
+
+
+def test_dma_plan_at_the_main_widths():
+    assert gd.plan(25600, 10, 128, True) == (3, 1, 4, 128)
+    assert gd.plan(25600, 10, 500, True) == (3, 4, 2, 500)
+    assert gd.plan(2560, 10, 1433, False) == (1, 16, 2, 1440)
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas_vmem", "xla"])

@@ -28,8 +28,9 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    the edges of their launch geometry (``redesign_cases``).
 5. timings: device time per call (profiler) on each graph's sampled
    frontier (both gather-means also over the raw features, as layer 0
-   reads them when it aggregates first), beside the plain version, one
-   PyTorch library call computing the same function (the scatter's:
+   reads them when it aggregates first; the SpMM also unnormalised over
+   the raw features, the layer-0 cache's build), beside the plain version,
+   one PyTorch library call computing the same function (the scatter's:
    ``torch.zeros`` then ``index_add_``), and the bound (the bytes the call
    must move over 3.35 TB/s, or its operations over 67 TFLOP/s f32,
    whichever is larger; bytes count only the rows and ids that this
@@ -59,7 +60,26 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    full-graph loss over Cora's train split: each leaf within 1e-4 of its own
    largest entry (the SpMM kernel must launch in the full-graph backward).
    Then one step on each graph timed with ``project_first`` on and off.
-8. a ``{"kernels": [...]}`` line, then the last line
+8. layer-0 cache: ``with_cached_layer0`` on the card (kernel 3, one launch
+   each) against the plain build on the CPU, on the three graphs with a
+   zero-degree row appended, both flavors; the build on the synthetic
+   Pubmed graph timed (host and device ms).
+9. the layer-0 modes and the other aggregators: ``run_preset`` of
+   ``pubmed_layer0_full`` (200 steps: kernel 3 launches twice per step,
+   forward and backward, kernels 1 and 2 never), again on the heavy-tailed
+   stand-in at lr 0.1, ``pubmed_layer0_cached`` (the cache built once, at
+   construction: one launch of kernel 3; its steps launch no kernel),
+   ``cora_pool`` and ``cora_lstm`` (100 steps each, no kernel), counters set
+   to 0 just before each and read just after; the learning bar, host and
+   device ms per step and the idle share. Card-against-CPU gradients of
+   fresh ``pubmed_layer0_full`` (kernel 3 in the backward), ``cora_pool`` and
+   ``cora_lstm`` models. Serving a ``pubmed_layer0_full`` and a
+   ``cora_pool`` model through both tiers, sampled == table at covering
+   fanouts. One line per Pubmed-sized graph with the step times of the
+   three layer-0 modes (``pubmed``, ``pubmed_layer0_full``,
+   ``pubmed_layer0_cached``) on that graph, and the device time of
+   ``pubmed_layer0_full``'s table gather by indexing against ``gather``.
+10. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -67,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -84,6 +105,7 @@ import graphsage_torch.ops.gather_mean as gm_kernel
 import graphsage_torch.ops.scatter_mean as sm_kernel
 import graphsage_torch.ops.spmm as spmm_kernel
 from graphsage_torch import PRESETS, GraphSAGE, ServingEngine, load_cora, run_preset
+from graphsage_torch.data.graph import with_cached_layer0
 from graphsage_torch.data.synthetic import (
     power_law_graph,
     synth_cora_files,
@@ -91,6 +113,7 @@ from graphsage_torch.data.synthetic import (
     synthetic_pubmed_graph,
 )
 from graphsage_torch.ops import _build
+from graphsage_torch.ops.aggregate import gather
 from graphsage_torch.train.experiments import build_model, preset_config
 from graphsage_torch.train.trainer import Trainer
 
@@ -112,8 +135,16 @@ GRAD_RTOL = 1e-4
 # The preset each graph trains and serves with. The heavy-tailed stand-in
 # trains at lr 0.1, as the JAX package's power-law presets do: at the Pubmed
 # preset's 0.7 the loss diverges on its unit-scale Gaussian features.
-PRESET_OF = {"cora": "cora", "pubmed": "pubmed", "pubmed heavy-tailed": "pubmed"}
-OVERRIDES_OF = {"pubmed heavy-tailed": {"learning_rate": 0.1}}
+PRESET_OF = {"cora": "cora", "pubmed": "pubmed", "pubmed heavy-tailed": "pubmed",
+             "pubmed_layer0_full": "pubmed_layer0_full",
+             "pubmed_layer0_full heavy-tailed": "pubmed_layer0_full",
+             "pubmed_layer0_cached": "pubmed_layer0_cached",
+             "cora_pool": "cora_pool", "cora_lstm": "cora_lstm"}
+OVERRIDES_OF = {"pubmed heavy-tailed": {"learning_rate": 0.1},
+                "pubmed_layer0_full heavy-tailed": {"learning_rate": 0.1}}
+# The Pubmed preset in each layer-0 mode.
+LAYER0_PRESETS = {"sampled": "pubmed", "full": "pubmed_layer0_full",
+                  "cached": "pubmed_layer0_cached"}
 KERNELS = {
     "gather_mean": dict(
         route="cuda",
@@ -603,6 +634,31 @@ def time_kernels(models, graphs) -> dict:
             library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
             call_ms=call_ms(kernel),
         ))
+        # The layer-0 cache's build: the unnormalised sum over the raw
+        # features (F = 1433 or 500). Library: sparse.mm with values 1.
+        raw = g.features.contiguous()
+        fr = raw.shape[1]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            ones = torch.sparse_csr_tensor(
+                g.indptr.long(), g.edge_dst[:e].long(), torch.ones(e, device=g.device),
+                size=(g.num_nodes, g.num_nodes), check_invariants=True)
+        lib = lambda: torch.sparse.mm(ones, raw)  # noqa: E731
+        kernel = lambda: spmm_kernel.spmm_mean(raw, g.indptr, g.edge_dst, False)  # noqa: E731
+        max_err(kernel(), spmm_kernel.spmm_mean_plain(raw, g.indptr, g.edge_dst, False),
+                f"spmm_mean cache build {label}",
+                magnitude=spmm_kernel.spmm_mean_plain(raw.abs(), g.indptr, g.edge_dst,
+                                                      False))
+        bd, by = bound(2 * n * fr * 4 + (n + 1) * 4 + e * 4, e * fr)
+        out["spmm_mean"].append(dict(
+            label=f"{label} cache build",
+            shape=f"{label} layer-0 cache build: X [{n},{fr}] f32, E={e}, unnormalised",
+            ms=device_ms(kernel, "spmm_mean_kernel"),
+            plain_ms=device_ms(lambda: spmm_kernel.spmm_mean_plain(
+                raw, g.indptr, g.edge_dst, False)),
+            library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
+            call_ms=call_ms(kernel),
+        ))
     for name, recs in out.items():
         for r in recs:
             print(f"   {name} [{r['shape']}]: device ms: kernel {r['ms']:.4f}, "
@@ -645,13 +701,27 @@ def serve_tier(model, graph, requests, mode, **kw) -> tuple[list, dict, dict]:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     stats = dict(construct_ms=build_ms, request_ms=times,
                  request_device_ms=sum(by_name.values()),
-                 top_kernels=[(name.split("(")[0][-48:], ms) for name, ms in top],
+                 top_kernels=[(short_name(name), ms) for name, ms in top],
                  max_memory_allocated=torch.cuda.max_memory_allocated(),
                  **eng.memory_stats())
     if mode == "table":  # a warm refresh: host ms (mean of 5) and device ms
         stats["refresh_ms"] = timed(lambda: [eng.refresh() for _ in range(5)])[1] / 5
         stats["refresh_device_ms"] = device_ms(eng.refresh)
     return answers, launches, stats
+
+
+def tier_kernels(model) -> tuple[str | None, str | None]:
+    """The kernel the table tier and the sampled tier of ``model`` launch
+    (``None``: none of the four): the full-graph mean runs kernel 3; the
+    sampled mean layer 0 kernel 1, or kernel 3 under ``layer0="full"``;
+    maxpool and lstm are plain PyTorch ops."""
+    if model.aggregator != "mean":
+        return None, None
+    if model.layer0 == "full":
+        return "spmm_mean", "spmm_mean"
+    if model.layer0 == "cached":
+        return "spmm_mean", None
+    return "spmm_mean", "gather_mean"
 
 
 def serve_preset(name, graph, requests, main_launches, label=None,
@@ -669,12 +739,14 @@ def serve_preset(name, graph, requests, main_launches, label=None,
     sampled, l_sampled, s_sampled = serve_tier(model, graph, requests, "sampled")
     print(f"   {label} table tier: launches {l_table}, {s_table}")
     print(f"   {label} sampled tier: launches {l_sampled}, {s_sampled}")
-    if l_table["spmm_mean"] == 0 or l_table["gather_mean"] != 0:
-        raise AssertionError(f"{label}: the table tier launched {l_table}")
-    if l_sampled["gather_mean"] == 0 or l_sampled["spmm_mean"] != 0:
-        raise AssertionError(f"{label}: the sampled tier launched {l_sampled}")
-    main_launches["spmm_mean"] += l_table["spmm_mean"]
-    main_launches["gather_mean"] += l_sampled["gather_mean"]
+    for tier, launches, kernel in zip(("table", "sampled"), (l_table, l_sampled),
+                                      tier_kernels(model)):
+        others = any(n for k, n in launches.items() if k != kernel)
+        if others or (kernel is not None and launches[kernel] == 0):
+            raise AssertionError(f"{label}: the {tier} tier launched {launches}, "
+                                 f"want {kernel or 'no kernel'}")
+        if kernel is not None:
+            main_launches[kernel] += launches[kernel]
 
     # Covering fanouts see complete neighborhoods: sampled == table.
     max_deg = int(graph.degrees.max())
@@ -696,13 +768,19 @@ def serve_preset(name, graph, requests, main_launches, label=None,
     seeds = torch.from_numpy(requests[0].astype(np.int32)).to(graph.device)
     with torch.no_grad():
         fr = model.sample(gen, graph, seeds)
-        on_card = model(graph.features, fr).cpu()
+        on_card = model(graph.features, fr, graph=graph).cpu()
         cpu_model = copy.deepcopy(model).to("cpu")
-        on_cpu = cpu_model(graph.features.cpu(), fr.to("cpu"))
+        cpu_graph = graph.to("cpu")
+        on_cpu = cpu_model(cpu_graph.features, fr.to("cpu"), graph=cpu_graph)
     np.testing.assert_allclose(on_card.numpy(), on_cpu.numpy(), atol=1e-4,
                                err_msg=f"{label}: card forward != CPU forward")
     print(f"   {label}: covering fanout {max_deg} sampled == table; card == CPU "
           f"forward (max diff {float((on_card - on_cpu).abs().max()):.3g})")
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's name without its arguments, at most 48 characters."""
+    return kernel.replace("(anonymous namespace)::", "").split("(")[0][-48:]
 
 
 def step_device_ms(trainer, iters: int = 10) -> tuple[float, list]:
@@ -711,13 +789,43 @@ def step_device_ms(trainer, iters: int = 10) -> tuple[float, list]:
     seeds = next(trainer.batches())
     by_name = device_profile(lambda: trainer.step(seeds), iters=iters)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return sum(by_name.values()), [(k.split("(")[0][-48:], v) for k, v in top]
+    return sum(by_name.values()), [(short_name(k), v) for k, v in top]
+
+
+def step_launches(model_cfg) -> dict:
+    """Kernel launches of one training step (forward and backward)."""
+    want = {name: 0 for name in KERNELS}
+    if model_cfg.aggregator != "mean" or model_cfg.layer0 == "cached":
+        return want
+    if model_cfg.layer0 == "full":
+        want["spmm_mean"] = 2  # forward, and the backward: the kernel on g / deg
+    else:
+        want["gather_mean_dma" if model_cfg.gather_impl == "dma" else "gather_mean"] = 1
+        want["scatter_mean"] = 1
+    return want
+
+
+def eval_launches(cfg) -> dict:
+    """Kernel launches of the run's one evaluation: the sampled forward with
+    ``eval_fanouts``, else the full-graph forward (kernel 3 per mean
+    layer)."""
+    want = {name: 0 for name in KERNELS}
+    model_cfg = cfg.model
+    if model_cfg.aggregator != "mean":
+        return want
+    if cfg.train.eval_fanouts is None:
+        want["spmm_mean"] = len(model_cfg.hidden_dims)
+    elif model_cfg.layer0 != "cached":
+        want.update({k: int(v > 0) for k, v in step_launches(model_cfg).items()
+                     if k != "scatter_mean"})
+    return want
 
 
 def train_preset(name, root, main_launches, overrides=None, graph=None) -> dict:
     """``run_preset`` (given ``graph``, the preset's ``Trainer`` on it) with
     the launch counters set to 0 just before it and read just after; checks
-    the launches per step and that the losses are finite."""
+    the launches per step (a ``layer0="cached"`` run adds the cache's one
+    build at construction) and that the losses are finite."""
     cfg = preset_config(name, overrides)
     steps = cfg.train.num_steps
     log: list[str] = []
@@ -730,10 +838,10 @@ def train_preset(name, root, main_launches, overrides=None, graph=None) -> dict:
         result["trainer"] = trainer
     launches = read_launches()
     losses = np.asarray(result["losses"])
-    evals = 0 if cfg.train.eval_fanouts is None else 1  # the sampled evaluation
-    route = "gather_mean_dma" if cfg.model.gather_impl == "dma" else "gather_mean"
-    want = {name_: 0 for name_ in KERNELS}
-    want.update({route: steps + evals, "scatter_mean": steps})
+    per_step, evals = step_launches(cfg.model), eval_launches(cfg)
+    want = {k: steps * per_step[k] + evals[k] for k in KERNELS}
+    if cfg.model.layer0 == "cached":
+        want["spmm_mean"] += 1  # the cache, built at construction
     print(f"   {name} {overrides or ''}: {steps} steps, launches {launches}; "
           f"{log[-2]}; {log[-1]}")
     if launches != want:
@@ -789,7 +897,7 @@ def card_vs_cpu_grads(what, model, loss_fn, graph, *args) -> dict:
 
 
 def sampled_loss(model, graph, frontier, seeds):
-    return model.loss(graph.features, frontier, graph.labels[seeds.long()])
+    return model.loss(graph.features, frontier, graph.labels[seeds.long()], graph=graph)
 
 
 def full_graph_loss(model, graph, nodes):
@@ -808,8 +916,12 @@ def check_gradients(trainers) -> None:
         frontier = fresh[label].sample(gen, tr.graph, seeds)
         launches = card_vs_cpu_grads(f"{label} sampled step", fresh[label],
                                      sampled_loss, tr.graph, frontier, seeds)
-        if launches["scatter_mean"] != 1:
-            raise AssertionError(f"{label}: the sampled backward did not scatter")
+        want = step_launches(preset_config(PRESET_OF[label]).model)
+        if launches != want:
+            raise AssertionError(f"{label}: one step's forward and backward "
+                                 f"launched {launches}, want {want}")
+    if "cora" not in trainers:
+        return
     tr, model = trainers["cora"], fresh["cora"]
     nodes = torch.from_numpy(tr.train_nodes).to(tr.device).long()
     with torch.no_grad():
@@ -844,6 +956,97 @@ def project_first_times(trainers, iters: int = 10) -> dict:
         print(f"   {k}: host ms per step {v['host_ms']:.3f}, device ms per step "
               f"{v['device_ms']:.3f}")
     return out
+
+
+def graph_with_isolated_row(graph):
+    """``graph`` with one zero-degree node appended (a random feature row),
+    enough for the cache's build: features, CSR and degrees."""
+    row = torch.randn(1, graph.num_features, generator=torch.Generator().manual_seed(6))
+    indptr, _ = with_isolated_row(graph)
+    return dataclasses.replace(
+        graph, num_nodes=graph.num_nodes + 1, indptr=indptr,
+        features=torch.cat([graph.features, row.to(graph.device)]),
+        degrees=torch.cat([graph.degrees, graph.degrees.new_zeros(1)]),
+    )
+
+
+def check_cache(graphs) -> float:
+    """The card's layer-0 cache (kernel 3, one launch per build) against the
+    plain build on the CPU, on each graph with a zero-degree row, both
+    flavors; each entry within ``rtol`` of the mean of its terms'
+    magnitudes. Returns the largest difference."""
+    worst = 0.0
+    for label, g in graphs.items():
+        g = graph_with_isolated_row(g)
+        cpu = g.to("cpu")
+        for self_loop in (False, True):
+            reset_launches()
+            got = with_cached_layer0(g, self_loop=self_loop).layer0_cache
+            launches = read_launches()
+            if launches != {**{k: 0 for k in KERNELS}, "spmm_mean": 1}:
+                raise AssertionError(f"cache {label}: launches {launches}")
+            want = with_cached_layer0(cpu, self_loop=self_loop).layer0_cache
+            magnitude = with_cached_layer0(
+                dataclasses.replace(cpu, features=cpu.features.abs()),
+                self_loop=self_loop).layer0_cache
+            e = max_err(got.cpu(), want, f"cache {label} self_loop={self_loop}",
+                        magnitude=magnitude)
+            last = g.features[-1] if self_loop else torch.zeros_like(g.features[-1])
+            if not torch.equal(got[-1], last):
+                raise AssertionError(f"cache {label}: the zero-degree row is wrong")
+            print(f"   cache {label} N={g.num_nodes} F={g.num_features} "
+                  f"self_loop={self_loop}: max_abs_err={e:.3g}")
+            worst = max(worst, e)
+    return worst
+
+
+def cache_build_ms(graph) -> dict:
+    """Host ms (mean of 5) and device ms of building the cache."""
+    host = timed(lambda: [with_cached_layer0(graph) for _ in range(5)])[1] / 5
+    return dict(host_ms=host, device_ms=device_ms(lambda: with_cached_layer0(graph),
+                                                  "spmm_mean_kernel"))
+
+
+def layer0_mode_times(graph, overrides=None, iters: int = 10) -> dict:
+    """Host and device ms of one training step of the Pubmed preset in each
+    layer-0 mode on ``graph`` (the cache built before the timing)."""
+    out = {}
+    for mode, name in LAYER0_PRESETS.items():
+        cfg = preset_config(name, overrides)
+        t = Trainer(build_model(cfg, graph), graph, cfg.train)
+        seeds = next(t.batches())
+        for _ in range(3):
+            t.step(seeds)
+        _, ms = timed(lambda: [t.step(seeds) for _ in range(iters)])
+        dev_ms, top = step_device_ms(t)
+        out[mode] = dict(host_ms=ms / iters, device_ms=dev_ms,
+                         idle_share=1.0 - dev_ms / (ms / iters), top_kernels=top)
+    return out
+
+
+def gather_backward_times(graphs) -> None:
+    """Device ms of ``pubmed_layer0_full``'s table gather at hop 1 (a
+    1024-seed frontier into a [N, 128] table, forward and backward) by
+    indexing, ``table[ids]``, whose backward sorts the ids and adds each run
+    of equal ids in turn, and by ``gather`` (``index_select``, backward
+    ``index_add_``). On the synthetic Pubmed graph every masked slot of
+    hop 1 names node 0."""
+    for label in ("pubmed", "pubmed heavy-tailed"):
+        g = graphs[label]
+        model = build_model(preset_config("pubmed_layer0_full"), g)
+        gen = torch.Generator(device=g.device).manual_seed(9)
+        seeds = torch.randint(0, g.num_nodes, (1024,), generator=gen,
+                              device=g.device, dtype=torch.int32)
+        fr = model.sample(gen, g, seeds)
+        ids = fr.ids[1]
+        table = torch.randn(g.num_nodes, 128, device=g.device, requires_grad=True)
+        gout = torch.randn(ids.numel(), 128, device=g.device)
+        indexing = device_ms(lambda: table[ids.long()].backward(gout))
+        selected = device_ms(lambda: gather(table, ids).backward(gout))
+        print(f"   {label}: hop 1 {ids.numel()} slots, {int((~fr.masks[1]).sum())} "
+              f"masked, node 0 named {int((ids == 0).sum())} times; device ms of "
+              f"the gather forward and backward: table[ids] {indexing:.4f}, "
+              f"gather (index_select) {selected:.4f}")
 
 
 def main() -> int:
@@ -926,6 +1129,44 @@ def main() -> int:
         check_gradients(trainers)
     with phase("project-first step times"):
         project_first_times(trainers)
+
+    with phase("layer-0 cache"):
+        errs["spmm_mean"] = max(errs["spmm_mean"], check_cache(graphs))
+        print(f"   cache build on synthetic pubmed: "
+              f"{cache_build_ms(trainers['pubmed'].graph)}")
+    for name, root in (("pubmed_layer0_full", roots["pubmed"]),
+                       ("pubmed_layer0_cached", roots["pubmed"]),
+                       ("cora_pool", roots["cora"]), ("cora_lstm", roots["cora"])):
+        with phase(f"training {name}"):
+            results[name] = train_preset(name, root, main_launches)
+            results[name].update(check_learning(name, results[name]))
+    label = "pubmed_layer0_full heavy-tailed"
+    with phase(f"training {label}"):
+        results[label] = train_preset("pubmed_layer0_full", None, main_launches,
+                                      overrides=OVERRIDES_OF[label],
+                                      graph=graphs["pubmed heavy-tailed"])
+        results[label].update(check_learning(label, results[label]))
+    with phase("gradients of the new modes, card against CPU"):
+        check_gradients({name: results[name]["trainer"]
+                         for name in ("pubmed_layer0_full", "pubmed_layer0_full heavy-tailed",
+                                      "cora_pool", "cora_lstm")})
+    with phase("serving pubmed_layer0_full and cora_pool"):
+        n = graphs["pubmed"].num_nodes
+        serve_preset("pubmed_layer0_full", graphs["pubmed"],
+                     [rng.integers(0, n, 1024)], main_launches)
+        n = graphs["cora"].num_nodes
+        serve_preset("cora_pool", graphs["cora"],
+                     [rng.integers(0, n, size) for size in (100, 256, 1000)],
+                     main_launches)
+    with phase("pubmed layer-0 modes"):
+        for label, graph, over in (
+                ("synthetic pubmed", trainers["pubmed"].graph, None),
+                ("pubmed heavy-tailed", graphs["pubmed heavy-tailed"],
+                 OVERRIDES_OF["pubmed heavy-tailed"])):
+            times = layer0_mode_times(graph, over)
+            print(f"   layer-0 modes on {label}: " + json.dumps(times))
+    with phase("layer-0 table gather backward"):
+        gather_backward_times(graphs)
 
     kernels = []
     for name, meta in KERNELS.items():

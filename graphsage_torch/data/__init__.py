@@ -1,4 +1,4 @@
-from graphsage_torch.data.graph import Graph, build_graph
+from graphsage_torch.data.graph import Graph, build_graph, with_cached_layer0
 from graphsage_torch.data.loaders import load_cora, load_pubmed
 from graphsage_torch.data.synthetic import (
     power_law_graph,
@@ -18,4 +18,5 @@ __all__ = [
     "synth_pubmed_files",
     "synthetic_cora_graph",
     "synthetic_pubmed_graph",
+    "with_cached_layer0",
 ]

@@ -13,6 +13,9 @@ every array is identical from the same edges:
   ``edge_src=N-1``, ``edge_dst=0``, ``edge_mask=False``. Feeds the full-graph
   CSR SpMM.
 
+:func:`with_cached_layer0` attaches the precomputed full-neighborhood feature
+means behind ``GraphSAGE(layer0="cached")``.
+
 Indices are int32 throughout, as in the JAX ``Graph``.
 """
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from graphsage_torch._device import resolve_device
+from graphsage_torch.ops.spmm import spmm_mean
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,6 +57,10 @@ class Graph:
     ell_covers_all: bool = True
     # True when the adjacency is symmetric (built undirected, no truncation).
     symmetric: bool = True
+    # with_cached_layer0's [N, F] table of full-neighborhood feature means,
+    # and whether it folds each node in (the self_loop flavor).
+    layer0_cache: torch.Tensor | None = None
+    layer0_cache_self_loop: bool = False
 
     def __repr__(self) -> str:
         return (
@@ -74,6 +82,48 @@ class Graph:
             if isinstance(getattr(self, f.name), torch.Tensor)
         }
         return dataclasses.replace(self, **moved)
+
+
+def with_cached_layer0(graph: Graph, self_loop: bool = False,
+                       quantize: bool = False) -> Graph:
+    """A copy of ``graph`` carrying ``layer0_cache``: ``M = D^-1 A X``, or
+    ``(A X + X) / (D + 1)`` with ``self_loop``; zero-degree rows are 0
+    (``X`` with ``self_loop``).
+
+    The feature table is frozen (quirk Q12) and the mean is linear, so the
+    deepest hop's full-neighborhood aggregate is a constant per node: the
+    cache is what sampling that hop estimates (the reference's
+    ``num_sample=None``, quirk Q7, at the input-closest layer). ``A X`` is
+    the CSR SpMM summed without normalising, Hopper kernel 3 on the card (no
+    per-edge transient), its plain version on the CPU; the cache has the
+    features' dtype. Idempotent for the same flavor; a cache of the other
+    flavor raises.
+    """
+    if quantize:
+        raise NotImplementedError(
+            "an int8 layer-0 cache is not ported yet (ROADMAP Queue 1 item 8)"
+        )
+    if graph.layer0_cache is not None:
+        if graph.layer0_cache_self_loop != bool(self_loop):
+            raise ValueError(
+                "graph already carries a layer0_cache with self_loop="
+                f"{graph.layer0_cache_self_loop}; rebuild from the base graph "
+                "(dataclasses.replace(graph, layer0_cache=None)) to switch "
+                "flavors"
+            )
+        return graph
+    x = graph.features.to(torch.float32)
+    with torch.no_grad():
+        summed = spmm_mean(x, graph.indptr, graph.edge_dst, normalize=False)
+    deg = graph.degrees.to(torch.float32)[:, None]
+    if self_loop:
+        cache = (summed + x) / (deg + 1.0)
+    else:
+        cache = summed / deg.clamp(min=1.0)
+    return dataclasses.replace(
+        graph, layer0_cache=cache.to(graph.features.dtype),
+        layer0_cache_self_loop=bool(self_loop),
+    )
 
 
 def sorted_unique_edges(
@@ -134,7 +184,7 @@ def build_graph(
     if labels.ndim == 2 and labels.shape[1] > 1:
         raise NotImplementedError(
             "multi-hot labels come with the multilabel head (ROADMAP Queue 1 "
-            "item 7)"
+            "item 10)"
         )
     labels = labels.reshape(-1).astype(np.int32)
     num_nodes, num_features = features.shape

@@ -1,26 +1,37 @@
 """Multi-layer supervised GraphSAGE with explicit per-hop frontiers: the
-counterpart of ``graphsage_tpu/models/graphsage.py`` for the mean aggregator
-and ``layer0="sampled"``.
+counterpart of ``graphsage_tpu/models/graphsage.py``.
 
   1. ``sample``  — build hop frontiers seeds -> hop1 -> ... -> hopL with the
      fixed-fanout sampler. Frontiers are flat ``[B * prod(k)]`` tensors; no
      deduplication.
-  2. ``forward`` — layer 0 is the fused masked gather-mean (Hopper kernel 1
-     on the card), then the upper layers fold inward: reshape to
-     ``[parents, k, d]``, masked mean, project, ReLU.
+  2. ``forward`` — layer 0, then the upper layers fold inward: reshape to
+     ``[parents, k, d]``, aggregate, project, ReLU.
   3. a linear classification head; ``loss`` is its mean softmax
      cross-entropy, the training objective.
+
+Layer 0 runs in one of three modes (``layer0``):
+
+* ``"sampled"`` — the deepest hop is sampled like the others. With the mean
+  aggregator it is the fused masked gather-mean (Hopper kernel 1 on the
+  card); maxpool and lstm gather the raw feature rows of the deepest hop.
+* ``"full"`` — layer 0 runs once per step over every node with complete
+  neighborhoods (:meth:`GraphSAGE.layer0_full_table`: the CSR mean-SpMM,
+  Hopper kernel 3, forward and backward, or the per-edge segment max), and
+  the upper layers gather its rows; the deepest hop is not sampled.
+* ``"cached"`` — mean only: the full-neighborhood feature means are a
+  constant per node (the features are frozen), built once by
+  :func:`graphsage_torch.data.graph.with_cached_layer0` and gathered at the
+  hop layer 1 consumes; the deepest hop is not sampled.
 
 Hop ``h`` is built with the fanout of layer ``L-h`` (0-based): the top
 layer's fanout governs the first expansion. With ``concat_self`` or
 ``self_loop`` each frontier row carries the parent in column 0.
 
 ``forward_full_graph`` runs the same layers over every node with complete
-neighborhoods through the CSR mean-SpMM (Hopper kernel 3 on the card) — the
+neighborhoods (the mean through the CSR mean-SpMM, maxpool through a
+per-edge segment max, lstm over the ELL rows in adjacency order) — the
 deterministic inference path behind the serving table tier and evaluation
-with ``eval_fanouts=None``. Both kernels have backward kernels
-(:mod:`graphsage_torch.ops.scatter_mean`; the SpMM kernel itself on a
-symmetric graph), so both paths train.
+with ``eval_fanouts=None``.
 """
 
 from __future__ import annotations
@@ -35,12 +46,14 @@ from torch import nn
 from graphsage_torch._device import resolve_device
 from graphsage_torch.data.graph import Graph
 from graphsage_torch.models.layers import (
+    AGGREGATORS,
     SAGELayer,
+    apply_full_graph_maxpool_layer,
     apply_full_graph_mean_layer,
     glorot_uniform,
     split_mean_weight,
 )
-from graphsage_torch.ops.aggregate import gather, gather_mean, spmm_mean
+from graphsage_torch.ops.aggregate import gather, gather_mean, segment_max_csr, spmm_mean
 from graphsage_torch.ops.sampling import sample_neighbors
 
 
@@ -64,12 +77,11 @@ class Frontier(NamedTuple):
 
 # What the port does not run yet, and the ROADMAP Queue 1 item that brings it.
 _NOT_PORTED = {
-    "aggregator": ("mean", 7),
-    "layer0": ("sampled", 6),
     "sampling": ("floyd", 9),
     "compute_dtype": (None, 8),
-    "multilabel": (False, 7),
+    "multilabel": (False, 10),
 }
+LAYER0_MODES = ("sampled", "full", "cached")
 
 
 class GraphSAGE(nn.Module):
@@ -91,6 +103,7 @@ class GraphSAGE(nn.Module):
         aggregator: str = "mean",
         concat_self: bool = False,
         self_loop: bool = False,
+        pool_dim: int | None = None,
         layer0: str = "sampled",
         sampling: str = "floyd",
         compute_dtype=None,
@@ -106,8 +119,24 @@ class GraphSAGE(nn.Module):
             raise ValueError("hidden_dims and fanouts must have one entry per layer")
         if self_loop and concat_self:
             raise ValueError("self_loop and concat_self are mutually exclusive")
-        given = {"aggregator": aggregator, "layer0": layer0, "sampling": sampling,
-                 "compute_dtype": compute_dtype, "multilabel": multilabel}
+        if aggregator not in AGGREGATORS:
+            raise ValueError(f"unknown aggregator {aggregator!r}")
+        if layer0 not in LAYER0_MODES:
+            raise ValueError(f"unknown layer0 mode {layer0!r}")
+        if aggregator == "lstm" and layer0 == "full":
+            raise ValueError(
+                "layer0='full' supports the mean and maxpool aggregators only: "
+                "the shared-table build is a segment reduction over the CSR "
+                "edge list, and an LSTM over every node's full neighbor "
+                "sequence has no such form"
+            )
+        if layer0 == "cached" and aggregator != "mean":
+            raise ValueError(
+                "layer0='cached' requires the mean aggregator: the cache is "
+                "exact only because the mean is linear in the frozen features"
+            )
+        given = {"sampling": sampling, "compute_dtype": compute_dtype,
+                 "multilabel": multilabel}
         for name, (supported, item) in _NOT_PORTED.items():
             if given[name] != supported:
                 raise NotImplementedError(
@@ -119,8 +148,11 @@ class GraphSAGE(nn.Module):
         self.num_classes = num_classes
         self.hidden_dims = tuple(hidden_dims)
         self.fanouts = tuple(fanouts)
+        self.aggregator = aggregator
         self.concat_self = concat_self
         self.self_loop = self_loop
+        self.pool_dim = pool_dim
+        self.layer0 = layer0
         self.gather_impl = gather_impl
         self.spmm_impl = spmm_impl
         self.project_first = project_first
@@ -128,7 +160,8 @@ class GraphSAGE(nn.Module):
             generator = torch.Generator().manual_seed(0)
         layers, d_in = [], in_dim
         for d_out in self.hidden_dims:
-            layers.append(SAGELayer(d_in, d_out, concat_self, generator=generator))
+            layers.append(SAGELayer(d_in, d_out, concat_self, generator=generator,
+                                    aggregator=aggregator, pool_dim=pool_dim))
             d_in = d_out
         self.layers = nn.ModuleList(layers)
         self.head = nn.Parameter(glorot_uniform((d_in, num_classes), generator))
@@ -149,7 +182,8 @@ class GraphSAGE(nn.Module):
         return cls(
             in_dim, num_classes, cfg.hidden_dims, cfg.fanouts,
             aggregator=cfg.aggregator, concat_self=cfg.concat_self,
-            self_loop=cfg.self_loop, layer0=cfg.layer0, sampling=cfg.sampling,
+            self_loop=cfg.self_loop, pool_dim=cfg.pool_dim, layer0=cfg.layer0,
+            sampling=cfg.sampling,
             compute_dtype=cfg.compute_dtype, gather_impl=cfg.gather_impl,
             spmm_impl=cfg.spmm_impl, project_first=cfg.project_first, **kwargs,
         )
@@ -171,7 +205,10 @@ class GraphSAGE(nn.Module):
         whole table and the backward scatter into the projected table), so
         which order is cheaper there depends on N against the number of
         gathered rows and on the widths. The H100 step times of both orders
-        for the ``cora`` and ``pubmed`` presets are in ``PERF.md``."""
+        for the ``cora`` and ``pubmed`` presets are in ``PERF.md``. Only the
+        mean is linear, so maxpool and lstm never project first."""
+        if self.aggregator != "mean":
+            return False
         if self.project_first == "auto":
             return d_in > self.hidden_dims[layer]
         return bool(self.project_first)
@@ -185,13 +222,16 @@ class GraphSAGE(nn.Module):
         fanouts: Sequence[int | None] | None = None,
     ) -> Frontier:
         """Expand seed nodes into per-hop frontiers (static shapes).
-        ``fanouts`` overrides the model's own (serving's ``eval_fanouts``)."""
+        ``fanouts`` overrides the model's own (serving's ``eval_fanouts``).
+        With ``layer0="full"`` or ``"cached"`` the deepest hop is skipped:
+        layer 0 reads a per-node table there."""
         fanouts = self.fanouts if fanouts is None else tuple(fanouts)
         seeds = seeds.reshape(-1)
         ids = [seeds]
         masks = [torch.ones(seeds.shape, dtype=torch.bool, device=seeds.device)]
         L = self.num_layers
-        for h in range(1, L + 1):
+        hops = L - 1 if self.layer0 in ("full", "cached") else L
+        for h in range(1, hops + 1):
             parent_ids, parent_mask = ids[-1], masks[-1]
             nids, nmask = sample_neighbors(
                 generator, graph.neighbors, graph.degrees, parent_ids,
@@ -209,15 +249,112 @@ class GraphSAGE(nn.Module):
             masks.append(nmask.reshape(-1))
         return Frontier(ids=tuple(ids), masks=tuple(masks))
 
+    # ---------------------------------------------------- layer-0 tables
+    def _spmm(self, graph: Graph):
+        """The full-graph mean over ``graph``'s CSR: ``x -> (mean, degrees)``."""
+        def spmm(x):
+            mean = spmm_mean(
+                x, graph.edge_src, graph.edge_dst, graph.edge_mask,
+                graph.num_nodes, indptr=graph.indptr, impl=self.spmm_impl,
+                symmetric=graph.symmetric,
+            )
+            return mean, graph.degrees
+        return spmm
+
+    @staticmethod
+    def _segmax(graph: Graph):
+        """The full-graph guarded max over ``graph``'s edges: a per-edge
+        gather, then the segment max by source."""
+        def segmax(pooled):
+            return segment_max_csr(gather(pooled, graph.edge_dst), graph.edge_src,
+                                   graph.edge_mask, graph.num_nodes)
+        return segmax
+
+    def layer0_full_table(self, features: torch.Tensor, graph: Graph | None) -> torch.Tensor:
+        """The shared layer-0 table of ``layer0="full"``: layer 0 over every
+        node with complete neighborhoods, ``[N, hidden[0]]``."""
+        if self.layer0 != "full":
+            raise ValueError("layer0_full_table requires layer0='full'")
+        if graph is None:
+            raise ValueError(
+                "layer0='full' needs forward(..., graph=...): the full-graph "
+                "layer 0 reads the CSR adjacency"
+            )
+        if not features.is_floating_point():
+            raise NotImplementedError(
+                "int8 feature tables are not ported yet (ROADMAP Queue 1 item 8)"
+            )
+        if self.aggregator == "mean":
+            return apply_full_graph_mean_layer(
+                self.layers[0], features, self._spmm(graph),
+                self_loop=self.self_loop,
+                project_first=self.use_project_first(0, self.in_dim),
+            )
+        return apply_full_graph_maxpool_layer(
+            self.layers[0], features, self._segmax(graph), self_loop=self.self_loop)
+
+    def check_layer0_cache(self, graph: Graph | None) -> torch.Tensor:
+        """``graph``'s layer-0 cache, after checking that it is there and of
+        this model's ``self_loop`` flavor."""
+        if graph is None or graph.layer0_cache is None:
+            raise ValueError(
+                "layer0='cached' needs the precomputed aggregate table: pass "
+                "forward(..., graph=...) where graph was built with "
+                "with_cached_layer0(graph)"
+            )
+        if graph.layer0_cache_self_loop != self.self_loop:
+            raise ValueError(
+                "graph.layer0_cache was built with self_loop="
+                f"{graph.layer0_cache_self_loop} but the model has self_loop="
+                f"{self.self_loop}; rebuild the cache with the matching flavor"
+            )
+        return graph.layer0_cache
+
     # ------------------------------------------------------------- forward
     def forward(
         self,
         features: torch.Tensor,
         frontier: Frontier,
         return_embeddings: bool = False,
+        *,
+        graph: Graph | None = None,
     ) -> torch.Tensor:
         """Logits ``[B, num_classes]`` for the frontier's seed batch (or the
-        pre-head representations with ``return_embeddings``)."""
+        pre-head representations with ``return_embeddings``). ``graph``
+        supplies the adjacency (``layer0="full"``) or the cache
+        (``layer0="cached"``); the sampled mode ignores it."""
+        L = self.num_layers
+        start = 1
+        if self.layer0 == "cached":
+            ids = frontier.ids[L - 1]
+            agg = gather(self.check_layer0_cache(graph), ids)
+            self_h = gather(features, ids) if self.concat_self else None
+            h = self.layers[0](self_h, None, None, precomputed_agg=agg)
+        elif self.layer0 == "full":
+            h = gather(self.layer0_full_table(features, graph), frontier.ids[L - 1])
+        elif self.aggregator == "mean":
+            h = self._sampled_mean_layer0(features, frontier)
+        else:  # maxpool and lstm read the deepest hop's raw rows
+            h = gather(features, frontier.ids[L])
+            start = 0
+        for l in range(start, L):
+            hop_in = L - l  # activations currently live at this hop
+            n_out = frontier.ids[hop_in - 1].shape[0]
+            k_cols = frontier.ids[hop_in].shape[0] // n_out
+            h3 = h.reshape(n_out, k_cols, h.shape[-1])
+            m3 = frontier.masks[hop_in].reshape(n_out, k_cols)
+            if self.concat_self:
+                self_h, neigh, nm = h3[:, 0], h3[:, 1:], m3[:, 1:]
+            else:
+                self_h, neigh, nm = None, h3, m3
+            h = self.layers[l](self_h, neigh, nm)
+        if return_embeddings:
+            return h
+        return h @ self.head
+
+    def _sampled_mean_layer0(self, features: torch.Tensor, frontier: Frontier) -> torch.Tensor:
+        """Layer 0 of the sampled mean model: the fused gather-mean over the
+        deepest hop, projecting first or aggregating first."""
         L = self.num_layers
         n_out = frontier.ids[L - 1].shape[0]
         k_cols = frontier.ids[L].shape[0] // n_out
@@ -240,31 +377,16 @@ class GraphSAGE(nn.Module):
             pre = fused(features @ w_neigh)
             if self.concat_self:
                 pre = pre + gather(features @ w_self, self_ids)
-            h = torch.relu(pre)
-        else:
-            self_h = gather(features, self_ids) if self.concat_self else None
-            h = layer0(self_h, None, None, precomputed_agg=fused(features))
-        for l in range(1, L):
-            hop_in = L - l  # activations currently live at this hop
-            n_out = frontier.ids[hop_in - 1].shape[0]
-            k_cols = frontier.ids[hop_in].shape[0] // n_out
-            h3 = h.reshape(n_out, k_cols, h.shape[-1])
-            m3 = frontier.masks[hop_in].reshape(n_out, k_cols)
-            if self.concat_self:
-                self_h, neigh, nm = h3[:, 0], h3[:, 1:], m3[:, 1:]
-            else:
-                self_h, neigh, nm = None, h3, m3
-            h = self.layers[l](self_h, neigh, nm)
-        if return_embeddings:
-            return h
-        return h @ self.head
+            return torch.relu(pre)
+        self_h = gather(features, self_ids) if self.concat_self else None
+        return layer0(self_h, None, None, precomputed_agg=fused(features))
 
     def apply_sampled(
         self, generator: torch.Generator, graph: Graph, seeds: torch.Tensor
     ) -> torch.Tensor:
         """``sample`` + ``forward`` in one call: logits ``[B, C]`` (the JAX
         model's ``apply``; the name ``apply`` stays ``nn.Module``'s)."""
-        return self(graph.features, self.sample(generator, graph, seeds))
+        return self(graph.features, self.sample(generator, graph, seeds), graph=graph)
 
     def embed(
         self, generator: torch.Generator, graph: Graph, seeds: torch.Tensor
@@ -272,15 +394,17 @@ class GraphSAGE(nn.Module):
         """Sampled node representations ``[B, hidden[-1]]`` (what the head
         consumes); :meth:`embed_full_graph` gives deterministic ones."""
         return self(graph.features, self.sample(generator, graph, seeds),
-                    return_embeddings=True)
+                    return_embeddings=True, graph=graph)
 
     # ----------------------------------------------------------------- loss
     def loss(
-        self, features: torch.Tensor, frontier: Frontier, labels: torch.Tensor
+        self, features: torch.Tensor, frontier: Frontier, labels: torch.Tensor,
+        *, graph: Graph | None = None,
     ) -> torch.Tensor:
         """Mean softmax cross-entropy of the frontier's seeds against their
         integer ``labels`` (reference model.py:35-37)."""
-        return self.classification_loss(self(features, frontier), labels).mean()
+        return self.classification_loss(
+            self(features, frontier, graph=graph), labels).mean()
 
     def classification_loss(
         self, logits: torch.Tensor, labels: torch.Tensor
@@ -293,26 +417,45 @@ class GraphSAGE(nn.Module):
         self, graph: Graph, return_embeddings: bool = False
     ) -> torch.Tensor:
         """Deterministic logits for every node, using complete neighborhoods
-        (the reference with ``num_sample=None``, quirk Q7)."""
-
-        def spmm(x):
-            mean = spmm_mean(
-                x, graph.edge_src, graph.edge_dst, graph.edge_mask,
-                graph.num_nodes, indptr=graph.indptr, impl=self.spmm_impl,
-                symmetric=graph.symmetric,
+        (the reference with ``num_sample=None``, quirk Q7). The LSTM reads
+        each node's ELL row in adjacency order (the parent first with
+        ``self_loop``), the order covering-fanout sampling gives, so it needs
+        an ELL table that covers every neighbor."""
+        if self.aggregator == "lstm" and not graph.ell_covers_all:
+            raise ValueError(
+                "full-graph forward with aggregator='lstm' needs the ELL table "
+                "to cover every neighbor (this graph is hub-capped); evaluate "
+                "with sampled neighborhoods (eval_fanouts) instead"
             )
-            return mean, graph.degrees
-
         h = graph.features
         for l, layer in enumerate(self.layers):
-            h = apply_full_graph_mean_layer(
-                layer, h, spmm,
-                self_loop=self.self_loop,
-                project_first=self.use_project_first(l, h.shape[-1]),
-            )
+            if self.aggregator == "mean":
+                h = apply_full_graph_mean_layer(
+                    layer, h, self._spmm(graph),
+                    self_loop=self.self_loop,
+                    project_first=self.use_project_first(l, h.shape[-1]),
+                )
+            elif self.aggregator == "maxpool":
+                h = apply_full_graph_maxpool_layer(
+                    layer, h, self._segmax(graph), self_loop=self.self_loop)
+            else:
+                h = layer(h if self.concat_self else None,
+                          *self._ell_sequences(graph, h))
         if return_embeddings:
             return h
         return h @ self.head
+
+    def _ell_sequences(self, graph: Graph, h: torch.Tensor):
+        """Every node's neighbor rows in ELL order ``[N, W, d]`` and their
+        mask; with ``self_loop`` the node's own row comes first."""
+        width = graph.neighbors.shape[-1]
+        slots = torch.arange(width, device=h.device)
+        mask = slots[None, :] < graph.degrees.clamp(max=width)[:, None]
+        seq = gather(h, graph.neighbors)
+        if self.self_loop:
+            seq = torch.cat([h[:, None, :], seq], dim=1)
+            mask = torch.cat([mask.new_ones((h.shape[0], 1)), mask], dim=1)
+        return seq, mask
 
     def embed_full_graph(self, graph: Graph) -> torch.Tensor:
         """Deterministic embeddings ``[N, hidden[-1]]`` for every node."""

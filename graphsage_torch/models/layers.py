@@ -1,14 +1,21 @@
-"""One GraphSAGE layer: the counterpart of ``graphsage_tpu/models/layers.py``
-for the mean aggregator.
+"""One GraphSAGE layer: the counterpart of ``graphsage_tpu/models/layers.py``.
+
+Three aggregators, the GraphSAGE paper's family (§3.3):
+
+* ``mean``    — masked neighbor mean.
+* ``maxpool`` — a per-neighbor MLP (``relu(x @ pool_weight + pool_bias)``),
+  then the masked max.
+* ``lstm``    — an LSTM run over each row's neighbor sequence; the aggregate
+  is its final hidden state (:func:`masked_lstm`).
 
 Two combine modes:
 
 * ``concat_self=False`` — the reference's *shipped* mode (quirk Q2):
-  ``h = act(mean(neigh) @ W)`` with no self term.
-* ``concat_self=True``  — ``h = act([self ; mean(neigh)] @ W)``.
+  ``h = act(agg(neigh) @ W)`` with no self term.
+* ``concat_self=True``  — ``h = act([self ; agg(neigh)] @ W)``.
 
-Weights are stored ``[in, out]``, the JAX layout, so that carrying weights
-across is a plain copy.
+Weights are stored ``[in, out]``, the JAX layout, and named as the fields of
+the JAX ``SAGELayerParams``, so that carrying weights across is a plain copy.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ from typing import Callable
 import torch
 from torch import nn
 
-from graphsage_torch.ops.aggregate import masked_mean
+from graphsage_torch.ops.aggregate import masked_max, masked_mean
+
+AGGREGATORS = ("mean", "maxpool", "lstm")
 
 
 def glorot_uniform(shape: tuple[int, int], generator: torch.Generator) -> torch.Tensor:
@@ -27,6 +36,15 @@ def glorot_uniform(shape: tuple[int, int], generator: torch.Generator) -> torch.
     ``generator`` (the reference's ``init.xavier_uniform_``)."""
     limit = math.sqrt(6.0 / (shape[0] + shape[1]))
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
+
+
+def combined_input_dim(in_dim: int, pool_dim: int | None, aggregator: str,
+                       concat_self: bool) -> int:
+    """Rows of a layer's ``weight``: the aggregate's width (``pool_dim``, the
+    pooling MLP's and the LSTM's hidden width, for maxpool and lstm) plus
+    ``in_dim`` with ``concat_self``."""
+    agg_dim = in_dim if aggregator == "mean" else (pool_dim or in_dim)
+    return agg_dim + (in_dim if concat_self else 0)
 
 
 def split_mean_weight(
@@ -45,17 +63,34 @@ def split_mean_weight(
 
 
 class SAGELayer(nn.Module):
-    """Mean-aggregator layer holding its ``[combined_in, out]`` weight,
-    glorot-initialised on the CPU from ``generator``."""
+    """One layer's parameters, glorot-initialised on the CPU from
+    ``generator``: ``weight [combined_in, out]`` and, for ``maxpool``,
+    ``pool_weight [in, pool_dim]`` and ``pool_bias`` (zeros); for ``lstm``,
+    ``lstm_wx [in, 4H]``, ``lstm_wh [H, 4H]`` and ``lstm_b`` (zeros, with
+    the forget gate's slice ``[H:2H]`` set to 1), ``H = pool_dim or in``."""
 
     def __init__(self, in_dim: int, out_dim: int, concat_self: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, *,
+                 aggregator: str = "mean", pool_dim: int | None = None):
         super().__init__()
+        if aggregator not in AGGREGATORS:
+            raise ValueError(f"unknown aggregator {aggregator!r}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.in_dim, self.out_dim, self.concat_self = in_dim, out_dim, concat_self
-        cin = in_dim * (2 if concat_self else 1)
+        self.aggregator = aggregator
+        cin = combined_input_dim(in_dim, pool_dim, aggregator, concat_self)
         self.weight = nn.Parameter(glorot_uniform((cin, out_dim), generator))
+        hdim = pool_dim or in_dim
+        if aggregator == "maxpool":
+            self.pool_weight = nn.Parameter(glorot_uniform((in_dim, hdim), generator))
+            self.pool_bias = nn.Parameter(torch.zeros(hdim))
+        elif aggregator == "lstm":
+            self.lstm_wx = nn.Parameter(glorot_uniform((in_dim, 4 * hdim), generator))
+            self.lstm_wh = nn.Parameter(glorot_uniform((hdim, 4 * hdim), generator))
+            b = torch.zeros(4 * hdim)
+            b[hdim:2 * hdim] = 1.0
+            self.lstm_b = nn.Parameter(b)
 
     def forward(self, self_feats, neigh_feats, neigh_mask, *,
                 activation=torch.relu, precomputed_agg=None) -> torch.Tensor:
@@ -63,6 +98,44 @@ class SAGELayer(nn.Module):
             self, self_feats, neigh_feats, neigh_mask,
             activation=activation, precomputed_agg=precomputed_agg,
         )
+
+
+def pool(layer: SAGELayer, x: torch.Tensor) -> torch.Tensor:
+    """The max-pooling aggregator's per-row MLP, ``relu(x @ Wp + bp)``."""
+    return torch.relu(x @ layer.pool_weight + layer.pool_bias)
+
+
+def masked_lstm(
+    wx: torch.Tensor,  # [d_in, 4H]
+    wh: torch.Tensor,  # [H, 4H]
+    b: torch.Tensor,  # [4H]
+    neigh_feats: torch.Tensor,  # [..., k, d_in]
+    neigh_mask: torch.Tensor,  # [..., k]
+) -> torch.Tensor:
+    """Final hidden state ``[..., H]`` of an LSTM over each row's neighbor
+    sequence (gates ``i, f, g, o`` in that order, computed in f32).
+
+    The input projection runs once for all ``k`` steps; the recurrence is a
+    Python loop over them. A masked slot carries ``(h, c)`` through
+    unchanged, so the result does not depend on where padding sits in the
+    row and an empty row gives 0 (quirk Q4). ``nn.LSTM`` cannot skip masked
+    slots, hence the gate math written out.
+    """
+    h_dim = wh.shape[0]
+    lead, k = neigh_feats.shape[:-2], neigh_feats.shape[-2]
+    x = neigh_feats.reshape(-1, k, neigh_feats.shape[-1])
+    m = neigh_mask.reshape(-1, k)[..., None]
+    xg = (x @ wx.to(x.dtype)).to(torch.float32)  # [B, k, 4H]
+    wh32, b32 = wh.to(torch.float32), b.to(torch.float32)
+    h = xg.new_zeros((x.shape[0], h_dim))
+    c = xg.new_zeros((x.shape[0], h_dim))
+    for t in range(k):
+        i, f, g, o = (xg[:, t] + h @ wh32 + b32).chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        h = torch.where(m[:, t], h_new, h)
+        c = torch.where(m[:, t], c_new, c)
+    return h.reshape(*lead, h_dim).to(neigh_feats.dtype)
 
 
 def apply_sage_layer(
@@ -73,15 +146,20 @@ def apply_sage_layer(
     activation: Callable[[torch.Tensor], torch.Tensor] | None = torch.relu,
     precomputed_agg: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Apply one layer. Returns ``[..., out_dim]``.
+    """Apply one layer with its own aggregator. Returns ``[..., out_dim]``.
 
-    ``precomputed_agg`` replaces the masked mean when the aggregation was
-    already fused upstream (the gather-mean kernel on the deepest hop).
+    ``precomputed_agg`` replaces the aggregation when it was already done
+    upstream (the gather-mean kernel on the deepest hop, the cached layer 0).
     """
     if precomputed_agg is not None:
         agg = precomputed_agg
-    else:
+    elif layer.aggregator == "mean":
         agg = masked_mean(neigh_feats, neigh_mask)
+    elif layer.aggregator == "lstm":
+        agg = masked_lstm(layer.lstm_wx, layer.lstm_wh, layer.lstm_b,
+                          neigh_feats, neigh_mask)
+    else:
+        agg = masked_max(pool(layer, neigh_feats), neigh_mask)
     if layer.concat_self:
         if self_feats is None:
             raise ValueError("concat_self=True requires self_feats")
@@ -126,3 +204,23 @@ def apply_full_graph_mean_layer(
         mean = (mean * c + h) / (c + 1.0)
     combined = torch.cat([h, mean], dim=-1) if layer.concat_self else mean
     return activation(combined @ w)
+
+
+def apply_full_graph_maxpool_layer(
+    layer: SAGELayer,
+    h: torch.Tensor,  # [N, d_in]
+    segmax,  # Callable[[pooled [N, pd]], guarded per-node max [N, pd]]
+    *,
+    self_loop: bool,
+    activation=torch.relu,
+) -> torch.Tensor:
+    """One full-graph max-pooling layer over every node: the pooling MLP
+    once per node, then ``segmax`` (0 on rows without neighbors)."""
+    pooled = pool(layer, h)
+    agg = segmax(pooled)
+    if self_loop:
+        # pooled >= 0 (ReLU) and empty rows give 0, so an elementwise max
+        # adds the self loop exactly.
+        agg = torch.maximum(agg, pooled)
+    combined = torch.cat([h, agg], dim=-1) if layer.concat_self else agg
+    return activation(combined @ layer.weight)

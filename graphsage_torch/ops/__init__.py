@@ -1,8 +1,10 @@
 from graphsage_torch.ops.sampling import sample_neighbors, full_neighbors
 from graphsage_torch.ops.aggregate import (
+    masked_max,
     masked_mean,
     gather,
     spmm_mean,
+    segment_max_csr,
     segment_mean_csr,
 )
 
@@ -12,8 +14,10 @@ from graphsage_torch.ops.aggregate import (
 __all__ = [
     "sample_neighbors",
     "full_neighbors",
+    "masked_max",
     "masked_mean",
     "gather",
     "spmm_mean",
+    "segment_max_csr",
     "segment_mean_csr",
 ]

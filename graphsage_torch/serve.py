@@ -4,11 +4,13 @@
   deterministic full-graph forward (complete neighborhoods, quirk Q7; one
   CSR mean-SpMM per layer) refreshes an ``[N, d_L]`` embedding table per
   parameter update, and every request after that is a row gather plus the
-  ``[d_L, C]`` head product.
+  ``[d_L, C]`` head product. Every aggregator goes through
+  ``forward_full_graph`` (maxpool's segment max, lstm's ELL rows).
 * ``mode="sampled"`` — the reference-observable stochastic forward (the
   reference samples at eval time too); each request re-seeds its generator
   with ``seed + 7``, so identical requests return identical answers. Layer 0
-  is the fused gather-mean.
+  runs in the model's ``layer0`` mode (a ``"cached"`` model needs a graph
+  built by ``with_cached_layer0``).
 
 Requests pad to a small set of static batch **buckets** (the smallest that
 fits, or a multiple of the largest) with node 0, so the work per request
@@ -116,7 +118,8 @@ class ServingEngine:
             gen = torch.Generator(device=self.device).manual_seed(self.seed + 7)
             frontier = self.model.sample(gen, self.graph, ids, self.eval_fanouts)
             rows = self.model.forward(
-                self.graph.features, frontier, return_embeddings=True
+                self.graph.features, frontier, return_embeddings=True,
+                graph=self.graph,
             )
         return rows, rows @ self.model.head, n
 

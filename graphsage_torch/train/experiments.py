@@ -117,7 +117,6 @@ _NOT_PORTED_FLAGS = {
     "log_jsonl": 12,
     "diagnostics_dir": 12,
     "sampling": 9,
-    "layer0": 6,
     "quantize_features": 8,
     "hub_cache_rows": 14,
     "debug_nans": "the port has no NaN-checking mode yet",
@@ -151,6 +150,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--quiet", action="store_true", help="suppress per-step loss")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (cuda or cpu)")
+    parser.add_argument("--layer0", choices=("sampled", "full", "cached"),
+                        default=None,
+                        help="layer-0 formulation: sampled (the reference's "
+                        "estimator) | full (one full-graph pass per step) | "
+                        "cached (a frozen aggregate table built once)")
     for flag in _NOT_PORTED_FLAGS:
         opt = "--" + flag.replace("_", "-")
         if flag in ("eval_only", "debug_nans", "quantize_features",
@@ -170,7 +174,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     for flag, field in (("steps", "num_steps"), ("batch_size", "batch_size"),
                         ("lr", "learning_rate"), ("seed", "seed"),
                         ("batching", "batching"), ("test_size", "test_size"),
-                        ("val_size", "val_size")):
+                        ("val_size", "val_size"), ("layer0", "layer0")):
         if getattr(args, flag) is not None:
             overrides[field] = getattr(args, flag)
     if args.quiet:

@@ -3,8 +3,10 @@ sampled supervised training.
 
 PyTorch runs eagerly, so a step is a Python function: sample the seeds'
 frontier on the graph's device, forward, softmax cross-entropy, backward
-(layer 0's gather-mean backward is the scatter-mean kernel on the card) and
-one optimizer update. There is no ``jit`` or ``scan``: the loop dispatches
+(the sampled mean layer 0's gather-mean backward is the scatter-mean kernel
+on the card; ``layer0="full"``'s is the SpMM kernel again) and one optimizer
+update. A ``layer0="cached"`` model gets its graph's cache built at
+construction when the graph has none. There is no ``jit`` or ``scan``: the loop dispatches
 one step at a time, and ``TrainConfig.steps_per_dispatch`` has no meaning
 here.
 
@@ -31,7 +33,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from graphsage_torch.data.graph import Graph
+from graphsage_torch.data.graph import Graph, with_cached_layer0
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.train.config import TrainConfig
 from graphsage_torch.utils.metrics import macro_f1, micro_f1
@@ -85,6 +87,10 @@ class Trainer:
             raise ValueError(
                 f"the model lies on {model.device} and the graph on {graph.device}"
             )
+        if model.layer0 == "cached":
+            if graph.layer0_cache is None:
+                graph = with_cached_layer0(graph, self_loop=model.self_loop)
+            model.check_layer0_cache(graph)
         self.model = model
         self.graph = graph
         self.cfg = config
@@ -109,7 +115,7 @@ class Trainer:
         ids = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(self.device)
         frontier = self.model.sample(self.generator, self.graph, ids)
         loss = self.model.loss(self.graph.features, frontier,
-                               self.graph.labels[ids.long()])
+                               self.graph.labels[ids.long()], graph=self.graph)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -168,7 +174,8 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 7)
         ids = torch.from_numpy(nodes.astype(np.int32)).to(self.device)
         frontier = self.model.sample(gen, self.graph, ids, fanouts)
-        return self.model.predictions(self.model(self.graph.features, frontier))
+        return self.model.predictions(
+            self.model(self.graph.features, frontier, graph=self.graph))
 
     def evaluate(self, nodes: np.ndarray) -> dict[str, float]:
         nodes = np.asarray(nodes)

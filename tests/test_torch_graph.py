@@ -150,7 +150,7 @@ def test_graph_to_moves_every_tensor():
 
 
 def test_multihot_labels_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         graph.build_graph(np.zeros((4, 2), np.float32), np.eye(4, 3), [[0, 1]],
                           device="cpu")
 

@@ -459,3 +459,49 @@ def test_gather_mean_dma_kernel_table_at_an_odd_offset(cuda, offset, f):
     table = torch.randn(n * f + 4, device=cuda)[offset:offset + n * f].view(n, f)
     assert table.is_contiguous() and table.data_ptr() % 16 != 0
     _check_dma(*_dma_case(n, f, 40, 10, seed=offset, dev=cuda, table=table))
+
+
+@pytest.mark.parametrize("self_loop", [False, True])
+def test_layer0_cache_built_by_the_spmm_kernel(cuda, self_loop):
+    """``with_cached_layer0`` on a card graph: one SpMM launch, equal to the
+    plain build on the CPU; the zero-degree node keeps 0 (or its own row)."""
+    from graphsage_torch.data.graph import build_graph, with_cached_layer0
+
+    rng = np.random.default_rng(3)
+    edges = np.concatenate([rng.integers(0, 300, (900, 2)), [[0, i] for i in range(1, 280)]])
+    feats = rng.standard_normal((301, 37)).astype(np.float32)  # node 300 isolated
+    g = build_graph(feats, np.zeros(301), edges, num_classes=1, device=cuda)
+    before = sp.launches
+    got = with_cached_layer0(g, self_loop=self_loop)
+    assert sp.launches == before + 1
+    want = with_cached_layer0(g.to("cpu"), self_loop=self_loop)
+    torch.testing.assert_close(got.layer0_cache.cpu(), want.layer0_cache, **TOL)
+    assert got.layer0_cache.device.type == "cuda"
+    last = g.features[-1] if self_loop else torch.zeros_like(g.features[-1])
+    assert torch.equal(got.layer0_cache[-1], last)
+
+
+def test_layer0_full_step_launches_the_spmm_twice(cuda):
+    """A ``layer0="full"`` training step: the SpMM kernel forward and again
+    in the backward, no gather-mean or scatter; the gradients equal the
+    CPU's."""
+    import copy
+
+    from graphsage_torch.data.synthetic import synthetic_pubmed_graph
+    from graphsage_torch.models.graphsage import GraphSAGE
+
+    g = synthetic_pubmed_graph(num_nodes=600, num_feats=140, num_edges=1500, device=cuda)
+    model = GraphSAGE(140, 3, (128, 16), (4, 5), layer0="full", device=cuda)
+    seeds = torch.arange(0, 64, dtype=torch.int32, device=cuda)
+    fr = model.sample(torch.Generator(device=cuda).manual_seed(0), g, seeds)
+    counts = (gm.launches, sm.launches, sp.launches)
+    model.loss(g.features, fr, g.labels[seeds.long()], graph=g).backward()
+    assert (gm.launches, sm.launches, sp.launches) == (counts[0], counts[1], counts[2] + 2)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_model.zero_grad(set_to_none=True)
+    gc = g.to("cpu")
+    cpu_model.loss(gc.features, fr.to("cpu"), gc.labels[seeds.long().cpu()],
+                   graph=gc).backward()
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        scale = float(q.grad.abs().max())
+        assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, name

@@ -125,8 +125,8 @@ def test_sample_shapes_and_masks(graphs):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("aggregator", "maxpool", 7),
-    ("layer0", "full", 6),
+    ("multilabel", True, 10),
+    ("sampling", "topk", 9),
     ("sampling", "windowed", 9),
     ("compute_dtype", torch.bfloat16, 8),
 ])
@@ -142,6 +142,17 @@ def test_model_validation():
         GraphSAGE(8, 2, concat_self=True, self_loop=True, device="cpu")
 
 
+@pytest.mark.parametrize("name", ["cora_pool", "cora_lstm"])
+def test_from_config_aggregator_presets(name):
+    cfg = PRESETS[name].model
+    m = GraphSAGE.from_config(cfg, 50, 3, device="cpu")
+    assert (m.aggregator, m.pool_dim, m.concat_self) == (cfg.aggregator, 128, True)
+    assert [tuple(layer.weight.shape) for layer in m.layers] == [(178, 128), (256, 128)]
+    extra = ("pool_weight", "pool_bias") if name == "cora_pool" else (
+        "lstm_wx", "lstm_wh", "lstm_b")
+    assert all(hasattr(layer, f) for layer in m.layers for f in extra)
+
+
 @pytest.mark.parametrize("name", ["cora", "pubmed"])
 def test_from_config_presets(name):
     cfg = PRESETS[name].model
@@ -149,7 +160,7 @@ def test_from_config_presets(name):
     assert m.hidden_dims == tuple(cfg.hidden_dims) and m.fanouts == tuple(cfg.fanouts)
     assert [tuple(layer.weight.shape) for layer in m.layers] == [(50, 128), (128, 128)]
     assert tuple(m.head.shape) == (128, 3) and m.device == torch.device("cpu")
-    for preset in ("pubmed_layer0_full", "cora_pool", "powerlaw"):
+    for preset in ("cora_unsup", "powerlaw", "powerlaw_1m_layer0_cached"):
         with pytest.raises(NotImplementedError):
             GraphSAGE.from_config(PRESETS[preset].model, 50, 3, device="cpu")
 

@@ -121,6 +121,24 @@ def test_memory_stats_and_request_checks(setup):
         ServingEngine(tm, tg, mode="sampled", eval_fanouts=(3,), device="cpu")
 
 
+@pytest.mark.parametrize("kw", [dict(layer0="full"), dict(aggregator="maxpool", pool_dim=8,
+                                 concat_self=True), dict(aggregator="lstm", pool_dim=8)],
+                         ids=["mean-full", "maxpool", "lstm"])
+def test_both_tiers_serve_the_new_modes(setup, kw):
+    """Sampled == table at covering fanouts for a ``layer0="full"`` model
+    and the maxpool and lstm aggregators."""
+    _, tg, _, _, _ = setup
+    tm = GraphSAGE(GRAPH["num_feats"], GRAPH["num_classes"], (16, 16), (3, 5),
+                   device="cpu", **kw)
+    max_deg = int(tg.degrees.max())
+    nodes = np.arange(0, 60, 2)
+    table = ServingEngine(tm, tg, batch_buckets=(32,), device="cpu").logits(nodes)
+    sampled = ServingEngine(tm, tg, mode="sampled", batch_buckets=(32,),
+                            eval_fanouts=(max_deg, max_deg), device="cpu").logits(nodes)
+    assert np.isfinite(table).all()
+    np.testing.assert_allclose(sampled, table, **TOL)
+
+
 def test_engine_defaults_to_cuda(setup, monkeypatch):
     _, tg, _, _, tm = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

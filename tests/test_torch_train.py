@@ -18,11 +18,11 @@ from graphsage_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from graphsage_tpu.train.trainer import reference_splits as jax_reference_splits
 from graphsage_tpu.utils.metrics import macro_f1 as jax_macro_f1
 from graphsage_tpu.utils.metrics import micro_f1 as jax_micro_f1
-from graphsage_torch import GraphSAGE, Trainer, load_cora, params_from_numpy
+from graphsage_torch import PRESETS, GraphSAGE, Trainer, load_cora, params_from_numpy
 from graphsage_torch.data.synthetic import synthetic_cora_graph
 from graphsage_torch.models.graphsage import Frontier
 from graphsage_torch.train import TrainConfig, make_optimizer, reference_splits
-from graphsage_torch.train.experiments import load_dataset, main, run_cora
+from graphsage_torch.train.experiments import load_dataset, main, run_cora, run_preset
 from graphsage_torch.utils.metrics import accuracy, macro_f1, micro_f1
 
 torch.set_num_threads(1)
@@ -251,13 +251,50 @@ def test_run_cora_quiet(synth_cora_root, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--checkpoint", "ckpt"], "Queue 1 item 12"),
-    (["--layer0", "full"], "Queue 1 item 6"),
+    (["--sampling", "windowed"], "Queue 1 item 9"),
     (["--debug-nans"], "not ported"),
     (["--mode", "full-graph"], "Queue 1 item 10"),
 ])
 def test_cli_rejects_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         main(["--device", "cpu", *argv])
+
+
+# Each preset cut to a few steps and small batches on the small synthetic
+# files (the code path is the preset's own).
+SMOKE = dict(num_steps=3, batch_size=32, test_size=100, val_size=80, log_every=0)
+
+
+@pytest.mark.parametrize("name", ["pubmed_layer0_full", "pubmed_layer0_cached",
+                                  "cora_pool", "cora_lstm"])
+def test_new_presets_train_on_the_cpu(name, synth_cora_root, synth_pubmed_root):
+    root = synth_pubmed_root if name.startswith("pubmed") else synth_cora_root
+    result = run_preset(name, str(root), log=None, overrides=SMOKE, device="cpu")
+    model = result["trainer"].model
+    cfg = PRESETS[name].model
+    assert (model.aggregator, model.layer0) == (cfg.aggregator, cfg.layer0)
+    assert len(result["losses"]) == 3 and np.isfinite(result["losses"]).all()
+    assert 0.0 <= result["val_micro_f1"] <= 1.0
+    if cfg.layer0 == "cached":
+        assert result["trainer"].graph.layer0_cache is not None
+
+
+@pytest.mark.parametrize("layer0", ["full", "cached"])
+def test_cli_layer0_override(layer0, synth_cora_root, capsys, monkeypatch):
+    seen = []
+    real = Trainer.__init__
+
+    def spy(self, model, graph, config):
+        seen.append(model.layer0)
+        real(self, model, graph, config)
+
+    monkeypatch.setattr(Trainer, "__init__", spy)
+    main(["--preset", "cora", "--data-root", str(synth_cora_root), "--device", "cpu",
+          "--steps", "2", "--test-size", "100", "--val-size", "80",
+          "--layer0", layer0, "--quiet"])
+    assert seen == [layer0]
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("Validation F1: ")
 
 
 def test_load_dataset_names():

@@ -79,7 +79,27 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    three layer-0 modes (``pubmed``, ``pubmed_layer0_full``,
    ``pubmed_layer0_cached``) on that graph, and the device time of
    ``pubmed_layer0_full``'s table gather by indexing against ``gather``.
-10. a ``{"kernels": [...]}`` line, then the last line
+10. reduced precision: the ``reddit``, ``powerlaw`` and ``powerlaw_1m``
+   datasets (``load_dataset``: seeded ``power_law_graph`` stand-ins of 232965,
+   100000 and 10^6 nodes) and an int8 copy of the 1M-node graph; the new
+   kernel routes against their plain versions and a second launch of
+   themselves (kernel 3 on bf16 rows at F=128, 256 and 602 and its backward,
+   kernel 4 on bf16 at F=128 and 602, kernel 1 on int8 at F=256 and 602 with
+   a zero-scale row and an all-masked row; bf16 results within one bf16 step,
+   ``BF16_TOL``); their timings at the presets' shapes (library calls on the
+   route's dtype where the library takes it, else on the f32 table; kernel 3's
+   cache build with a second bound, one row read per edge); training
+   ``reddit`` (100 steps), ``powerlaw`` (50, through ``run_preset``),
+   ``powerlaw_1m``, ``powerlaw_1m_layer0_cached`` and ``powerlaw_1m`` over
+   the int8 table (30 each, the 1M-node graph built once), each against its
+   learning floor (``FLOORS``) with launches per step, host and device ms and
+   the kernel instance the step ran; ``reddit`` for 20 steps on the ``dma``
+   route (kernel 4 on bf16 rows; its losses match the default route's);
+   card-against-CPU gradients of fresh
+   bf16 models within 2e-2 of each leaf's largest entry; serving ``reddit``
+   through both tiers and a bf16 ``powerlaw`` model through the table tier
+   with and without ``quantize_table``; the two layer-0 orders at ``reddit``.
+11. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -105,7 +125,7 @@ import graphsage_torch.ops.gather_mean as gm_kernel
 import graphsage_torch.ops.scatter_mean as sm_kernel
 import graphsage_torch.ops.spmm as spmm_kernel
 from graphsage_torch import PRESETS, GraphSAGE, ServingEngine, load_cora, run_preset
-from graphsage_torch.data.graph import with_cached_layer0
+from graphsage_torch.data.graph import quantize_graph, with_cached_layer0
 from graphsage_torch.data.synthetic import (
     power_law_graph,
     synth_cora_files,
@@ -113,8 +133,9 @@ from graphsage_torch.data.synthetic import (
     synthetic_pubmed_graph,
 )
 from graphsage_torch.ops import _build
+from graphsage_torch.ops import quantize as tq
 from graphsage_torch.ops.aggregate import gather
-from graphsage_torch.train.experiments import build_model, preset_config
+from graphsage_torch.train.experiments import build_model, load_dataset, preset_config
 from graphsage_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -139,7 +160,7 @@ PRESET_OF = {"cora": "cora", "pubmed": "pubmed", "pubmed heavy-tailed": "pubmed"
              "pubmed_layer0_full": "pubmed_layer0_full",
              "pubmed_layer0_full heavy-tailed": "pubmed_layer0_full",
              "pubmed_layer0_cached": "pubmed_layer0_cached",
-             "cora_pool": "cora_pool", "cora_lstm": "cora_lstm"}
+             "cora_pool": "cora_pool", "cora_lstm": "cora_lstm", "reddit": "reddit"}
 OVERRIDES_OF = {"pubmed heavy-tailed": {"learning_rate": 0.1},
                 "pubmed_layer0_full heavy-tailed": {"learning_rate": 0.1}}
 # The Pubmed preset in each layer-0 mode.
@@ -792,31 +813,44 @@ def step_device_ms(trainer, iters: int = 10) -> tuple[float, list]:
     return sum(by_name.values()), [(short_name(k), v) for k, v in top]
 
 
-def step_launches(model_cfg) -> dict:
-    """Kernel launches of one training step (forward and backward)."""
+def layer0_slots(model, batch: int) -> int:
+    """The neighbour slots the sampled layer 0 gathers for ``batch`` seeds
+    (the parent's column counts inside the mean with ``self_loop`` only)."""
+    extra = int(model.concat_self or model.self_loop)
+    return int(batch * np.prod([f + extra for f in model.fanouts[1:]])
+               * (model.fanouts[0] + int(model.self_loop)))
+
+
+def step_launches(model, num_nodes: int, batch: int) -> dict:
+    """Kernel launches of one training step (forward and backward) of
+    ``model`` on ``batch`` seeds of a ``num_nodes``-node graph: a sampled
+    mean layer 0 launches its gather-mean (kernel 1 on every table type, or
+    kernel 4 on the ``dma`` route), and the scatter (kernel 2) only when it
+    projects first, since the raw table is frozen."""
     want = {name: 0 for name in KERNELS}
-    if model_cfg.aggregator != "mean" or model_cfg.layer0 == "cached":
+    if model.aggregator != "mean" or model.layer0 == "cached":
         return want
-    if model_cfg.layer0 == "full":
+    if model.layer0 == "full":
         want["spmm_mean"] = 2  # forward, and the backward: the kernel on g / deg
     else:
-        want["gather_mean_dma" if model_cfg.gather_impl == "dma" else "gather_mean"] = 1
-        want["scatter_mean"] = 1
+        want["gather_mean_dma" if model.gather_impl == "dma" else "gather_mean"] = 1
+        want["scatter_mean"] = int(model.sampled_layer0_project_first(
+            num_nodes, layer0_slots(model, batch)))
     return want
 
 
-def eval_launches(cfg) -> dict:
+def eval_launches(model, train_cfg) -> dict:
     """Kernel launches of the run's one evaluation: the sampled forward with
     ``eval_fanouts``, else the full-graph forward (kernel 3 per mean
     layer)."""
     want = {name: 0 for name in KERNELS}
-    model_cfg = cfg.model
-    if model_cfg.aggregator != "mean":
+    if model.aggregator != "mean":
         return want
-    if cfg.train.eval_fanouts is None:
-        want["spmm_mean"] = len(model_cfg.hidden_dims)
-    elif model_cfg.layer0 != "cached":
-        want.update({k: int(v > 0) for k, v in step_launches(model_cfg).items()
+    if train_cfg.eval_fanouts is None:
+        want["spmm_mean"] = model.num_layers
+    elif model.layer0 != "cached":
+        # the forward alone: one launch of the step's kernel
+        want.update({k: int(v > 0) for k, v in step_launches(model, 0, 1).items()
                      if k != "scatter_mean"})
     return want
 
@@ -838,9 +872,11 @@ def train_preset(name, root, main_launches, overrides=None, graph=None) -> dict:
         result["trainer"] = trainer
     launches = read_launches()
     losses = np.asarray(result["losses"])
-    per_step, evals = step_launches(cfg.model), eval_launches(cfg)
+    model = result["trainer"].model
+    per_step = step_launches(model, result["trainer"].graph.num_nodes, cfg.train.batch_size)
+    evals = eval_launches(model, cfg.train)
     want = {k: steps * per_step[k] + evals[k] for k in KERNELS}
-    if cfg.model.layer0 == "cached":
+    if cfg.model.layer0 == "cached" and (graph is None or graph.layer0_cache is None):
         want["spmm_mean"] += 1  # the cache, built at construction
     print(f"   {name} {overrides or ''}: {steps} steps, launches {launches}; "
           f"{log[-2]}; {log[-1]}")
@@ -854,12 +890,15 @@ def train_preset(name, root, main_launches, overrides=None, graph=None) -> dict:
     return result
 
 
-def check_learning(name, result) -> dict:
+def check_learning(name, result, floor: float | None = None) -> dict:
+    """The learning bar: the last loss below 0.7x the first (or below
+    ``floor``, a preset's learning floor) and validation micro-F1 above
+    0.5; then host and device ms per step and the idle share."""
     losses = result["losses"]
+    bar = 0.7 * losses[0] if floor is None else floor
     print(f"   {name}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (bar: below "
-          f"{0.7 * losses[0]:.4f}); val micro-F1 {result['val_micro_f1']:.4f} "
-          f"(bar: above 0.5)")
-    if not (losses[-1] < 0.7 * losses[0] and result["val_micro_f1"] > 0.5):
+          f"{bar:.4f}); val micro-F1 {result['val_micro_f1']:.4f} (bar: above 0.5)")
+    if not (losses[-1] < bar and result["val_micro_f1"] > 0.5):
         raise AssertionError(f"{name}: the run did not learn")
     host_ms = result["mean_step_time"] * 1e3
     dev_ms, top = step_device_ms(result["trainer"])
@@ -869,10 +908,10 @@ def check_learning(name, result) -> dict:
     return stats
 
 
-def card_vs_cpu_grads(what, model, loss_fn, graph, *args) -> dict:
+def card_vs_cpu_grads(what, model, loss_fn, graph, *args, rtol=GRAD_RTOL) -> dict:
     """Parameter gradients of ``loss_fn(model, graph, *args)`` on the card
     against a CPU copy of the model on the same inputs, each leaf within
-    ``GRAD_RTOL`` of its own largest entry (a leaf with no gradient fails:
+    ``rtol`` of its own largest entry (a leaf with no gradient fails:
     the check would have no power); returns the kernel launches of the
     card's forward and backward."""
     model.zero_grad(set_to_none=True)
@@ -889,7 +928,7 @@ def card_vs_cpu_grads(what, model, loss_fn, graph, *args) -> dict:
         print(f"   {what}: grad {k} {tuple(p.shape)}: max |grad| {scale:.4g}, "
               f"max |card - CPU| {diff:.3g} ({diff / scale if scale else float('nan'):.3g}"
               f" of the largest entry)")
-        if not (scale > 0 and diff <= GRAD_RTOL * scale):
+        if not (scale > 0 and diff <= rtol * scale):
             raise AssertionError(f"{what}: grad {k}: card differs from the CPU by "
                                  f"{diff:.3g}, its largest entry is {scale:.3g}")
     print(f"   {what}: card == CPU gradients; launches {launches}")
@@ -916,7 +955,7 @@ def check_gradients(trainers) -> None:
         frontier = fresh[label].sample(gen, tr.graph, seeds)
         launches = card_vs_cpu_grads(f"{label} sampled step", fresh[label],
                                      sampled_loss, tr.graph, frontier, seeds)
-        want = step_launches(preset_config(PRESET_OF[label]).model)
+        want = step_launches(fresh[label], tr.graph.num_nodes, len(seeds))
         if launches != want:
             raise AssertionError(f"{label}: one step's forward and backward "
                                  f"launched {launches}, want {want}")
@@ -937,24 +976,37 @@ def check_gradients(trainers) -> None:
         raise AssertionError("the full-graph backward did not launch spmm_mean")
 
 
-def project_first_times(trainers, iters: int = 10) -> dict:
+def project_first_times(trainers, iters: int = 10, batch_scales=(1,)) -> dict:
     """Host and device ms of one training step of each preset with layer 0
-    projecting first and aggregating first, on the same graph."""
+    projecting first and aggregating first, on the same graph; at each of
+    ``batch_scales`` times the preset's batch, so that the layer-0 slots per
+    table row (what the order rule weighs) run across the crossover."""
     out = {}
     for name, tr in trainers.items():
-        for pf in (True, False):
-            cfg = preset_config(PRESET_OF[name],
-                                {**OVERRIDES_OF.get(name, {}), "project_first": pf})
-            t = Trainer(build_model(cfg, tr.graph), tr.graph, cfg.train)
-            seeds = next(t.batches())
-            for _ in range(3):
-                t.step(seeds)
-            _, ms = timed(lambda: [t.step(seeds) for _ in range(iters)])
-            dev_ms, _ = step_device_ms(t)
-            out[f"{name} project_first={pf}"] = dict(host_ms=ms / iters, device_ms=dev_ms)
+        for scale in batch_scales:
+            for pf in (True, False):
+                base = PRESETS[PRESET_OF[name]].train.batch_size
+                over = {**OVERRIDES_OF.get(name, {}), "batch_size": base * scale}
+                cfg = preset_config(PRESET_OF[name], {**over, "project_first": pf})
+                model = build_model(cfg, tr.graph)
+                t = Trainer(model, tr.graph, cfg.train)
+                seeds = next(t.batches())
+                for _ in range(3):
+                    t.step(seeds)
+                _, ms = timed(lambda: [t.step(seeds) for _ in range(iters)])
+                dev_ms, _ = step_device_ms(t)
+                slots = layer0_slots(model, cfg.train.batch_size)
+                auto = build_model(preset_config(PRESET_OF[name], over), tr.graph)
+                out[f"{name} batch {cfg.train.batch_size} project_first={pf}"] = dict(
+                    host_ms=ms / iters, device_ms=dev_ms, slots=slots,
+                    slots_per_row=slots / tr.graph.num_nodes,
+                    rule=auto.sampled_layer0_project_first(tr.graph.num_nodes, slots))
+                del t, model, auto
+                torch.cuda.empty_cache()
     for k, v in out.items():
-        print(f"   {k}: host ms per step {v['host_ms']:.3f}, device ms per step "
-              f"{v['device_ms']:.3f}")
+        print(f"   {k}: {v['slots']} layer-0 slots, {v['slots_per_row']:.3f} per table "
+              f"row (\"auto\" projects first: {v['rule']}): host ms per step "
+              f"{v['host_ms']:.3f}, device ms per step {v['device_ms']:.4f}")
     return out
 
 
@@ -1047,6 +1099,348 @@ def gather_backward_times(graphs) -> None:
               f"masked, node 0 named {int((ids == 0).sum())} times; device ms of "
               f"the gather forward and backward: table[ids] {indexing:.4f}, "
               f"gather (index_select) {selected:.4f}")
+
+
+# ---------------------------------------------------------- reduced precision
+# The learning floors of the reduced-precision presets (bench.py's, the
+# final loss each run must end below).
+FLOORS = {"reddit": 0.5, "powerlaw": 0.5, "powerlaw_1m": 0.8,
+          "powerlaw_1m_layer0_cached": 0.8, "powerlaw_1m int8 table": 0.8}
+# A bf16 result is an f32 sum rounded once: sums in another order may round
+# to the neighbouring bf16 value, one step of 2**-7 relative.
+BF16_TOL = dict(rtol=2.0**-7, atol=1e-5)
+# Card against CPU gradients and forwards of bf16 models: bf16 products
+# round on both devices, in other orders; each leaf within this fraction of
+# its largest entry.
+BF16_GRAD_RTOL = 2e-2
+
+
+def deepest_hop(model, graph, batch, seed):
+    """The sampled frontier's deepest hop, ``(idx [n_out, k], mask)``: what
+    the sampled mean layer 0 gathers for one ``batch``-seed step."""
+    gen = torch.Generator(device=graph.device).manual_seed(seed)
+    seeds = torch.randint(0, graph.num_nodes, (batch,), generator=gen,
+                          device=graph.device, dtype=torch.int32)
+    fr = model.sample(gen, graph, seeds)
+    L = model.num_layers
+    n_out = fr.ids[L - 1].numel()
+    return (fr.ids[L].reshape(n_out, -1).contiguous(),
+            fr.masks[L].reshape(n_out, -1).contiguous())
+
+
+def int8_edge_rows(qt, idx, mask):
+    """An int8 table with row 5 at scale 0 and the frontier's first row all
+    masked, second row naming only row 5 (the kernel checks' edge cases)."""
+    scale = qt.scale.clone()
+    scale[5] = 0.0
+    idx, mask = idx.clone(), mask.clone()
+    mask[0] = False
+    idx[1], mask[1] = 5, True
+    return tq.QuantizedTable(qt.q, scale), idx, mask
+
+
+def check_precision_kernels(pg) -> dict:
+    """The new routes against their plain versions and a second launch of
+    themselves (each sums in a fixed order: bitwise equal): kernel 3 on bf16
+    rows at F=128, 256 and 602, normalised and not, and its backward;
+    kernel 4 on bf16 at F=128 and 602; kernel 1 on int8 at F=256 and 602
+    (a zero-scale row, an all-masked row) and on bf16 at F=602."""
+    errs = {name: 0.0 for name in KERNELS}
+    reddit = pg["reddit"]
+    rng = np.random.default_rng(21)
+    # Kernel 3 on the Reddit stand-in's CSR at the refresh width, the
+    # powerlaw one's at 256, and F=602 on a 30000-node graph of Reddit's
+    # width (the plain version's per-edge f32 rows of the full Reddit graph
+    # at 602 would take 28 GB).
+    for label, g, f in (("reddit", reddit, 128), ("powerlaw", pg["powerlaw"], 256),
+                        ("30000-node F=602", pg["check"], 602),
+                        ("30000-node F=601 (odd: unaligned pairs)", pg["check"], 601)):
+        x = torch.from_numpy(rng.standard_normal((g.num_nodes, f), dtype=np.float32)
+                             ).to(g.device).to(torch.bfloat16)
+        for normalize in (True, False):
+            got = spmm_kernel.spmm_mean(x, g.indptr, g.edge_dst, normalize)
+            check_repeat(got, lambda: spmm_kernel.spmm_mean(x, g.indptr, g.edge_dst,
+                                                            normalize),
+                         f"spmm_mean bf16 {label} normalize={normalize}")
+            want = spmm_kernel.spmm_mean_plain(x, g.indptr, g.edge_dst, normalize)
+            magnitude = None if normalize else spmm_kernel.spmm_mean_plain(
+                x.abs(), g.indptr, g.edge_dst, False).float()
+            if got.dtype != torch.bfloat16:
+                raise AssertionError(f"spmm_mean bf16 {label}: output {got.dtype}")
+            e = max_err(got.float(), want.float(), f"spmm_mean bf16 {label} F={f} "
+                        f"normalize={normalize}", BF16_TOL, magnitude=magnitude)
+            print(f"   spmm_mean bf16 {label} N={g.num_nodes} E={g.num_edges} F={f} "
+                  f"normalize={normalize}: max_abs_err={e:.3g}; bitwise repeat")
+            errs["spmm_mean"] = max(errs["spmm_mean"], e)
+            del want, magnitude
+        if f != 256:
+            gout = torch.randn(g.num_nodes, f, device=g.device).to(torch.bfloat16)
+            xk = x.clone().requires_grad_(True)
+            spmm_kernel.spmm_mean(xk, g.indptr, g.edge_dst).backward(gout)
+            xp = x.clone().requires_grad_(True)
+            spmm_kernel._SpmmMean.apply(xp, g.indptr, g.edge_dst, True, True,
+                                        spmm_kernel.spmm_mean_plain).backward(gout)
+            if xk.grad.dtype != torch.bfloat16:
+                raise AssertionError(f"spmm_mean bf16 backward: {xk.grad.dtype}")
+            xa = x.clone().abs().requires_grad_(True)
+            spmm_kernel._SpmmMean.apply(xa, g.indptr, g.edge_dst, True, True,
+                                        spmm_kernel.spmm_mean_plain).backward(gout.abs())
+            e = max_err(xk.grad.float(), xp.grad.float(),
+                        f"spmm_mean bf16 backward {label} F={f}", BF16_TOL,
+                        magnitude=xa.grad.float())
+            print(f"   spmm_mean bf16 backward {label} F={f}: max_abs_err={e:.3g}")
+            errs["spmm_mean"] = max(errs["spmm_mean"], e)
+            del xk, xp, xa, gout
+
+    model = pg["models"]["reddit"]
+    idx, mask = deepest_hop(model, reddit, PRESETS["reddit"].train.batch_size, 22)
+    mask[:7] = False
+    with torch.no_grad():
+        table = (reddit.features @ model.layers[0].weight.to(torch.bfloat16)).contiguous()
+    for label, x in (("reddit projected F=128", table), ("reddit raw F=602", reddit.features)):
+        want = gm_kernel.gather_mean_plain(x, idx, mask)
+        for name, mod, fn in (("gather_mean_dma", dma_kernel, dma_kernel.gather_mean_dma),
+                              ("gather_mean", gm_kernel, gm_kernel.gather_mean)):
+            got = fn(x, idx, mask)
+            e = max_err(got, want, f"{name} bf16 {label}")
+            check_repeat(got, lambda: fn(x, idx, mask), f"{name} bf16 {label}")
+            if not bool((got[:7] == 0).all()):
+                raise AssertionError(f"{name} bf16 {label}: all-masked rows are not 0")
+            print(f"   {name} bf16 {label} B={idx.shape[0]} k={idx.shape[1]}: "
+                  f"max_abs_err={e:.3g}; bitwise repeat")
+            errs[name] = max(errs[name], e)
+
+    for label, g, model in (("powerlaw_1m F=256", pg["powerlaw_1m"], pg["models"]["powerlaw_1m"]),
+                            ("reddit F=602", reddit, pg["models"]["reddit"])):
+        qt = tq.quantize_features(g.features)
+        b = PRESETS["powerlaw_1m" if "1m" in label else "reddit"].train.batch_size
+        torch.cuda.empty_cache()
+        qt, i8, m8 = int8_edge_rows(qt, *deepest_hop(model, g, b, 23))
+        got = gm_kernel.gather_mean_int8(qt.q, qt.scale, i8, m8)
+        want = gm_kernel.gather_mean_int8_plain(qt.q, qt.scale, i8, m8)
+        e = max_err(got, want, f"gather_mean int8 {label}")
+        check_repeat(got, lambda: gm_kernel.gather_mean_int8(qt.q, qt.scale, i8, m8),
+                     f"gather_mean int8 {label}")
+        if not bool((got[:2] == 0).all()):
+            raise AssertionError(f"gather_mean int8 {label}: masked or zero-scale rows")
+        print(f"   gather_mean int8 {label} B={i8.shape[0]} k={i8.shape[1]}: "
+              f"max_abs_err={e:.3g}; bitwise repeat; the all-masked and the "
+              f"zero-scale rows are 0")
+        errs["gather_mean"] = max(errs["gather_mean"], e)
+    return errs
+
+
+def library_ms(bf16_call, cast_call, what: str) -> tuple[float, str]:
+    """Device ms of the library call on the route's own dtype, or, where the
+    library does not take it on the card, on the cast table (said so)."""
+    try:
+        bf16_call()
+        torch.cuda.synchronize()
+        return device_ms(bf16_call), "on the route's dtype"
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"   {what}: the library call refused the dtype "
+              f"({str(exc).splitlines()[0][:80]}); timed on the f32 table")
+        return device_ms(cast_call), "on the f32 cast table"
+
+
+def time_precision_kernels(pg) -> dict:
+    """The new routes at the slice's shapes (the presets' sampled layer-0
+    frontiers, the 1M-node cache build, the Reddit table refresh): device
+    ms (profiler), plain, library, bound and per-call ms. Bounds as in
+    ``time_kernels``, in the route's bytes; kernel 3's cache build also
+    with one row read per edge (the table does not fit the 50 MB L2)."""
+    out = {name: [] for name in KERNELS}
+
+    def gather_record(label, x_bytes_per_row, f, idx, mask, kernel, plain, lib, note,
+                      extra_ops=0):
+        b, k = idx.shape
+        valid = int(mask.sum())
+        live = int(mask.any(1).sum())
+        distinct = torch.unique(idx[mask]).numel()
+        bd, by = bound(distinct * x_bytes_per_row + b * k + valid * 4 + b * f * 4,
+                       valid * f + live * f + extra_ops * valid * f)
+        return dict(label=label, shape=f"{label}: B={b}, k={k}, {valid} valid slots, "
+                    f"{distinct} distinct rows", ms=device_ms(kernel, "gather_mean"),
+                    plain_ms=device_ms(plain), library_ms=lib[0], library_note=note or lib[1],
+                    bound_ms=bd, bound_by=by, call_ms=call_ms(kernel))
+
+    reddit = pg["reddit"]
+    rm = pg["models"]["reddit"]
+    idx, mask = deepest_hop(rm, reddit, PRESETS["reddit"].train.batch_size, 31)
+    flat = idx[mask].long()
+    offsets = torch.cat([mask.new_zeros(1, dtype=torch.long), mask.sum(1).cumsum(0)[:-1]])
+    with torch.no_grad():
+        table = (reddit.features @ rm.layers[0].weight.to(torch.bfloat16)).contiguous()
+    n = reddit.num_nodes
+    for label, x in ((f"reddit project-first: table [{n},128] bf16", table),
+                     (f"reddit mean-first: features [{n},602] bf16", reddit.features)):
+        f = x.shape[1]
+        lib = library_ms(lambda: F.embedding_bag(flat, x, offsets, mode="mean"),
+                         lambda: F.embedding_bag(flat, x.float(), offsets, mode="mean"),
+                         f"embedding_bag {label}")
+        for name, mod, fn, plain in (
+                ("gather_mean", gm_kernel, gm_kernel.gather_mean, gm_kernel.gather_mean_plain),
+                ("gather_mean_dma", dma_kernel, dma_kernel.gather_mean_dma,
+                 dma_kernel.gather_mean_dma_plain)):
+            out[name].append(gather_record(
+                label, 2 * f, f, idx, mask, lambda: fn(x, idx, mask),
+                lambda: plain(x, idx, mask), lib, None))
+
+    g1m, m1m = pg["powerlaw_1m"], pg["models"]["powerlaw_1m"]
+    idx, mask = deepest_hop(m1m, g1m, PRESETS["powerlaw_1m"].train.batch_size, 32)
+    flat = idx[mask].long()
+    offsets = torch.cat([mask.new_zeros(1, dtype=torch.long), mask.sum(1).cumsum(0)[:-1]])
+    x = g1m.features
+    lib = library_ms(lambda: F.embedding_bag(flat, x, offsets, mode="mean"),
+                     lambda: F.embedding_bag(flat, x.float(), offsets, mode="mean"),
+                     "embedding_bag powerlaw_1m")
+    n = g1m.num_nodes
+    out["gather_mean"].append(gather_record(
+        f"powerlaw_1m mean-first: features [{n},256] bf16", 512, 256, idx, mask,
+        lambda: gm_kernel.gather_mean(x, idx, mask),
+        lambda: gm_kernel.gather_mean_plain(x, idx, mask), lib, None))
+    qt = pg["powerlaw_1m int8"].features
+    dense = tq.dequantize(qt)
+    lib = (device_ms(lambda: F.embedding_bag(flat, dense, offsets, mode="mean")),
+           "on the dequantized f32 table (embedding_bag takes no int8 table)")
+    out["gather_mean"].append(gather_record(
+        f"powerlaw_1m int8 table: q [{n},256] int8 + scales", 256 + 4, 256, idx, mask,
+        lambda: gm_kernel.gather_mean_int8(qt.q, qt.scale, idx, mask),
+        lambda: gm_kernel.gather_mean_int8_plain(qt.q, qt.scale, idx, mask), lib, None,
+        extra_ops=1))
+    del dense
+
+    # Kernel 3 on bf16 rows: the 1M-node cache build (normalised, the
+    # cache's non-self-loop flavor), the Reddit table refresh's layer 1, and
+    # an even and an odd width on one graph (pairs, and pairs read from any
+    # 2-byte address).
+    torch.cuda.empty_cache()
+    gc = pg["check"]
+    wide = torch.randn(gc.num_nodes, 602, device=gc.device).to(torch.bfloat16)
+    for label, g, x in (
+            (f"powerlaw_1m cache build: X [{n},256] bf16", g1m, g1m.features),
+            (f"reddit table refresh: X [{reddit.num_nodes},128] bf16", reddit, table),
+            (f"30000-node graph: X [{gc.num_nodes},602] bf16", gc, wide),
+            (f"30000-node graph: X [{gc.num_nodes},601] bf16 (odd)", gc,
+             wide[:, :601].contiguous())):
+        n, f = x.shape
+        e = g.num_edges
+        deg = (g.indptr[1:] - g.indptr[:-1]).long()
+        rows = torch.repeat_interleave(torch.arange(n, device=g.device), deg)
+        vals = (1.0 / deg.clamp(min=1).float())[rows]
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            a32 = torch.sparse_csr_tensor(g.indptr.long(), g.edge_dst[:e].long(), vals,
+                                          size=(n, n))
+            a16 = torch.sparse_csr_tensor(g.indptr.long(), g.edge_dst[:e].long(),
+                                          vals.to(torch.bfloat16), size=(n, n))
+            lib = library_ms(lambda: torch.sparse.mm(a16, x),
+                             lambda: torch.sparse.mm(a32, x.float()),
+                             f"sparse.mm {label}")
+        kernel = lambda: spmm_kernel.spmm_mean(x, g.indptr, g.edge_dst)  # noqa: E731
+        fixed = 2 * n * f * 2 + (n + 1) * 4 + e * 4
+        bd, by = bound(fixed, e * f + n * f)
+        per_edge, _ = bound(e * f * 2 + n * f * 2 + (n + 1) * 4 + e * 4, 0)
+        out["spmm_mean"].append(dict(
+            label=label, shape=f"{label}, E={e}", ms=device_ms(kernel, "spmm_mean_kernel"),
+            plain_ms=device_ms(lambda: spmm_kernel.spmm_mean_plain(x, g.indptr, g.edge_dst)),
+            library_ms=lib[0], library_note=lib[1], bound_ms=bd, bound_by=by,
+            bound_row_per_edge_ms=per_edge, call_ms=call_ms(kernel)))
+        del a32, a16, rows, vals
+        torch.cuda.empty_cache()
+    for name, recs in out.items():
+        for r in recs:
+            extra = (f", one row per edge {r['bound_row_per_edge_ms']:.4f}"
+                     if "bound_row_per_edge_ms" in r else "")
+            print(f"   {name} [{r['shape']}]: device ms: kernel {r['ms']:.4f}, "
+                  f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
+                  f"({r['library_note']}), bound {r['bound_ms']:.4f} ({r['bound_by']})"
+                  f"{extra}; per call through the wrapper {r['call_ms']:.4f} ms")
+    return out
+
+
+def check_bf16_instances(trainer, want: str) -> None:
+    """The kernels of one training step include a template instance for the
+    table's row type (``want``, e.g. ``gather_mean_kernel<__nv_bfloat16``)."""
+    seeds = next(trainer.batches())
+    names = device_profile(lambda: trainer.step(seeds), iters=2)
+    if not any(want in name for name in names):
+        raise AssertionError(f"no {want} among {[short_name(n) for n in names]}")
+    print(f"   the step ran {short_name(next(n for n in names if want in n))}")
+
+
+def precision_gradients() -> None:
+    """Card against CPU gradients of fresh bf16 models (the ``reddit`` and
+    ``powerlaw`` presets, and ``powerlaw`` over an int8 table) on small
+    power-law graphs of the presets' widths, within ``BF16_GRAD_RTOL``."""
+    cases = (("reddit", dict(num_feats=602, num_classes=41), False),
+             ("powerlaw", dict(num_feats=256, num_classes=16), False),
+             ("powerlaw", dict(num_feats=256, num_classes=16), True))
+    for name, shape, int8 in cases:
+        g = power_law_graph(20000, 120000, homophily=0.8, feature_dtype=torch.bfloat16,
+                            **shape)
+        if int8:
+            g = quantize_graph(g)
+        cfg = preset_config(name)
+        model = build_model(cfg, g)
+        # 256 seeds: the CPU side runs the same bf16 products without a card.
+        seeds = torch.arange(0, 512, 2, device=g.device, dtype=torch.int32)
+        frontier = model.sample(torch.Generator(device=g.device).manual_seed(13), g, seeds)
+        label = f"{name} bf16{' int8 table' if int8 else ''} (N=20000)"
+        launches = card_vs_cpu_grads(label, model, sampled_loss, g, frontier, seeds,
+                                     rtol=BF16_GRAD_RTOL)
+        want = step_launches(model, g.num_nodes, len(seeds))
+        if launches != want:
+            raise AssertionError(f"{label}: launched {launches}, want {want}")
+
+
+def serve_precision(pg, main_launches) -> None:
+    """``reddit`` through both tiers (launch counts as ``tier_kernels``
+    says). Its covering-fanout check is left out: the stand-in's hubs hold
+    thousands of edges, and covering fanouts grow each hop by that many;
+    ``precision_gradients`` holds a Reddit-width model's card forward and
+    gradients against the CPU's. Then a bf16 ``powerlaw`` model
+    through the table tier with and without ``quantize_table``: peak memory,
+    the table's bytes, and every representation within half a quantization
+    step."""
+    g = pg["reddit"]
+    rng = np.random.default_rng(40)
+    requests = [rng.integers(0, g.num_nodes, size) for size in (256, 1000)]
+    model = build_model(preset_config("reddit"), g)
+    for mode, kernel in zip(("table", "sampled"), tier_kernels(model)):
+        answers, launches, stats = serve_tier(model, g, requests, mode)
+        others = any(n for k, n in launches.items() if k != kernel)
+        if others or launches[kernel] == 0:
+            raise AssertionError(f"reddit {mode} tier launched {launches}")
+        main_launches[kernel] += launches[kernel]
+        print(f"   reddit {mode} tier: launches {launches}, {stats}")
+
+    g = pg["powerlaw"]
+    model = build_model(preset_config("powerlaw"), g)
+    requests = [rng.integers(0, g.num_nodes, 1024)]
+    dense, l_dense, s_dense = serve_tier(model, g, requests, "table")
+    quant, l_quant, s_quant = serve_tier(model, g, requests, "table", quantize_table=True)
+    for tier, launches in (("table", l_dense), ("int8 table", l_quant)):
+        if launches != {**{k: 0 for k in KERNELS}, "spmm_mean": launches["spmm_mean"]} \
+                or launches["spmm_mean"] == 0:
+            raise AssertionError(f"powerlaw {tier} tier launched {launches}")
+        main_launches["spmm_mean"] += launches["spmm_mean"]
+    with torch.no_grad():
+        emb = ServingEngine(model, g).embed(requests[0])
+        emb_q = ServingEngine(model, g, quantize_table=True).embed(requests[0])
+    step = np.abs(emb).max(axis=1, keepdims=True) / 127.0
+    if not (np.abs(emb_q - emb) <= step / 2 + 1e-6).all():
+        raise AssertionError("powerlaw int8 table: a representation moved more "
+                             "than half a quantization step")
+    agree = float((dense[0].argmax(1) == quant[0].argmax(1)).mean())
+    for tier, stats in (("table", s_dense), ("int8 table", s_quant)):
+        print(f"   powerlaw bf16 {tier} tier: table bytes {stats['table_bytes_per_chip']}, "
+              f"peak memory {stats['max_memory_allocated']}, request ms "
+              f"{stats['request_ms']}, device ms {stats['request_device_ms']:.4f}, "
+              f"refresh device / host ms {stats['refresh_device_ms']:.4f} / "
+              f"{stats['refresh_ms']:.3f}")
+    print(f"   powerlaw int8 table: predictions agree with the bf16 table's on "
+          f"{agree:.4f} of 1024 nodes; representations within half a step")
 
 
 def main() -> int:
@@ -1167,6 +1561,59 @@ def main() -> int:
             print(f"   layer-0 modes on {label}: " + json.dumps(times))
     with phase("layer-0 table gather backward"):
         gather_backward_times(graphs)
+
+    with phase("data: the reduced-precision presets' graphs"):
+        pg = {name: load_dataset(name) for name in ("reddit", "powerlaw", "powerlaw_1m")}
+        pg["powerlaw_1m int8"] = quantize_graph(pg["powerlaw_1m"])
+        pg["check"] = power_law_graph(30000, 250000, num_feats=602, num_classes=41,
+                                      homophily=0.8, feature_dtype=torch.bfloat16)
+        pg["models"] = {name: build_model(preset_config(name), pg[name])
+                        for name in ("reddit", "powerlaw", "powerlaw_1m")}
+        for label in ("reddit", "powerlaw", "powerlaw_1m", "powerlaw_1m int8"):
+            g = pg[label]
+            print(f"   {label}: {g}, features {g.features.dtype}, {g.nbytes} bytes on "
+                  f"the card; degree max {int(g.degrees.max())}")
+    with phase("kernel checks, reduced precision"):
+        for name, e in check_precision_kernels(pg).items():
+            errs[name] = max(errs[name], e)
+    with phase("timings, reduced precision"):
+        for name, recs in time_precision_kernels(pg).items():
+            timings[name] += recs
+    for name, graph, over, instance in (
+            ("reddit", pg["reddit"], None, "gather_mean_kernel<__nv_bfloat16"),
+            ("powerlaw", None, None, "gather_mean_kernel<float"),
+            ("powerlaw_1m", pg["powerlaw_1m"], None, "gather_mean_kernel<__nv_bfloat16"),
+            ("powerlaw_1m_layer0_cached", pg["powerlaw_1m"], None, None),
+            ("powerlaw_1m int8 table", pg["powerlaw_1m int8"],
+             {"quantize_features": True}, "gather_mean_kernel<signed char")):
+        with phase(f"training {name}"):
+            preset = name.split()[0]
+            results[name] = train_preset(preset, None, main_launches, overrides=over,
+                                         graph=graph)
+            results[name].update(check_learning(name, results[name], FLOORS[name]))
+            if instance:
+                check_bf16_instances(results[name]["trainer"], instance)
+            if name == "powerlaw_1m_layer0_cached":
+                print(f"   cache build on powerlaw_1m (bf16, kernel 3): "
+                      f"{cache_build_ms(pg['powerlaw_1m'])}")
+    with phase("training reddit, gather_impl='dma'"):
+        dma = train_preset("reddit", None, main_launches,
+                           overrides={"gather_impl": "dma", "num_steps": 20},
+                           graph=pg["reddit"])
+        want = results["reddit"]["losses"][:20]
+        np.testing.assert_allclose(dma["losses"], want, rtol=LOSS_RTOL,
+                                   err_msg="reddit dma losses != default-route losses")
+        check_bf16_instances(dma["trainer"], "gather_mean_dma_kernel<__nv_bfloat16")
+        print(f"   dma route, bf16 rows: 20 losses match the default route's "
+              f"(largest relative difference "
+              f"{np.max(np.abs(np.asarray(dma['losses']) - want) / np.abs(want)):.3g})")
+    with phase("gradients of bf16 models, card against CPU"):
+        precision_gradients()
+    with phase("serving reddit, and powerlaw with an int8 table"):
+        serve_precision(pg, main_launches)
+    with phase("reddit layer-0 orders"):
+        project_first_times({"reddit": results["reddit"]["trainer"]},
+                            batch_scales=(1, 2, 4, 8, 16))
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -7,7 +7,12 @@
 //   out[b, :] = sum_j mask[b, j] * X[idx[b, j], :] / max(sum_j mask[b, j], 1)
 //
 // X is f32 or bf16 [N, F]; idx int32 [B, k]; mask bool [B, k]; out f32 [B, F],
-// accumulated in f32. Rows with no valid slot are 0 (quirks Q4, Q8).
+// accumulated in f32. Rows with no valid slot are 0 (quirks Q4, Q8). An int8
+// table (graphsage_tpu/ops/quantize.py:gather_mean_dequant, which JAX leaves
+// to XLA) is the same sum with each slot weighted by its row's scale,
+//   out[b, :] = sum_j mask[b, j] * scale[idx[b, j]] * Q[idx[b, j], :] / max(sum_j mask[b, j], 1),
+// forward only: an int8 table (the frozen features or the layer-0 cache)
+// has no gradient.
 //
 // What bounds it on the H100: bytes. Each valid slot reads one F-wide row
 // and does one add per element read (a quarter or half an operation per
@@ -31,9 +36,11 @@
 // valid, so a masked slot is never read and its id may be anything. One
 // ballot gives the valid slots of all R rows, and the mask is not read again.
 // The warp walks the valid slots in order: each lane issues its piece of
-// the slot's row (16 bytes per lane: float4, eight bf16, or four bf16 when
-// the width is a multiple of 4 but not 8; single elements when F is not a
-// multiple of 4, as at F=1433), writes the rows that the slot has passed
+// the slot's row (up to 16 bytes per lane: four f32, eight bf16 or sixteen
+// int8; narrower when the width is not a multiple of those counts, as bf16
+// at Reddit's F=602 takes pairs, or when a row would leave lanes idle, as
+// int8 at F=256 and bf16 at F=128 take 8 bytes; single elements only when
+// F is odd, as at F=1433; rows.cuh converts), writes the rows that the slot has passed
 // while the load is in flight (scaled; rows with no valid slot as 0), then
 // adds it. With one row per warp no row ends inside the slot loop, and a
 // separate instance without that step lets the compiler overlap the loads
@@ -49,102 +56,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "rows.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T, int VEC>
-struct Vec;
-
-template <>
-struct Vec<float, 4> {
-  using Raw = float4;
-  static __device__ __forceinline__ Raw load(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
-    acc[0] += r.x;
-    acc[1] += r.y;
-    acc[2] += r.z;
-    acc[3] += r.w;
-  }
-};
-
-template <>
-struct Vec<float, 1> {
-  using Raw = float;
-  static __device__ __forceinline__ Raw load(const float* p) { return *p; }
-  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
-    acc[0] += r;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 8> {
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint4*>(p);
-  }
-  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      acc[2 * i] += f.x;
-      acc[2 * i + 1] += f.y;
-    }
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 4> {
-  using Raw = uint2;
-  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint2*>(p);
-  }
-  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      acc[2 * i] += f.x;
-      acc[2 * i + 1] += f.y;
-    }
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 1> {
-  using Raw = __nv_bfloat16;
-  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) { return *p; }
-  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
-    acc[0] += __bfloat162float(r);
-  }
-};
-
-// out[col .. col+VEC) of one row: 16-byte stores where the width allows
-// (F % VEC == 0 and out is 16-byte aligned, so col * 4 bytes is too).
-template <int VEC>
-__device__ __forceinline__ void store(float* p, const float* v) {
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) p[i] = v[i];
-  }
-}
-
-// kOneRow: rows_per_warp == 1, so no row ends inside the slot loop.
+// kOneRow: rows_per_warp == 1, so no row ends inside the slot loop. An int8
+// table (T = int8_t) weighs each slot's row by scale[id].
 template <typename T, int VEC, bool kOneRow>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-gather_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
-                   const uint8_t* __restrict__ mask, float* __restrict__ out,
-                   int B, int k, int F, int rows_per_warp) {
-  using V = Vec<T, VEC>;
+gather_mean_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   const int32_t* __restrict__ idx, const uint8_t* __restrict__ mask,
+                   float* __restrict__ out, int B, int k, int F, int rows_per_warp) {
+  using V = rows::Vec<T, VEC>;
+  constexpr bool kScaled = std::is_same_v<T, int8_t>;
   const int lane = threadIdx.x % kWarp;
   const long long b0 =
       (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp) *
@@ -156,13 +86,16 @@ gather_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   const uint8_t* w_mask = mask + b0 * k;
   const bool one_group = slots <= kWarp;
 
-  // Flat slots s0 .. s0+31: lane s's id (valid slots only) and the ballot.
+  // Flat slots s0 .. s0+31: lane s's id and scale (valid slots only) and
+  // the ballot.
   int my_row = 0;
+  float my_scale = 0.f;
   unsigned valid_bits = 0;
   auto load_group = [&](int s0) {
     const int s = s0 + lane;
     const bool valid = s < slots && w_mask[s] != 0;
     my_row = valid ? w_idx[s] : 0;
+    if constexpr (kScaled) my_scale = valid ? scale[my_row] : 0.f;
     valid_bits = __ballot_sync(kFull, valid);
   };
   if (one_group) load_group(0);
@@ -185,7 +118,7 @@ gather_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
           v[i] = acc[i] / denom;
           acc[i] = 0.f;
         }
-        store<VEC>(out + static_cast<size_t>(b0 + cur) * F + col, v);
+        rows::store<float, VEC>(out + static_cast<size_t>(b0 + cur) * F + col, v);
       }
       ++cur;
       cnt = 0;
@@ -198,13 +131,18 @@ gather_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
         const int j = __ffs(todo) - 1;
         todo &= todo - 1;
         const int r = __shfl_sync(kFull, my_row, j);
+        float w = 1.f;
+        if constexpr (kScaled) w = __shfl_sync(kFull, my_scale, j);
         typename V::Raw v;
         if (active) v = V::load(x + static_cast<size_t>(r) * F + col);
         // Write the rows this slot has passed while the load is in flight.
         if constexpr (!kOneRow) {
           while (cur < (s0 + j) / k) flush();
         }
-        if (active) V::add(v, acc);
+        if (active) {
+          if constexpr (kScaled) V::add(v, w, acc);
+          else V::add(v, acc);
+        }
         ++cnt;
       }
     }
@@ -213,8 +151,8 @@ gather_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
 }
 
 template <typename T, int VEC>
-int launch(const void* x, const void* idx, const void* mask, void* out, int B,
-           int k, int F, void* stream) {
+int launch(const void* x, const void* scale, const void* idx, const void* mask,
+           void* out, int B, int k, int F, void* stream) {
   // Enough warps to fill the card first (about 8192), then up to 32 / k
   // rows per warp.
   const int rows_per_warp =
@@ -225,9 +163,9 @@ int launch(const void* x, const void* idx, const void* mask, void* out, int B,
   const auto kernel = rows_per_warp == 1 ? gather_mean_kernel<T, VEC, true>
                                          : gather_mean_kernel<T, VEC, false>;
   kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(idx),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), B, k, F,
-      rows_per_warp);
+      static_cast<const T*>(x), static_cast<const float*>(scale),
+      static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), B, k, F, rows_per_warp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,24 +173,54 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-}  // namespace
-
-// The widest vector load that every row start permits: a row starts at
-// x + r*F elements, so the width must divide F and the base address.
-extern "C" int gsage_gather_mean_f32(const void* x, const void* idx,
-                                     const void* mask, void* out, int B, int k,
-                                     int F, void* stream) {
-  if (F % 4 == 0 && aligned(x, 16))
-    return launch<float, 4>(x, idx, mask, out, B, k, F, stream);
-  return launch<float, 1>(x, idx, mask, out, B, k, F, stream);
+// The vector width: the widest load (16 bytes at most) that every row start
+// permits, so it divides F and the base address (a row starts at x + r*F
+// elements), narrowed until F gives each of the 32 lanes a piece of the row
+// where F allows it. Int8 at F=256 thus takes 8-byte loads on all 32 lanes,
+// not 16-byte loads on 16 of them.
+template <typename T>
+int launch_widest(const void* x, const void* scale, const void* idx,
+                  const void* mask, void* out, int B, int k, int F, void* stream) {
+  constexpr int kMax = 16 / static_cast<int>(sizeof(T));
+  int vec = 0;
+  for (int v = kMax; v >= 1; v /= 2) {
+    if (F % v != 0 || !aligned(x, v * sizeof(T))) continue;
+    vec = v;
+    if (F >= kWarp * v) break;
+  }
+  switch (vec) {
+    case 16:
+      if constexpr (kMax >= 16) return launch<T, 16>(x, scale, idx, mask, out, B, k, F, stream);
+      break;
+    case 8:
+      if constexpr (kMax >= 8) return launch<T, 8>(x, scale, idx, mask, out, B, k, F, stream);
+      break;
+    case 4:
+      return launch<T, 4>(x, scale, idx, mask, out, B, k, F, stream);
+    case 2:
+      return launch<T, 2>(x, scale, idx, mask, out, B, k, F, stream);
+  }
+  return launch<T, 1>(x, scale, idx, mask, out, B, k, F, stream);
 }
 
-extern "C" int gsage_gather_mean_bf16(const void* x, const void* idx,
-                                      const void* mask, void* out, int B, int k,
-                                      int F, void* stream) {
-  if (F % 8 == 0 && aligned(x, 16))
-    return launch<__nv_bfloat16, 8>(x, idx, mask, out, B, k, F, stream);
-  if (F % 4 == 0 && aligned(x, 8))
-    return launch<__nv_bfloat16, 4>(x, idx, mask, out, B, k, F, stream);
-  return launch<__nv_bfloat16, 1>(x, idx, mask, out, B, k, F, stream);
+}  // namespace
+
+// scale: nullptr for the f32 and bf16 tables; an int8 table's per-row
+// scales (gather_mean_dequant: row id's elements times scale[id]).
+extern "C" int gsage_gather_mean_f32(const void* x, const void* scale, const void* idx,
+                                     const void* mask, void* out, int B, int k, int F,
+                                     void* stream) {
+  return launch_widest<float>(x, scale, idx, mask, out, B, k, F, stream);
+}
+
+extern "C" int gsage_gather_mean_bf16(const void* x, const void* scale, const void* idx,
+                                      const void* mask, void* out, int B, int k, int F,
+                                      void* stream) {
+  return launch_widest<__nv_bfloat16>(x, scale, idx, mask, out, B, k, F, stream);
+}
+
+extern "C" int gsage_gather_mean_int8(const void* q, const void* scale, const void* idx,
+                                      const void* mask, void* out, int B, int k, int F,
+                                      void* stream) {
+  return launch_widest<int8_t>(q, scale, idx, mask, out, B, k, F, stream);
 }

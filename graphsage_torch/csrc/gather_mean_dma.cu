@@ -6,9 +6,10 @@
 //
 //   out[b, :] = sum_j mask[b, j] * X[idx[b, j], :] / max(sum_j mask[b, j], 1)
 //
-// X f32 [N, F]; idx int32 [B, k]; mask bool [B, k]; out f32 [B, F]. Rows with
-// no valid slot are 0. The same function as gather_mean.cu; its backward is
-// scatter_mean.cu.
+// X f32 or bf16 [N, F]; idx int32 [B, k]; mask bool [B, k]; out f32 [B, F],
+// summed in f32. Rows with no valid slot are 0. The same function as
+// gather_mean.cu; its backward is scatter_mean.cu. (The TPU kernel cast X to
+// f32 first; here bf16 rows land in the ring as they are, half the bytes.)
 //
 // What bounds it on the H100: bytes, as for gather_mean.cu: one add per 4
 // bytes read, so the least time is the distinct rows read plus idx, mask and
@@ -37,9 +38,10 @@
 // valid slot is written as zeros; a warp none of whose rows has a valid slot
 // writes its zeros and leaves before it sets up a ring (at the Pubmed
 // frontier, over half of the warps). Slots are added in order: bitwise
-// repeatable. S is about 2 KB of stages per warp (4 at F=128, 2 at F=500
-// and 1433): most warps hold few valid slots, and this ring was as fast as
-// an 8 KB one or faster at every width timed.
+// repeatable. S is about 2 KB of stages per warp (f32: 4 at F=128, 2 at
+// F=500 and 1433; bf16: 8 at F=128, 2 at F=602): most warps hold few valid
+// slots, and this ring was as fast as an 8 KB one or faster at every width
+// timed (f32).
 //
 // Bound on the H100: by the latency of each warp's chain (mask, ids, then a
 // bulk copy and its barrier), not by bandwidth. A bulk copy's round trip is
@@ -49,20 +51,25 @@
 // rows per warp (up to 128 / k, the ring running across their boundaries)
 // and one row per warp were both slower at the Pubmed frontier.
 //
-// A bulk copy needs a 16-byte-aligned source, destination and size. When F
-// is a multiple of 4 and X is 16-byte aligned, a copy moves the row itself.
-// Otherwise (F=1433 and F=45, or a view of X at an odd offset) it moves the
+// A bulk copy needs a 16-byte-aligned source, destination and size. When a
+// row is a multiple of 16 bytes (F a multiple of 4 in f32, of 8 in bf16) and
+// X is 16-byte aligned, a copy moves the row itself. Otherwise (F=1433 and
+// F=45, bf16 at Reddit's F=602, or a view of X at an odd offset) it moves the
 // 16-byte-aligned envelope of the row, and the lanes read from the row's
 // offset in it, as the TPU kernel copied the aligned 8-row window around a
 // row. The table is never padded or copied, so where an envelope would reach
 // before X's first byte or past its last, that row is read by the lanes
 // directly from device memory instead (its stage's barrier is completed by
-// a plain arrive). Rows wider than the 2048 columns the registers hold are
-// taken in slabs of 2048, each a pass over the slots. Every loop bound is
+// a plain arrive). Rows wider than the 2048 columns the registers hold (64
+// f32 sums a lane, whatever the table's type: 8 KB of f32 or 4 KB of bf16
+// per stage) are taken in slabs of 2048, each a pass over the slots. Every loop bound is
 // uniform across the warp, so shuffles and ballots see all 32 lanes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -114,40 +121,43 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
 
 // What one copy moves for columns [c0, c0 + width) of row r: the segment
 // itself (VEC == 4: row starts are 16-byte aligned) or its 16-byte-aligned
-// envelope, the segment's offset in it (floats), and whether the envelope
+// envelope, the segment's offset in it (elements), and whether the envelope
 // lies inside the table.
+template <typename T>
 struct Segment {
-  const float* src;
+  const T* src;
   uint32_t bytes;
   int off;
   bool inside;
 };
 
-template <int VEC>
-__device__ __forceinline__ Segment segment(const float* x, size_t table_bytes, int r,
-                                           int F, int c0, int width) {
-  const float* start = x + static_cast<size_t>(r) * F + c0;
+template <typename T, int VEC>
+__device__ __forceinline__ Segment<T> segment(const T* x, size_t table_bytes, int r,
+                                              int F, int c0, int width) {
+  constexpr uintptr_t kSize = sizeof(T);
+  const T* start = x + static_cast<size_t>(r) * F + c0;
   if constexpr (VEC == 4) {
-    return {start, static_cast<uint32_t>(width) * 4u, 0, true};
+    return {start, static_cast<uint32_t>(width * kSize), 0, true};
   } else {
     const uintptr_t base = reinterpret_cast<uintptr_t>(x);
     const uintptr_t s = reinterpret_cast<uintptr_t>(start);
     const uintptr_t lo = s & ~uintptr_t{15};
-    const uintptr_t hi = (s + static_cast<uintptr_t>(width) * 4 + 15) & ~uintptr_t{15};
-    return {reinterpret_cast<const float*>(lo), static_cast<uint32_t>(hi - lo),
-            static_cast<int>((s - lo) / 4), lo >= base && hi <= base + table_bytes};
+    const uintptr_t hi = (s + static_cast<uintptr_t>(width) * kSize + 15) & ~uintptr_t{15};
+    return {reinterpret_cast<const T*>(lo), static_cast<uint32_t>(hi - lo),
+            static_cast<int>((s - lo) / kSize), lo >= base && hi <= base + table_bytes};
   }
 }
 
-// Columns of a pass: lane l holds 4 * NC of them: VEC == 4: 16-byte pieces
-// q * 128 + 4 * l + i; VEC == 1: q * 32 + l, so that scalar reads of a stage
-// are free of bank conflicts and scalar stores coalesce.
-template <int VEC, int NC>
+// Columns of a pass: lane l holds 4 * NC of them: VEC == 4: pieces of four
+// elements q * 128 + 4 * l + i (16 bytes of f32, 8 of bf16); VEC == 1:
+// q * 32 + l, so that scalar reads of a stage are free of bank conflicts and
+// scalar stores coalesce.
+template <typename T, int VEC, int NC>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-gather_mean_dma_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+gather_mean_dma_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                        const uint8_t* __restrict__ mask, float* __restrict__ out,
                        size_t table_bytes, int B, int k, int F, int rows_per_warp,
-                       int stages, int stage_floats) {
+                       int stages, int stage_bytes) {
   constexpr int kCols = 4 * NC;            // per lane per pass
   constexpr int kSlab = kWarp * kCols;     // per pass
   extern __shared__ __align__(16) unsigned char smem[];
@@ -188,8 +198,7 @@ gather_mean_dma_kernel(const float* __restrict__ x, const int32_t* __restrict__ 
 
   const int bar_bytes = (kWarpsPerBlock * stages * 8 + 15) & ~15;
   const uint32_t bars = smem_addr(smem) + warp * stages * 8;
-  float* ring = reinterpret_cast<float*>(smem + bar_bytes) +
-                static_cast<size_t>(warp) * stages * stage_floats;
+  unsigned char* ring = smem + bar_bytes + static_cast<size_t>(warp) * stages * stage_bytes;
   if (lane == 0)
     for (int s = 0; s < stages; ++s) bar_init(bars + 8 * s);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -240,9 +249,9 @@ gather_mean_dma_kernel(const float* __restrict__ x, const int32_t* __restrict__ 
         if (lane == 0) {
           const int st = static_cast<int>(issued % stages);
           const uint32_t bar = bars + 8 * st;
-          const Segment seg = segment<VEC>(x, table_bytes, r, F, c0, width);
+          const Segment<T> seg = segment<T, VEC>(x, table_bytes, r, F, c0, width);
           if (seg.inside)
-            bulk_copy(smem_addr(ring + static_cast<size_t>(st) * stage_floats), seg.src,
+            bulk_copy(smem_addr(ring + static_cast<size_t>(st) * stage_bytes), seg.src,
                       seg.bytes, bar);
           else
             bar_arrive(bar);  // read directly below
@@ -258,25 +267,20 @@ gather_mean_dma_kernel(const float* __restrict__ x, const int32_t* __restrict__ 
         while (cur < (s0 + j) / k) flush();  // rows this slot has passed
         const int st = static_cast<int>(consumed % stages);
         bar_wait(bars + 8 * st, (consumed / stages) & 1u);
-        const Segment seg = segment<VEC>(x, table_bytes, r, F, c0, width);
-        const float* row = ring + static_cast<size_t>(st) * stage_floats + seg.off;
+        const Segment<T> seg = segment<T, VEC>(x, table_bytes, r, F, c0, width);
+        const T* row =
+            reinterpret_cast<const T*>(ring + static_cast<size_t>(st) * stage_bytes) + seg.off;
 #pragma unroll
         for (int q = 0; q < NC; ++q) {
           if constexpr (VEC == 4) {
             const int col = q * kWarp * 4 + lane * 4;
-            if (col < width) {
-              const float4 t = *reinterpret_cast<const float4*>(row + col);
-              acc[4 * q] += t.x;
-              acc[4 * q + 1] += t.y;
-              acc[4 * q + 2] += t.z;
-              acc[4 * q + 3] += t.w;
-            }
+            if (col < width) rows::Vec<T, 4>::add(rows::Vec<T, 4>::load(row + col), acc + 4 * q);
           } else {
-            const float* direct = x + static_cast<size_t>(r) * F + c0;
+            const T* direct = x + static_cast<size_t>(r) * F + c0;
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int col = (4 * q + i) * kWarp + lane;
-              if (col < width) acc[4 * q + i] += seg.inside ? row[col] : __ldg(direct + col);
+              if (col < width) acc[4 * q + i] += rows::to_f32(seg.inside ? row[col] : direct[col]);
             }
           }
         }
@@ -290,13 +294,13 @@ gather_mean_dma_kernel(const float* __restrict__ x, const int32_t* __restrict__ 
   }
 }
 
-template <int VEC, int NC>
+template <typename T, int VEC, int NC>
 int launch(const void* x, const void* idx, const void* mask, void* out, size_t table_bytes,
-           int B, int k, int F, int rows_per_warp, int stages, int stage_floats,
+           int B, int k, int F, int rows_per_warp, int stages, int stage_bytes,
            cudaStream_t stream) {
-  const auto kernel = gather_mean_dma_kernel<VEC, NC>;
+  const auto kernel = gather_mean_dma_kernel<T, VEC, NC>;
   const size_t bytes = static_cast<size_t>((kWarpsPerBlock * stages * 8 + 15) & ~15) +
-                       static_cast<size_t>(kWarpsPerBlock) * stages * stage_floats * 4;
+                       static_cast<size_t>(kWarpsPerBlock) * stages * stage_bytes;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -305,52 +309,70 @@ int launch(const void* x, const void* idx, const void* mask, void* out, size_t t
   const long long warps = (static_cast<long long>(B) + rows_per_warp - 1) / rows_per_warp;
   const int blocks = static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
   kernel<<<blocks, kWarp * kWarpsPerBlock, bytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const int32_t*>(idx),
+      static_cast<const T*>(x), static_cast<const int32_t*>(idx),
       static_cast<const uint8_t*>(mask), static_cast<float*>(out), table_bytes, B, k, F,
-      rows_per_warp, stages, stage_floats);
+      rows_per_warp, stages, stage_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC>
+template <typename T, int VEC>
 int launch_chunks(const void* x, const void* idx, const void* mask, void* out,
                   size_t table_bytes, int B, int k, int F, int rows_per_warp, int chunks,
-                  int stages, int stage_floats, cudaStream_t stream) {
+                  int stages, int stage_bytes, cudaStream_t stream) {
   switch (chunks) {
     case 1:
-      return launch<VEC, 1>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
-                            stages, stage_floats, stream);
+      return launch<T, VEC, 1>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
+                               stages, stage_bytes, stream);
     case 4:
-      return launch<VEC, 4>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
-                            stages, stage_floats, stream);
+      return launch<T, VEC, 4>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
+                               stages, stage_bytes, stream);
     case 16:
-      return launch<VEC, 16>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
-                             stages, stage_floats, stream);
+      return launch<T, VEC, 16>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
+                                stages, stage_bytes, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The launch plan (rows_per_warp, chunks of 128 columns per pass, stages and
+// the bytes of one stage) comes from the wrapper (ops/gather_dma.py:plan).
+// Whole-row copies need every row start 16-byte aligned: rows of a multiple
+// of 16 bytes and an aligned table; otherwise envelopes, which need 16 bytes
+// more per stage.
+template <typename T>
+int launch_checked(const void* x, const void* idx, const void* mask, void* out, int N,
+                   int B, int k, int F, int rows_per_warp, int chunks, int stages,
+                   int stage_bytes, void* stream) {
+  constexpr int kSize = sizeof(T);
+  const bool whole = (F * kSize) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int width = min(F, 128 * chunks);
+  const int need = whole ? width * kSize : ((width * kSize + 15) & ~15) + 16;
+  if (rows_per_warp < 1 || (rows_per_warp > 1 && rows_per_warp * k > kWarp) ||
+      stages < 1 || stages > kMaxStages || stage_bytes % 16 != 0 || stage_bytes < need)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t table_bytes = static_cast<size_t>(N) * F * kSize;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (whole)
+    return launch_chunks<T, 4>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
+                               chunks, stages, stage_bytes, s);
+  return launch_chunks<T, 1>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp,
+                             chunks, stages, stage_bytes, s);
+}
+
 }  // namespace
 
-// The launch plan (rows_per_warp, chunks of 128 columns per pass, stages and
-// the floats of one stage) comes from the wrapper (ops/gather_dma.py:plan).
-// Whole-row copies need every row start 16-byte aligned: F % 4 == 0 and an
-// aligned table; otherwise envelopes, which need 16 bytes more per stage.
 extern "C" int gsage_gather_mean_dma_f32(const void* x, const void* idx, const void* mask,
                                          void* out, int N, int B, int k, int F,
                                          int rows_per_warp, int chunks, int stages,
-                                         int stage_floats, void* stream) {
-  const bool whole = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int width = min(F, 128 * chunks);
-  const int need = whole ? width : ((width + 3) & ~3) + 4;
-  if (rows_per_warp < 1 || (rows_per_warp > 1 && rows_per_warp * k > kWarp) ||
-      stages < 1 || stages > kMaxStages || stage_floats % 4 != 0 || stage_floats < need)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t table_bytes = static_cast<size_t>(N) * F * sizeof(float);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (whole)
-    return launch_chunks<4>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp, chunks,
-                            stages, stage_floats, s);
-  return launch_chunks<1>(x, idx, mask, out, table_bytes, B, k, F, rows_per_warp, chunks,
-                          stages, stage_floats, s);
+                                         int stage_bytes, void* stream) {
+  return launch_checked<float>(x, idx, mask, out, N, B, k, F, rows_per_warp, chunks,
+                               stages, stage_bytes, stream);
+}
+
+extern "C" int gsage_gather_mean_dma_bf16(const void* x, const void* idx, const void* mask,
+                                          void* out, int N, int B, int k, int F,
+                                          int rows_per_warp, int chunks, int stages,
+                                          int stage_bytes, void* stream) {
+  return launch_checked<__nv_bfloat16>(x, idx, mask, out, N, B, k, F, rows_per_warp,
+                                       chunks, stages, stage_bytes, stream);
 }

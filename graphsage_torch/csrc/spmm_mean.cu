@@ -8,7 +8,10 @@
 //   out[v, :] = scale(v) * sum_{e in [indptr[v], indptr[v+1])} X[edge_dst[e], :]
 //   scale(v)  = 1 / max(deg v, 1) when normalize, else 1
 //
-// X f32 [N, F]; indptr int32 [N+1]; edge_dst int32 [E_pad]; out f32 [N, F].
+// X f32 or bf16 [N, F]; indptr int32 [N+1]; edge_dst int32 [E_pad]; out
+// [N, F] in X's type, summed in f32 and rounded once (bf16: the table tier's
+// refresh and the layer-0 cache of the bf16 presets; the TPU kernel cast X to
+// f32 first).
 //
 // What bounds it on the H100: bytes. Each edge reads one F-wide row and adds
 // it (a quarter of an operation per byte read), far below the ridge point;
@@ -29,20 +32,30 @@
 // chunks start with one 256-way search of indptr (two rounds at N = 20000),
 // copy the indptr and edge_dst windows that those chunks can touch into
 // shared memory, and each warp then finds its own chunk's start and end
-// there. Lanes own 16-byte column pieces (single elements when F is not a
-// multiple of 4 or X is not 16-byte aligned); a warp issues the row loads of
+// there. Lanes own 16-byte column pieces (four f32 or eight bf16; bf16 pairs
+// when F is even but not a multiple of 8, as Reddit's 602; single f32
+// elements when an f32 width is not a multiple of 4). An odd bf16 width (or
+// X at a 2-byte offset) still takes pairs: every other row starts 2 bytes
+// into a 4-byte word, so there a lane reads the two words around its pair
+// and funnel-shifts them, the width's last element is read alone, and the
+// rows are written one element at a time (kOdd); a warp issues the row loads of
 // kDepth edges before it adds them. Few registers matter more than deep
 // batches: the kernel is bound by the latency of each warp's chain of
 // dependent loads, and more resident warps hide more of it. A row that ends
 // inside the chunk is written directly, scaled. A row cut by a chunk
 // boundary is finished by spmm_mean_kernel_fixup: the piece at a chunk's end
 // goes to that chunk's carry row in the scratch buffer, the piece at a row's
-// end is written to out unscaled, and the fix-up adds the carries in chunk
-// order, then that piece, and scales. No atomics: the result is bitwise
-// repeatable.
+// end to that chunk's head row, both f32, and the fix-up adds the carries in
+// chunk order, then the head, scales and rounds once. No atomics: the result
+// is bitwise repeatable.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "rows.cuh"
 
 namespace {
 
@@ -50,38 +63,6 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kDepth = 4;  // row loads in flight per warp
 constexpr unsigned kFull = 0xffffffffu;
-
-template <int VEC>
-struct Vec;
-
-template <>
-struct Vec<4> {
-  using Raw = float4;
-  static __device__ __forceinline__ Raw load(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
-    acc[0] += r.x;
-    acc[1] += r.y;
-    acc[2] += r.z;
-    acc[3] += r.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec<1> {
-  using Raw = float;
-  static __device__ __forceinline__ Raw load(const float* p) { return *p; }
-  static __device__ __forceinline__ void add(const Raw& r, float* acc) {
-    acc[0] += r;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *p = v[0];
-  }
-};
 
 // The first x in [lo, hi) with ptr[x+1-base] > d - x - 1, else hi: the row
 // coordinate where diagonal d of the merge path crosses indptr (ptr holds
@@ -113,13 +94,19 @@ __device__ __forceinline__ int merge_search(const int32_t* ptr, int base, int d,
   return lo;
 }
 
-template <int VEC>
+// carry and head: one f32 row per chunk each, ld floats apart (F rounded up
+// to even, so kOdd's f32 pairs stay aligned); carry_row: the row each
+// chunk's carry belongs to, or -1. kOdd: bf16 pairs read from any 2-byte
+// address, rows written per element (see above).
+template <typename T, int VEC, bool kOdd>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-spmm_mean_kernel(const float* __restrict__ x, const int32_t* __restrict__ indptr,
-                 const int32_t* __restrict__ edge_dst, float* __restrict__ out,
-                 float* __restrict__ carry, int32_t* __restrict__ carry_row,
-                 int N, int F, int normalize, int chunk, int num_chunks) {
-  using V = Vec<VEC>;
+spmm_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ indptr,
+                 const int32_t* __restrict__ edge_dst, T* __restrict__ out,
+                 float* __restrict__ carry, float* __restrict__ head,
+                 int32_t* __restrict__ carry_row, int N, int F, int ld, int normalize,
+                 int chunk, int num_chunks) {
+  using V = rows::Vec<T, VEC>;
+  static_assert(!kOdd || (std::is_same_v<T, __nv_bfloat16> && VEC == 2));
   constexpr int kThreads = kWarp * kWarpsPerBlock;
   extern __shared__ int32_t smem[];  // window of indptr, then of edge_dst
   __shared__ int s_count[kWarpsPerBlock];
@@ -170,26 +157,36 @@ spmm_mean_kernel(const float* __restrict__ x, const int32_t* __restrict__ indptr
 
   for (int c0 = 0; c0 < F; c0 += kWarp * VEC) {
     const int col = c0 + lane * VEC;
-    const bool active = col < F;  // F % VEC == 0, so the whole vector fits
+    const bool active = col < F;  // F % VEC == 0, or kOdd's last element alone
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
     int r = i0, rstart = first_start;
+    auto load = [&](const T* p) {
+      if constexpr (kOdd) return rows::load_bf16_pair(p, col + 1 < F);
+      else return V::load(p);
+    };
 
     // Write row r (its end item lies in this chunk) and move to row r + 1.
     auto flush = [&]() {
       const int rend = s_ptr[r + 1 - I0];
       if (active) {
-        float v[VEC];
-        const bool cut = r == i0 && first_cut;  // the fix-up scales it
-        const float denom = normalize && !cut
-            ? static_cast<float>(max(rend - rstart, 1)) : 1.f;
+        if (r == i0 && first_cut) {  // the fix-up adds the carries and scales
+          rows::store<float, VEC>(head + static_cast<size_t>(c) * ld + col, acc);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          v[i] = acc[i] / denom;
-          acc[i] = 0.f;
+          for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+        } else {
+          const float denom = normalize ? static_cast<float>(max(rend - rstart, 1)) : 1.f;
+          float v[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            v[i] = acc[i] / denom;
+            acc[i] = 0.f;
+          }
+          T* o = out + static_cast<size_t>(r) * F + col;
+          if constexpr (kOdd) rows::store_elems<T, VEC>(o, v, min(VEC, F - col));
+          else rows::store<T, VEC>(o, v);
         }
-        V::store(out + static_cast<size_t>(r) * F + col, v);
       }
       rstart = rend;
       ++r;
@@ -202,7 +199,7 @@ spmm_mean_kernel(const float* __restrict__ x, const int32_t* __restrict__ indptr
       for (int t = 0; t < kDepth; ++t) {
         if (t < n && active) {
           const int src = s_dst[e0 + t - J0];
-          v[t] = V::load(x + static_cast<size_t>(src) * F + col);
+          v[t] = load(x + static_cast<size_t>(src) * F + col);
         }
       }
 #pragma unroll
@@ -217,20 +214,21 @@ spmm_mean_kernel(const float* __restrict__ x, const int32_t* __restrict__ indptr
     }
     while (r < i1) flush();
     carries = i1 < N && rstart < j1;  // here r == i1 and rstart == indptr[i1]
-    if (carries && active) V::store(carry + static_cast<size_t>(c) * F + col, acc);
+    if (carries && active) rows::store<float, VEC>(carry + static_cast<size_t>(c) * ld + col, acc);
   }
   if (lane == 0) carry_row[c] = carries ? i1 : -1;
 }
 
 // One warp per chunk; the first chunk that carries row r sums the carries of
-// r in chunk order, adds the piece the main kernel wrote at r's end, scales.
-template <int VEC>
+// r in chunk order, adds the head piece of the chunk where r ends (the first
+// after the run that does not carry r), scales and writes row r.
+template <typename T, int VEC, bool kOdd>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-spmm_mean_kernel_fixup(const int32_t* __restrict__ indptr, float* __restrict__ out,
-                       const float* __restrict__ carry,
-                       const int32_t* __restrict__ carry_row, int F, int normalize,
+spmm_mean_kernel_fixup(const int32_t* __restrict__ indptr, T* __restrict__ out,
+                       const float* __restrict__ carry, const float* __restrict__ head,
+                       const int32_t* __restrict__ carry_row, int F, int ld, int normalize,
                        int num_chunks) {
-  using V = Vec<VEC>;
+  using V = rows::Vec<float, VEC>;
   const int lane = threadIdx.x % kWarp;
   const int c = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (c >= num_chunks) return;
@@ -257,51 +255,76 @@ spmm_mean_kernel_fixup(const int32_t* __restrict__ indptr, float* __restrict__ o
       typename V::Raw v[kDepth];
 #pragma unroll
       for (int t = 0; t < kDepth; ++t)
-        if (q0 + t < c_end) v[t] = V::load(carry + static_cast<size_t>(q0 + t) * F + col);
+        if (q0 + t < c_end) v[t] = V::load(carry + static_cast<size_t>(q0 + t) * ld + col);
 #pragma unroll
       for (int t = 0; t < kDepth; ++t)
         if (q0 + t < c_end) V::add(v[t], acc);
     }
-    float* o = out + static_cast<size_t>(r) * F + col;
-    V::add(V::load(o), acc);
+    V::add(V::load(head + static_cast<size_t>(c_end) * ld + col), acc);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] /= denom;
-    V::store(o, acc);
+    T* o = out + static_cast<size_t>(r) * F + col;
+    if constexpr (kOdd) rows::store_elems<T, VEC>(o, acc, min(VEC, F - col));
+    else rows::store<T, VEC>(o, acc);
   }
 }
 
-template <int VEC>
+template <typename T, int VEC, bool kOdd = false>
 int launch(const void* x, const void* indptr, const void* edge_dst, void* out,
            void* scratch, int N, int F, int normalize, int chunk, int num_chunks,
            void* stream) {
+  const int ld = F + F % 2;  // scratch row stride, as the wrapper sizes it
   const int threads = kWarp * kWarpsPerBlock;
   const int blocks = (num_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* carry = static_cast<float*>(scratch);
-  int32_t* carry_row = reinterpret_cast<int32_t*>(carry + static_cast<size_t>(num_chunks) * F);
+  float* head = carry + static_cast<size_t>(num_chunks) * ld;
+  int32_t* carry_row = reinterpret_cast<int32_t*>(head + static_cast<size_t>(num_chunks) * ld);
   const int32_t* ip = static_cast<const int32_t*>(indptr);
   const size_t smem = (2 * static_cast<size_t>(kWarpsPerBlock) * chunk + 1) * sizeof(int32_t);
-  spmm_mean_kernel<VEC><<<blocks, threads, smem, s>>>(
-      static_cast<const float*>(x), ip, static_cast<const int32_t*>(edge_dst),
-      static_cast<float*>(out), carry, carry_row, N, F, normalize, chunk, num_chunks);
+  spmm_mean_kernel<T, VEC, kOdd><<<blocks, threads, smem, s>>>(
+      static_cast<const T*>(x), ip, static_cast<const int32_t*>(edge_dst),
+      static_cast<T*>(out), carry, head, carry_row, N, F, ld, normalize, chunk,
+      num_chunks);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  spmm_mean_kernel_fixup<VEC><<<blocks, threads, 0, s>>>(
-      ip, static_cast<float*>(out), carry, carry_row, F, normalize, num_chunks);
+  spmm_mean_kernel_fixup<T, VEC, kOdd><<<blocks, threads, 0, s>>>(
+      ip, static_cast<T*>(out), carry, head, carry_row, F, ld, normalize, num_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
 
-// scratch: num_chunks * F floats of carry rows, then num_chunks int32 row
-// ids; chunk * num_chunks >= N + indptr[N] (the wrapper sizes both).
+// scratch: 2 * num_chunks * ld floats of carry and head rows (ld = F rounded
+// up to even), then num_chunks int32 row ids; chunk * num_chunks >= N + indptr[N] (the
+// wrapper sizes both). out has X's type; the widest load that every row
+// start permits.
 extern "C" int gsage_spmm_mean_f32(const void* x, const void* indptr,
                                    const void* edge_dst, void* out, void* scratch,
                                    int N, int F, int normalize, int chunk,
                                    int num_chunks, void* stream) {
-  if (F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
-    return launch<4>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
-                     num_chunks, stream);
-  return launch<1>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
-                   num_chunks, stream);
+  if (F % 4 == 0 && aligned(x, 16))
+    return launch<float, 4>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
+                            num_chunks, stream);
+  return launch<float, 1>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
+                          num_chunks, stream);
+}
+
+extern "C" int gsage_spmm_mean_bf16(const void* x, const void* indptr,
+                                    const void* edge_dst, void* out, void* scratch,
+                                    int N, int F, int normalize, int chunk,
+                                    int num_chunks, void* stream) {
+  if (F % 8 == 0 && aligned(x, 16))
+    return launch<__nv_bfloat16, 8>(x, indptr, edge_dst, out, scratch, N, F, normalize,
+                                    chunk, num_chunks, stream);
+  if (F % 2 == 0 && aligned(x, 4))
+    return launch<__nv_bfloat16, 2>(x, indptr, edge_dst, out, scratch, N, F, normalize,
+                                    chunk, num_chunks, stream);
+  // An odd width, or X at a 2-byte offset: pairs from any 2-byte address.
+  return launch<__nv_bfloat16, 2, true>(x, indptr, edge_dst, out, scratch, N, F,
+                                        normalize, chunk, num_chunks, stream);
 }

@@ -14,7 +14,8 @@ every array is identical from the same edges:
   CSR SpMM.
 
 :func:`with_cached_layer0` attaches the precomputed full-neighborhood feature
-means behind ``GraphSAGE(layer0="cached")``.
+means behind ``GraphSAGE(layer0="cached")``; :func:`quantize_graph` swaps the
+feature table for an int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable`.
 
 Indices are int32 throughout, as in the JAX ``Graph``.
 """
@@ -22,12 +23,20 @@ Indices are int32 throughout, as in the JAX ``Graph``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
 from graphsage_torch._device import resolve_device
+from graphsage_torch.ops.quantize import (
+    QuantizedTable,
+    dequantize,
+    is_quantized,
+    quantize_features,
+    quantize_rows,
+)
 from graphsage_torch.ops.spmm import spmm_mean
 
 
@@ -45,7 +54,7 @@ class Graph:
     edge_dst: torch.Tensor  # int32 [num_edges_pad] (CSR column indices)
     edge_src: torch.Tensor  # int32 [num_edges_pad] (COO row per edge)
     edge_mask: torch.Tensor  # bool  [num_edges_pad] (False on padding)
-    features: torch.Tensor  # float [num_nodes, num_features]
+    features: torch.Tensor | QuantizedTable  # float or int8 [num_nodes, num_features]
     labels: torch.Tensor  # int32 [num_nodes]
 
     num_nodes: int
@@ -57,9 +66,9 @@ class Graph:
     ell_covers_all: bool = True
     # True when the adjacency is symmetric (built undirected, no truncation).
     symmetric: bool = True
-    # with_cached_layer0's [N, F] table of full-neighborhood feature means,
-    # and whether it folds each node in (the self_loop flavor).
-    layer0_cache: torch.Tensor | None = None
+    # with_cached_layer0's [N, F] table of full-neighborhood feature means
+    # (dense or int8), and whether it folds each node in (the self_loop flavor).
+    layer0_cache: torch.Tensor | QuantizedTable | None = None
     layer0_cache_self_loop: bool = False
 
     def __repr__(self) -> str:
@@ -73,18 +82,50 @@ class Graph:
     def device(self) -> torch.device:
         return self.features.device
 
+    def _tables(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), (torch.Tensor, QuantizedTable))}
+
     def to(self, device) -> "Graph":
-        """A copy with every tensor on ``device`` (metadata unchanged)."""
+        """A copy with every tensor (and int8 table) on ``device`` (metadata
+        unchanged)."""
         dev = resolve_device(device)
-        moved = {
-            f.name: getattr(self, f.name).to(dev)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        }
-        return dataclasses.replace(self, **moved)
+        return dataclasses.replace(
+            self, **{name: t.to(dev) for name, t in self._tables().items()})
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of every array the graph holds (int8 tables count
+        their scales)."""
+        return sum(t.nbytes for t in self._tables().values())
 
 
-def with_cached_layer0(graph: Graph, self_loop: bool = False,
+def quantize_graph(graph: Graph) -> Graph:
+    """A copy of ``graph`` whose feature table is an int8
+    :class:`~graphsage_torch.ops.quantize.QuantizedTable` (a quarter of the
+    f32 bytes, int8 deepest-hop gathers), on the graph's device.
+
+    Valid because the table is frozen (quirk Q12): quantization happens once,
+    here. Idempotent. A layer-0 cache built from the dense features would no
+    longer be the mean of these rows: it is dropped, with a warning, and the
+    trainer rebuilds it (int8) from the quantized table.
+    """
+    if is_quantized(graph.features):
+        return graph
+    if graph.layer0_cache is not None:
+        warnings.warn(
+            "quantize_graph: dropping the pre-built layer0_cache (it was "
+            "computed from the un-quantized features); the trainer will "
+            "rebuild it int8; quantize first to pay the build once",
+            stacklevel=2,
+        )
+    return dataclasses.replace(
+        graph, features=quantize_features(graph.features), layer0_cache=None,
+        layer0_cache_self_loop=False,
+    )
+
+
+def with_cached_layer0(graph: Graph, self_loop: bool = False, dtype=None,
                        quantize: bool = False) -> Graph:
     """A copy of ``graph`` carrying ``layer0_cache``: ``M = D^-1 A X``, or
     ``(A X + X) / (D + 1)`` with ``self_loop``; zero-degree rows are 0
@@ -93,16 +134,17 @@ def with_cached_layer0(graph: Graph, self_loop: bool = False,
     The feature table is frozen (quirk Q12) and the mean is linear, so the
     deepest hop's full-neighborhood aggregate is a constant per node: the
     cache is what sampling that hop estimates (the reference's
-    ``num_sample=None``, quirk Q7, at the input-closest layer). ``A X`` is
-    the CSR SpMM summed without normalising, Hopper kernel 3 on the card (no
-    per-edge transient), its plain version on the CPU; the cache has the
-    features' dtype. Idempotent for the same flavor; a cache of the other
-    flavor raises.
+    ``num_sample=None``, quirk Q7, at the input-closest layer). It is the
+    CSR SpMM, Hopper kernel 3 on the card (bf16 rows read as they are, f32
+    sums, no per-edge transient), its plain version on the CPU: normalised
+    by the kernel, or summed and then folded with ``X`` for ``self_loop``.
+    An int8 table is dequantized into one f32 transient first.
+
+    ``dtype`` defaults to the dense features' dtype (bf16 features keep a
+    bf16 cache; an int8 table gives an f32 one); ``quantize=True`` stores
+    the cache as an int8 ``QuantizedTable`` instead. Idempotent for the same
+    flavor and kind; a cache of the other flavor or kind raises.
     """
-    if quantize:
-        raise NotImplementedError(
-            "an int8 layer-0 cache is not ported yet (ROADMAP Queue 1 item 8)"
-        )
     if graph.layer0_cache is not None:
         if graph.layer0_cache_self_loop != bool(self_loop):
             raise ValueError(
@@ -111,19 +153,30 @@ def with_cached_layer0(graph: Graph, self_loop: bool = False,
                 "(dataclasses.replace(graph, layer0_cache=None)) to switch "
                 "flavors"
             )
+        if bool(quantize) != is_quantized(graph.layer0_cache):
+            kind = "quantized" if is_quantized(graph.layer0_cache) else "dense"
+            raise ValueError(
+                f"graph already carries a {kind} layer0_cache but "
+                f"quantize={quantize} was requested; rebuild from the base "
+                "graph (dataclasses.replace(graph, layer0_cache=None)) to switch"
+            )
         return graph
-    x = graph.features.to(torch.float32)
-    with torch.no_grad():
-        summed = spmm_mean(x, graph.indptr, graph.edge_dst, normalize=False)
-    deg = graph.degrees.to(torch.float32)[:, None]
-    if self_loop:
-        cache = (summed + x) / (deg + 1.0)
+    if is_quantized(graph.features):
+        x = dequantize(graph.features)
     else:
-        cache = summed / deg.clamp(min=1.0)
+        x = graph.features
+    if dtype is None:
+        dtype = x.dtype
+    with torch.no_grad():
+        if self_loop:
+            summed = spmm_mean(x, graph.indptr, graph.edge_dst, normalize=False)
+            deg = graph.degrees.to(torch.float32)[:, None]
+            cache = (summed.to(torch.float32) + x.to(torch.float32)) / (deg + 1.0)
+        else:
+            cache = spmm_mean(x, graph.indptr, graph.edge_dst)
+    cache = quantize_rows(cache) if quantize else cache.to(dtype)
     return dataclasses.replace(
-        graph, layer0_cache=cache.to(graph.features.dtype),
-        layer0_cache_self_loop=bool(self_loop),
-    )
+        graph, layer0_cache=cache, layer0_cache_self_loop=bool(self_loop))
 
 
 def sorted_unique_edges(

@@ -12,6 +12,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from graphsage_torch.data.graph import Graph, build_graph
 
@@ -188,6 +189,7 @@ def power_law_graph(
     num_classes: int = 16,
     seed: int = 0,
     max_degree: int | None = None,
+    feature_dtype: torch.dtype = torch.float32,
     homophily: float = 0.0,
     device=None,
 ) -> Graph:
@@ -199,6 +201,8 @@ def power_law_graph(
     source's class; with 0 (the default) edges are label-random, and a model
     that sees only neighbour means cannot learn the labels. Nodes left
     without an edge are chained to their successor (minimum degree 1).
+    ``feature_dtype`` (bf16 for the ``reddit`` and ``powerlaw_1m`` datasets)
+    rounds the f32 features to nearest even, as JAX's cast does.
     """
     rng = np.random.default_rng(seed)
     ranks = rng.permutation(num_nodes) + 1
@@ -238,5 +242,5 @@ def power_law_graph(
     )
     return build_graph(
         features, labels, edges, num_classes=num_classes, undirected=True,
-        max_degree=max_degree, device=device,
+        max_degree=max_degree, feature_dtype=feature_dtype, device=device,
     )

@@ -32,6 +32,16 @@ neighborhoods (the mean through the CSR mean-SpMM, maxpool through a
 per-edge segment max, lstm over the ELL rows in adjacency order) — the
 deterministic inference path behind the serving table tier and evaluation
 with ``eval_fanouts=None``.
+
+Reduced precision follows the JAX model cast for cast: ``compute_dtype``
+(``torch.bfloat16``) runs the products in bf16 with the weights kept f32
+and cast at use; the layers with an aggregation step return f32
+activations, layer 0's project-first and full-graph tables stay in the
+compute dtype, and logits are f32. The feature table may be an int8
+:class:`~graphsage_torch.ops.quantize.QuantizedTable`
+(``data.graph.quantize_graph``): its gathers dispatch on the table's type
+(kernel 1's int8 route for the masked mean), project-first contracts the
+raw int8 values (``project_table``), and the other paths dequantize.
 """
 
 from __future__ import annotations
@@ -54,6 +64,13 @@ from graphsage_torch.models.layers import (
     split_mean_weight,
 )
 from graphsage_torch.ops.aggregate import gather, gather_mean, segment_max_csr, spmm_mean
+from graphsage_torch.ops.quantize import (
+    dequantize,
+    gather_dequant,
+    gather_mean_dequant,
+    is_quantized,
+    project_table,
+)
 from graphsage_torch.ops.sampling import sample_neighbors
 
 
@@ -78,10 +95,17 @@ class Frontier(NamedTuple):
 # What the port does not run yet, and the ROADMAP Queue 1 item that brings it.
 _NOT_PORTED = {
     "sampling": ("floyd", 9),
-    "compute_dtype": (None, 8),
     "multilabel": (False, 10),
 }
 LAYER0_MODES = ("sampled", "full", "cached")
+# ModelConfig.compute_dtype names.
+COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+# The sampled layer 0's order rule (GraphSAGE.sampled_layer0_project_first):
+# on the H100 at Reddit's widths (602 -> 128, bf16) the two orders cost the
+# same device time at about 2.5 slots per table row, between the 2.2 and 4.4
+# measured, which puts this ratio between 1.7 and 3.5; 2 sits at the
+# interpolated crossover.
+LAYER0_ORDER_KAPPA = 2.0
 
 
 class GraphSAGE(nn.Module):
@@ -90,7 +114,7 @@ class GraphSAGE(nn.Module):
 
     Parameters are glorot-initialised on the CPU from ``generator`` (seed 0
     when omitted) and then placed on ``device`` (``cuda`` unless the caller
-    passes ``device="cpu"``).
+    passes ``device="cpu"``). They stay f32 under any ``compute_dtype``.
     """
 
     def __init__(
@@ -106,7 +130,7 @@ class GraphSAGE(nn.Module):
         pool_dim: int | None = None,
         layer0: str = "sampled",
         sampling: str = "floyd",
-        compute_dtype=None,
+        compute_dtype: torch.dtype | None = None,
         multilabel: bool = False,
         gather_impl: str = "auto",
         spmm_impl: str = "auto",
@@ -135,8 +159,11 @@ class GraphSAGE(nn.Module):
                 "layer0='cached' requires the mean aggregator: the cache is "
                 "exact only because the mean is linear in the frozen features"
             )
-        given = {"sampling": sampling, "compute_dtype": compute_dtype,
-                 "multilabel": multilabel}
+        if compute_dtype is not None and not (
+                isinstance(compute_dtype, torch.dtype) and compute_dtype.is_floating_point):
+            raise ValueError(f"compute_dtype must be a floating torch dtype, got "
+                             f"{compute_dtype!r}")
+        given = {"sampling": sampling, "multilabel": multilabel}
         for name, (supported, item) in _NOT_PORTED.items():
             if given[name] != supported:
                 raise NotImplementedError(
@@ -153,6 +180,7 @@ class GraphSAGE(nn.Module):
         self.self_loop = self_loop
         self.pool_dim = pool_dim
         self.layer0 = layer0
+        self.compute_dtype = compute_dtype
         self.gather_impl = gather_impl
         self.spmm_impl = spmm_impl
         self.project_first = project_first
@@ -169,11 +197,10 @@ class GraphSAGE(nn.Module):
 
     @classmethod
     def from_config(cls, cfg, in_dim: int, num_classes: int, **kwargs) -> "GraphSAGE":
-        """Build from a :class:`graphsage_torch.train.config.ModelConfig`."""
-        if cfg.quantize_features:
-            raise NotImplementedError(
-                "quantize_features is not ported yet (ROADMAP Queue 1 item 8)"
-            )
+        """Build from a :class:`graphsage_torch.train.config.ModelConfig`
+        (``quantize_features`` is the graph's: ``run_preset`` applies it)."""
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
         if cfg.final_activation != "relu":
             raise NotImplementedError(
                 "final_activation='linear' is not ported yet (ROADMAP Queue 1 "
@@ -184,7 +211,7 @@ class GraphSAGE(nn.Module):
             aggregator=cfg.aggregator, concat_self=cfg.concat_self,
             self_loop=cfg.self_loop, pool_dim=cfg.pool_dim, layer0=cfg.layer0,
             sampling=cfg.sampling,
-            compute_dtype=cfg.compute_dtype, gather_impl=cfg.gather_impl,
+            compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype], gather_impl=cfg.gather_impl,
             spmm_impl=cfg.spmm_impl, project_first=cfg.project_first, **kwargs,
         )
 
@@ -197,21 +224,33 @@ class GraphSAGE(nn.Module):
         return self.head.device
 
     def use_project_first(self, layer: int, d_in: int) -> bool:
-        """Whether layer ``layer`` aggregates after projecting. ``"auto"``
-        projects whenever the layer shrinks its width (``d_in > d_out``), so
-        the gather-mean (or SpMM) moves ``d_out``-wide rows. That is the
-        traffic rule; it does not weigh what projecting first adds to a
-        training step (the ``[N, d_in] x [d_in, d_out]`` product over the
-        whole table and the backward scatter into the projected table), so
-        which order is cheaper there depends on N against the number of
-        gathered rows and on the widths. The H100 step times of both orders
-        for the ``cora`` and ``pubmed`` presets are in ``PERF.md``. Only the
-        mean is linear, so maxpool and lstm never project first."""
+        """Whether full-graph layer ``layer`` aggregates after projecting.
+        ``"auto"`` projects whenever the layer shrinks its width (``d_in >
+        d_out``), so the SpMM moves ``d_out``-wide rows: a full-graph layer
+        multiplies all N rows either way. Only the mean is linear, so
+        maxpool and lstm never project first."""
         if self.aggregator != "mean":
             return False
         if self.project_first == "auto":
             return d_in > self.hidden_dims[layer]
         return bool(self.project_first)
+
+    def sampled_layer0_project_first(self, num_nodes: int, slots: int) -> bool:
+        """Whether the sampled layer 0 projects the whole ``num_nodes``-row
+        table before gathering ``slots`` neighbour rows. ``"auto"`` does
+        when the layer shrinks its width (``d_in > d_out``) and
+
+            slots * (d_in - d_out) >= LAYER0_ORDER_KAPPA * num_nodes * d_in:
+
+        projecting first pays a fixed pass over the table (the product and
+        its dW read all N rows of ``d_in``, and the backward scatters into
+        the ``[N, d_out]`` table); aggregating first gathers ``d_in - d_out``
+        more columns for each slot. ``LAYER0_ORDER_KAPPA`` is the ratio of
+        the two costs per column, measured on the H100 (``PERF.md`` §5)."""
+        d_in, d_out = self.in_dim, self.hidden_dims[0]
+        return self.use_project_first(0, d_in) and (
+            self.project_first != "auto"
+            or slots * (d_in - d_out) >= LAYER0_ORDER_KAPPA * num_nodes * d_in)
 
     # -------------------------------------------------------------- sample
     def sample(
@@ -270,9 +309,10 @@ class GraphSAGE(nn.Module):
                                    graph.edge_mask, graph.num_nodes)
         return segmax
 
-    def layer0_full_table(self, features: torch.Tensor, graph: Graph | None) -> torch.Tensor:
+    def layer0_full_table(self, features, graph: Graph | None) -> torch.Tensor:
         """The shared layer-0 table of ``layer0="full"``: layer 0 over every
-        node with complete neighborhoods, ``[N, hidden[0]]``."""
+        node with complete neighborhoods, ``[N, hidden[0]]`` in the compute
+        dtype."""
         if self.layer0 != "full":
             raise ValueError("layer0_full_table requires layer0='full'")
         if graph is None:
@@ -280,18 +320,52 @@ class GraphSAGE(nn.Module):
                 "layer0='full' needs forward(..., graph=...): the full-graph "
                 "layer 0 reads the CSR adjacency"
             )
-        if not features.is_floating_point():
-            raise NotImplementedError(
-                "int8 feature tables are not ported yet (ROADMAP Queue 1 item 8)"
-            )
-        if self.aggregator == "mean":
+        layer0 = self.layers[0]
+        if self.aggregator != "mean":
+            return apply_full_graph_maxpool_layer(
+                layer0, self._dense(features), self._segmax(graph),
+                self_loop=self.self_loop)
+        pf = self.use_project_first(0, self.in_dim)
+        if not (is_quantized(features) and pf):
             return apply_full_graph_mean_layer(
-                self.layers[0], features, self._spmm(graph),
-                self_loop=self.self_loop,
-                project_first=self.use_project_first(0, self.in_dim),
+                layer0, self._dense(features), self._spmm(graph),
+                self_loop=self.self_loop, project_first=pf,
             )
-        return apply_full_graph_maxpool_layer(
-            self.layers[0], features, self._segmax(graph), self_loop=self.self_loop)
+        # Project-first over an int8 table: the raw values against each
+        # weight slice (no dense [N, F] transient), then the same SpMM.
+        h_dtype = self.compute_dtype or layer0.weight.dtype
+        w_self, w_neigh = split_mean_weight(
+            layer0.weight.to(h_dtype), self.in_dim, self.concat_self)
+        hp = project_table(features, w_neigh).to(h_dtype)
+        mean, cnt = self._spmm(graph)(hp)
+        pre = mean.to(torch.float32)
+        if self.self_loop:
+            c = cnt.to(torch.float32)[:, None]
+            pre = (pre * c + hp.to(torch.float32)) / (c + 1.0)
+        if self.concat_self:
+            pre = pre + project_table(features, w_self)
+        return torch.relu(pre).to(h_dtype)
+
+    def _dense(self, features) -> torch.Tensor:
+        """The feature table as dense rows in the compute dtype (an int8
+        table dequantized into a transient)."""
+        if is_quantized(features):
+            features = dequantize(features, self.compute_dtype or torch.float32)
+        return features if self.compute_dtype is None else features.to(self.compute_dtype)
+
+    @staticmethod
+    def _gather_rows(table, ids: torch.Tensor) -> torch.Tensor:
+        """Row lookup, dispatched on the table's type: a dense table computed
+        inside a quantized forward (the layer-0 table, the projected
+        self-table) is gathered as it is."""
+        return gather_dequant(table, ids) if is_quantized(table) else gather(table, ids)
+
+    def _gather_mean(self, table, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The fused masked mean ``[B, F]`` f32, dispatched on the table's
+        type (kernel 1's int8 route, or ``gather_impl``'s)."""
+        if is_quantized(table):
+            return gather_mean_dequant(table, idx, mask)
+        return gather_mean(table, idx, mask, impl=self.gather_impl)
 
     def check_layer0_cache(self, graph: Graph | None) -> torch.Tensor:
         """``graph``'s layer-0 cache, after checking that it is there and of
@@ -323,19 +397,22 @@ class GraphSAGE(nn.Module):
         pre-head representations with ``return_embeddings``). ``graph``
         supplies the adjacency (``layer0="full"``) or the cache
         (``layer0="cached"``); the sampled mode ignores it."""
-        L = self.num_layers
+        L, cd = self.num_layers, self.compute_dtype
         start = 1
         if self.layer0 == "cached":
             ids = frontier.ids[L - 1]
-            agg = gather(self.check_layer0_cache(graph), ids)
-            self_h = gather(features, ids) if self.concat_self else None
-            h = self.layers[0](self_h, None, None, precomputed_agg=agg)
+            agg = self._gather_rows(self.check_layer0_cache(graph), ids)
+            self_h = self._gather_rows(features, ids) if self.concat_self else None
+            h = self.layers[0](self_h, None, None, precomputed_agg=agg, compute_dtype=cd)
         elif self.layer0 == "full":
-            h = gather(self.layer0_full_table(features, graph), frontier.ids[L - 1])
+            h = self._gather_rows(self.layer0_full_table(features, graph),
+                                  frontier.ids[L - 1])
         elif self.aggregator == "mean":
             h = self._sampled_mean_layer0(features, frontier)
         else:  # maxpool and lstm read the deepest hop's raw rows
-            h = gather(features, frontier.ids[L])
+            h = self._gather_rows(features, frontier.ids[L])
+            if cd is not None:
+                h = h.to(cd)
             start = 0
         for l in range(start, L):
             hop_in = L - l  # activations currently live at this hop
@@ -347,15 +424,20 @@ class GraphSAGE(nn.Module):
                 self_h, neigh, nm = h3[:, 0], h3[:, 1:], m3[:, 1:]
             else:
                 self_h, neigh, nm = None, h3, m3
-            h = self.layers[l](self_h, neigh, nm)
-        if return_embeddings:
-            return h
-        return h @ self.head
+            h = self.layers[l](self_h, neigh, nm, compute_dtype=cd)
+        return self._head(h, return_embeddings)
 
-    def _sampled_mean_layer0(self, features: torch.Tensor, frontier: Frontier) -> torch.Tensor:
+    def _head(self, h: torch.Tensor, return_embeddings: bool) -> torch.Tensor:
+        """f32 representations, or f32 logits of the head product in ``h``'s
+        dtype."""
+        if return_embeddings:
+            return h.to(torch.float32)
+        return (h @ self.head.to(h.dtype)).to(torch.float32)
+
+    def _sampled_mean_layer0(self, features, frontier: Frontier) -> torch.Tensor:
         """Layer 0 of the sampled mean model: the fused gather-mean over the
         deepest hop, projecting first or aggregating first."""
-        L = self.num_layers
+        L, cd = self.num_layers, self.compute_dtype
         n_out = frontier.ids[L - 1].shape[0]
         k_cols = frontier.ids[L].shape[0] // n_out
         ids2 = frontier.ids[L].reshape(n_out, k_cols)
@@ -364,22 +446,25 @@ class GraphSAGE(nn.Module):
             ids2, m2 = ids2[:, 1:], m2[:, 1:]
         neigh_ids, neigh_mask = ids2.contiguous(), m2.contiguous()
         layer0 = self.layers[0]
-        fused = lambda table: gather_mean(  # noqa: E731
-            table, neigh_ids, neigh_mask, impl=self.gather_impl
-        )
         self_ids = frontier.ids[L - 1]
-        if self.use_project_first(0, self.in_dim):
+        if self.sampled_layer0_project_first(features.shape[0], neigh_ids.numel()):
             # Project the whole table to d_out once, then gather-mean narrow
-            # rows (exact: the mean is linear).
-            w_self, w_neigh = split_mean_weight(
-                layer0.weight, self.in_dim, self.concat_self
-            )
-            pre = fused(features @ w_neigh)
+            # rows (exact: the mean is linear); an int8 table is contracted
+            # raw and scaled after.
+            w0 = layer0.weight if cd is None else layer0.weight.to(cd)
+            w_self, w_neigh = split_mean_weight(w0, self.in_dim, self.concat_self)
+            if is_quantized(features):
+                project = lambda w: project_table(features, w)  # noqa: E731
+            else:
+                feats = features.to(w0.dtype)
+                project = lambda w: feats @ w  # noqa: E731
+            pre = self._gather_mean(project(w_neigh), neigh_ids, neigh_mask)
             if self.concat_self:
-                pre = pre + gather(features @ w_self, self_ids)
-            return torch.relu(pre)
-        self_h = gather(features, self_ids) if self.concat_self else None
-        return layer0(self_h, None, None, precomputed_agg=fused(features))
+                pre = pre + self._gather_rows(project(w_self), self_ids)
+            return torch.relu(pre).to(w0.dtype)
+        self_h = self._gather_rows(features, self_ids) if self.concat_self else None
+        return layer0(self_h, None, None, compute_dtype=cd,
+                      precomputed_agg=self._gather_mean(features, neigh_ids, neigh_mask))
 
     def apply_sampled(
         self, generator: torch.Generator, graph: Graph, seeds: torch.Tensor
@@ -428,6 +513,10 @@ class GraphSAGE(nn.Module):
                 "with sampled neighborhoods (eval_fanouts) instead"
             )
         h = graph.features
+        if is_quantized(h):
+            h = dequantize(h, self.compute_dtype or torch.float32)
+        if self.compute_dtype is not None:
+            h = h.to(self.compute_dtype)
         for l, layer in enumerate(self.layers):
             if self.aggregator == "mean":
                 h = apply_full_graph_mean_layer(
@@ -441,9 +530,7 @@ class GraphSAGE(nn.Module):
             else:
                 h = layer(h if self.concat_self else None,
                           *self._ell_sequences(graph, h))
-        if return_embeddings:
-            return h
-        return h @ self.head
+        return self._head(h, return_embeddings)
 
     def _ell_sequences(self, graph: Graph, h: torch.Tensor):
         """Every node's neighbor rows in ELL order ``[N, W, d]`` and their

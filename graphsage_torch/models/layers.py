@@ -16,6 +16,9 @@ Two combine modes:
 
 Weights are stored ``[in, out]``, the JAX layout, and named as the fields of
 the JAX ``SAGELayerParams``, so that carrying weights across is a plain copy.
+They stay f32; a reduced ``compute_dtype`` (bf16) casts them at use, as the
+JAX layers do. A bf16 product returns bf16 (JAX keeps its f32 accumulator
+until the cast that follows), and the LSTM's recurrence stays f32.
 """
 
 from __future__ import annotations
@@ -93,16 +96,26 @@ class SAGELayer(nn.Module):
             self.lstm_b = nn.Parameter(b)
 
     def forward(self, self_feats, neigh_feats, neigh_mask, *,
-                activation=torch.relu, precomputed_agg=None) -> torch.Tensor:
+                activation=torch.relu, precomputed_agg=None,
+                compute_dtype=None) -> torch.Tensor:
         return apply_sage_layer(
             self, self_feats, neigh_feats, neigh_mask,
             activation=activation, precomputed_agg=precomputed_agg,
+            compute_dtype=compute_dtype,
         )
 
 
-def pool(layer: SAGELayer, x: torch.Tensor) -> torch.Tensor:
-    """The max-pooling aggregator's per-row MLP, ``relu(x @ Wp + bp)``."""
-    return torch.relu(x @ layer.pool_weight + layer.pool_bias)
+def pool(layer: SAGELayer, x: torch.Tensor, param_dtype: torch.dtype) -> torch.Tensor:
+    """The max-pooling aggregator's per-row MLP, ``relu(x @ Wp + bp)``, in
+    ``x``'s dtype. ``Wp`` and ``bp`` are rounded to ``param_dtype`` (the
+    compute dtype) at use. The product is formed in f32 from those values and
+    the bias added to it before the one rounding to ``x``'s dtype, as JAX's
+    f32 accumulator does: a bf16 product rounded before the bias moves
+    near-tied rows past each other in the max that follows, which sends
+    their gradient to another neighbor."""
+    w = layer.pool_weight.to(param_dtype).to(torch.float32)
+    pre = x.to(torch.float32) @ w + layer.pool_bias.to(param_dtype)
+    return torch.relu(pre).to(x.dtype)
 
 
 def masked_lstm(
@@ -145,28 +158,43 @@ def apply_sage_layer(
     neigh_mask: torch.Tensor | None,  # [..., k]
     activation: Callable[[torch.Tensor], torch.Tensor] | None = torch.relu,
     precomputed_agg: torch.Tensor | None = None,
+    compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Apply one layer with its own aggregator. Returns ``[..., out_dim]``.
+    """Apply one layer with its own aggregator. Returns ``[..., out_dim]`` in
+    the weights' dtype (f32).
 
     ``precomputed_agg`` replaces the aggregation when it was already done
     upstream (the gather-mean kernel on the deepest hop, the cached layer 0).
+    ``compute_dtype`` (bf16) casts the inputs, the aggregate and the weights
+    before the products; without it, inputs of another dtype than the
+    weights meet them in the wider of the two.
     """
+    w = layer.weight
+    out_dtype = w.dtype
+    if compute_dtype is not None:
+        if neigh_feats is not None:
+            neigh_feats = neigh_feats.to(compute_dtype)
+        if self_feats is not None:
+            self_feats = self_feats.to(compute_dtype)
+        w = w.to(compute_dtype)
     if precomputed_agg is not None:
-        agg = precomputed_agg
+        agg = precomputed_agg.to(compute_dtype or out_dtype)
     elif layer.aggregator == "mean":
         agg = masked_mean(neigh_feats, neigh_mask)
     elif layer.aggregator == "lstm":
         agg = masked_lstm(layer.lstm_wx, layer.lstm_wh, layer.lstm_b,
                           neigh_feats, neigh_mask)
     else:
-        agg = masked_max(pool(layer, neigh_feats), neigh_mask)
+        agg = masked_max(pool(layer, neigh_feats, compute_dtype or out_dtype),
+                         neigh_mask)
     if layer.concat_self:
         if self_feats is None:
             raise ValueError("concat_self=True requires self_feats")
         combined = torch.cat([self_feats, agg], dim=-1)
     else:
         combined = agg
-    out = combined @ layer.weight
+    dt = torch.promote_types(combined.dtype, w.dtype)
+    out = (combined.to(dt) @ w.to(dt)).to(out_dtype)
     return activation(out) if activation is not None else out
 
 
@@ -179,25 +207,27 @@ def apply_full_graph_mean_layer(
     project_first: bool,
     activation=torch.relu,
 ) -> torch.Tensor:
-    """One full-graph mean layer over every node.
+    """One full-graph mean layer over every node, in ``h``'s dtype (the
+    weights are cast to it).
 
     With ``project_first`` the layer projects to ``d_out`` before the SpMM
-    (exact: the mean is linear), so the SpMM moves ``d_out``-wide rows.
-    ``self_loop`` folds the node itself into the mean:
-    ``(mean * cnt + self) / (cnt + 1)``.
+    (exact: the mean is linear), so the SpMM moves ``d_out``-wide rows; the
+    sums that follow it are f32. ``self_loop`` folds the node itself into the
+    mean: ``(mean * cnt + self) / (cnt + 1)``.
     """
     d_in = h.shape[-1]
-    w = layer.weight
+    w = layer.weight.to(h.dtype)
     if project_first:
         w_self, w_neigh = split_mean_weight(w, d_in, layer.concat_self)
         hp = h @ w_neigh
-        pre, cnt = spmm(hp)
+        mean, cnt = spmm(hp)
+        pre = mean.to(torch.float32)
         if self_loop:
-            c = cnt.to(pre.dtype)[:, None]
-            pre = (pre * c + hp) / (c + 1.0)
+            c = cnt.to(torch.float32)[:, None]
+            pre = (pre * c + hp.to(torch.float32)) / (c + 1.0)
         if layer.concat_self:
-            pre = pre + h @ w_self
-        return activation(pre)
+            pre = pre + (h @ w_self).to(torch.float32)
+        return activation(pre).to(h.dtype)
     mean, cnt = spmm(h)
     if self_loop:
         c = cnt.to(mean.dtype)[:, None]
@@ -214,13 +244,14 @@ def apply_full_graph_maxpool_layer(
     self_loop: bool,
     activation=torch.relu,
 ) -> torch.Tensor:
-    """One full-graph max-pooling layer over every node: the pooling MLP
-    once per node, then ``segmax`` (0 on rows without neighbors)."""
-    pooled = pool(layer, h)
-    agg = segmax(pooled)
+    """One full-graph max-pooling layer over every node, in ``h``'s dtype:
+    the pooling MLP once per node, then ``segmax`` (0 on rows without
+    neighbors)."""
+    pooled = pool(layer, h, h.dtype)
+    agg = segmax(pooled).to(h.dtype)
     if self_loop:
         # pooled >= 0 (ReLU) and empty rows give 0, so an elementwise max
         # adds the self loop exactly.
         agg = torch.maximum(agg, pooled)
     combined = torch.cat([h, agg], dim=-1) if layer.concat_self else agg
-    return activation(combined @ layer.weight)
+    return activation(combined @ layer.weight.to(h.dtype))

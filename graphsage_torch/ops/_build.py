@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``graphsage_torch/csrc/*.cu``).
 
 At first use every source is compiled with ``nvcc`` for ``sm_90a``, one
-process per source, all started together, and the objects are linked into one
+process per source, all started together (``rows.cuh``, included by three of
+them, holds the row loads they share), and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The library
 lives under ``build/graphsage_torch/<hash>/`` at the root of the checkout,
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and an
@@ -32,11 +33,14 @@ LIB_NAME = "libgraphsage_torch_kernels.so"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argument types (pointers and the stream as c_void_p, sizes as c_int)
 SIGNATURES = {
-    "gsage_gather_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "gsage_gather_mean_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "gsage_gather_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gsage_gather_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gsage_gather_mean_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "gsage_spmm_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsage_spmm_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsage_scatter_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gsage_gather_mean_dma_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gsage_gather_mean_dma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -60,7 +64,7 @@ def build() -> Path:
     return the path of the shared library."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their header
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]

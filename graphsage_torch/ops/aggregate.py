@@ -14,7 +14,11 @@ JAX package's ``impl`` names so that configurations carry over:
   ``"xla"`` is a per-edge gather plus ``index_add_`` over the COO list.
 
 Denominators follow the reference (quirk Q8): the number of *valid*
-neighbors; rows with none give 0 (the guarded mean, quirk Q4). The maxima
+neighbors; rows with none give 0 (the guarded mean, quirk Q4). Every sum
+here, and every scatter in a backward, accumulates in f32 whatever the
+values' dtype and casts back: a bf16 running sum stalls once it reaches
+about 256 times the addend (256 + 1 rounds to 256), and ``index_add_`` into
+a bf16 tensor does the same. The maxima
 give 0 to rows with no valid entry as well, and split the gradient evenly
 among tied maxima, as JAX's ``max`` and ``segment_max`` do (``amax`` and
 ``scatter_reduce(..., "amax")``; ``torch.max(dim)`` would send all of it to
@@ -30,23 +34,42 @@ from graphsage_torch.ops.gather_mean import gather_mean as _gather_mean_kernel
 from graphsage_torch.ops.spmm import spmm_mean as _spmm_mean_kernel
 
 
+class _Gather(torch.autograd.Function):
+    """``index_select`` forward; backward ``index_add_`` into f32 zeros, cast
+    to the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, features, flat_ids):
+        ctx.save_for_backward(flat_ids)
+        ctx.shape, ctx.dtype = features.shape, features.dtype
+        return features.index_select(0, flat_ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (flat_ids,) = ctx.saved_tensors
+        dx = torch.zeros(ctx.shape, dtype=torch.float32, device=grad.device)
+        return dx.index_add_(0, flat_ids, grad.to(torch.float32)).to(ctx.dtype), None
+
+
 def gather(features: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Feature-store lookup: ``features[N, F]`` indexed by ``ids[...]``.
 
-    ``index_select``, whose backward is ``index_add_``, not ``features[ids]``:
+    ``index_select`` with an ``index_add_`` backward, not ``features[ids]``:
     indexing's backward sorts the ids and adds each run of equal ids in one
     warp, one row after another, and a frontier's masked slots name node 0
     tens of thousands of times (at the Pubmed preset's hop 1 on an H100,
-    forward and backward: 14.1 ms against 0.14 ms; PERF.md)."""
-    flat = features.index_select(0, ids.reshape(-1).long())
+    forward and backward: 14.1 ms against 0.14 ms; PERF.md). The backward
+    sums in f32: the same padding piles thousands of terms on one bf16 row."""
+    flat = _Gather.apply(features, ids.reshape(-1).long())
     return flat.reshape(*ids.shape, *features.shape[1:])
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of ``x[..., k, F]`` over axis -2, counting only ``mask[..., k]``;
-    rows with zero valid entries give 0."""
-    m = mask.to(x.dtype)[..., None]
-    return (x * m).sum(dim=-2) / m.sum(dim=-2).clamp(min=1.0)
+    rows with zero valid entries give 0. Summed in f32; ``x``'s dtype."""
+    m = mask.to(torch.float32)[..., None]
+    total = (x.to(torch.float32) * m).sum(dim=-2)
+    return (total / m.sum(dim=-2).clamp(min=1.0)).to(x.dtype)
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -108,24 +131,27 @@ def gather_mean(
 ) -> torch.Tensor:
     """Fused ``masked_mean(features[idx], mask)`` -> ``[B, F]`` dispatcher.
 
-    ``bf16`` applies to the ``"auto"``/``"onehot_pallas"`` route only, as in
-    the JAX package; ``"dma"`` reads the table as f32.
+    The kernel routes (``"auto"``, ``"onehot_pallas"``, ``"dma"``) take an
+    f32 or bf16 table and return f32; ``"take"`` and ``"unrolled"`` return
+    the table's dtype, as in the JAX package. ``bf16`` (round an f32 table
+    to bf16 first) applies to the ``"auto"``/``"onehot_pallas"`` route only,
+    as there.
     """
     if impl in ("auto", "onehot_pallas"):
         return _gather_mean_kernel(features, idx, mask, bf16=bf16)
     if impl == "unrolled":
-        w = mask.to(features.dtype)
+        w = mask.to(torch.float32)
         acc = torch.zeros(
-            (*idx.shape[:-1], features.shape[1]), dtype=features.dtype,
+            (*idx.shape[:-1], features.shape[1]), dtype=torch.float32,
             device=features.device,
         )
         for j in range(idx.shape[-1]):
-            acc = acc + gather(features, idx[..., j]) * w[..., j : j + 1]
-        return acc / w.sum(dim=-1, keepdim=True).clamp(min=1.0)
+            acc = acc + gather(features, idx[..., j]).to(torch.float32) * w[..., j : j + 1]
+        return (acc / w.sum(dim=-1, keepdim=True).clamp(min=1.0)).to(features.dtype)
     if impl == "take":
         return masked_mean(gather(features, idx), mask)
     if impl == "dma":
-        return _gather_mean_dma_kernel(features.to(torch.float32), idx, mask)
+        return _gather_mean_dma_kernel(features, idx, mask)
     raise ValueError(f"unknown gather_mean impl {impl!r}")
 
 
@@ -140,13 +166,13 @@ def spmm_mean(
     symmetric: bool = True,
 ) -> torch.Tensor:
     """Full-graph mean aggregation ``out[v] = mean_{(v,u) in E} features[u]``
-    (the row-normalized SpMM ``D^-1 A X``), f32 on the kernel route.
-    ``symmetric`` (``Graph.symmetric``) picks the kernel route's backward."""
+    (the row-normalized SpMM ``D^-1 A X``) in the features' dtype, summed in
+    f32, as JAX's ``"auto"`` (``"xla"``) returns it. ``symmetric``
+    (``Graph.symmetric``) picks the kernel route's backward."""
     if impl in ("auto", "pallas_vmem"):
         if indptr is None:
             raise ValueError(f"spmm_mean impl={impl!r} requires indptr")
-        return _spmm_mean_kernel(features.to(torch.float32), indptr, edge_dst,
-                                 symmetric=symmetric)
+        return _spmm_mean_kernel(features, indptr, edge_dst, symmetric=symmetric)
     if impl == "xla":
         return segment_mean_csr(gather(features, edge_dst), edge_src, edge_mask, num_nodes)
     raise ValueError(f"unknown spmm_mean impl {impl!r}")

@@ -16,6 +16,12 @@ backward is the scatter-mean of :mod:`graphsage_torch.ops.scatter_mean` (its
 kernel on the card, its plain version on the CPU): the CPU runs the same
 backward formula as the card, not an autograd derivation of the plain
 forward. The gradient has the table's dtype; its sums are f32.
+
+An int8 table (:class:`graphsage_torch.ops.quantize.QuantizedTable`: ``q``
+int8 ``[N, F]`` and per-row ``scale`` f32 ``[N, 1]``) goes through the same
+kernel as a third row type, :func:`gather_mean_int8`: each valid slot's row
+weighted by its scale, the denominator the valid count. Forward only: an
+int8 table is frozen.
 """
 
 from __future__ import annotations
@@ -42,7 +48,15 @@ def gather_mean_plain(
     return total / w.sum(dim=-2).clamp(min=1.0)
 
 
-def _check(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> None:
+# The C entry point for each table dtype (an int8 table also passes its
+# scales).
+_ENTRIES = {torch.float32: "gsage_gather_mean_f32",
+            torch.bfloat16: "gsage_gather_mean_bf16",
+            torch.int8: "gsage_gather_mean_int8"}
+
+
+def _check(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+           dtypes=(torch.float32, torch.bfloat16)) -> None:
     if features.dim() != 2:
         raise ValueError(f"features must be [N, F], got {tuple(features.shape)}")
     if idx.dim() != 2 or idx.shape != mask.shape:
@@ -50,8 +64,8 @@ def _check(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> Non
             f"idx and mask must both be [B, k], got {tuple(idx.shape)} and "
             f"{tuple(mask.shape)}"
         )
-    if features.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"features must be float32 or bfloat16, got {features.dtype}")
+    if features.dtype not in dtypes:
+        raise TypeError(f"features must be one of {dtypes}, got {features.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
     if mask.dtype != torch.bool:
@@ -65,23 +79,19 @@ def _check(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> Non
         raise ValueError("features, idx and mask must be contiguous")
 
 
-def _launch(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _launch(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+            scale: torch.Tensor | None = None) -> torch.Tensor:
     global launches
     b, k = idx.shape
     f = features.shape[1]
     out = torch.empty((b, f), dtype=torch.float32, device=features.device)
     if b == 0 or f == 0:
         return out
-    lib = _build.library()
-    fn = (
-        lib.gsage_gather_mean_bf16
-        if features.dtype == torch.bfloat16
-        else lib.gsage_gather_mean_f32
-    )
+    fn = getattr(_build.library(), _ENTRIES[features.dtype])
     stream = torch.cuda.current_stream(features.device).cuda_stream
     with torch.cuda.device(features.device):
-        err = fn(features.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), b, k, f, stream)
+        err = fn(features.data_ptr(), None if scale is None else scale.data_ptr(),
+                 idx.data_ptr(), mask.data_ptr(), out.data_ptr(), b, k, f, stream)
     _build.check(err, "gather_mean kernel")
     launches += 1
     return out
@@ -133,3 +143,36 @@ def gather_mean(
     if bf16 and features.dtype != torch.bfloat16:
         fwd = _as_bf16(fwd)
     return GatherMean.apply(features, idx, mask, fwd)
+
+
+def gather_mean_int8_plain(
+    q: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """The plain PyTorch version of the int8 route: one slot at a time,
+    ``q[id] * (mask * scale[id])`` summed in f32, over the valid count (no
+    ``[B, k, F]`` transient)."""
+    safe = torch.where(mask, idx, torch.zeros_like(idx)).long()
+    m = mask.to(torch.float32)
+    w = m * scale.reshape(-1)[safe]
+    total = torch.zeros((idx.shape[0], q.shape[1]), dtype=torch.float32, device=q.device)
+    for j in range(idx.shape[1]):
+        total = total + q[safe[:, j]].to(torch.float32) * w[:, j:j + 1]
+    return total / m.sum(dim=1, keepdim=True).clamp(min=1.0)
+
+
+def gather_mean_int8(
+    q: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Masked gather-mean ``[B, F]`` f32 of the int8 table ``q * scale``
+    (see module docstring); no gradient."""
+    _check(q, idx, mask, dtypes=(torch.int8,))
+    if scale.dtype != torch.float32:
+        raise TypeError(f"scale must be float32, got {scale.dtype}")
+    if scale.numel() != q.shape[0] or scale.device != q.device or not scale.is_contiguous():
+        raise ValueError(f"scale must be a contiguous [N, 1] = [{q.shape[0]}, 1] on "
+                         f"{q.device}, got {tuple(scale.shape)} on {scale.device}")
+    if q.device.type == "cpu":
+        return gather_mean_int8_plain(q, scale, idx, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"no gather_mean for device {q.device}")
+    return _launch(q, idx, mask, scale)

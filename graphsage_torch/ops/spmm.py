@@ -1,7 +1,8 @@
 """CSR mean-SpMM: Hopper kernel 3 (``csrc/spmm_mean.cu``), the port of
 ``graphsage_tpu/ops/pallas_spmm.py:_kernel``.
 
-``spmm_mean(features[N, F], indptr[N+1], edge_dst[E_pad]) -> [N, F]`` f32:
+``spmm_mean(features[N, F], indptr[N+1], edge_dst[E_pad]) -> [N, F]`` in the
+features' dtype (f32 or bf16), summed in f32 and rounded once:
 
     out[v] = scale(v) * sum_{e in [indptr[v], indptr[v+1])} features[edge_dst[e]]
 
@@ -15,8 +16,10 @@ The backward follows ``graphsage_tpu/ops/pallas_spmm.py:_bwd``: with
 ``gs = g / max(deg, 1)`` (under ``normalize``), a symmetric adjacency gives
 ``dX = A gs``, the same kernel with ``normalize=False``; a directed one gives
 the transpose ``dX = A^T gs``, a plain ``index_add_`` on either device (the
-JAX package leaves it to XLA). Both devices go through one
-``autograd.Function``, so the CPU runs the card's backward formula.
+JAX package leaves it to XLA). ``gs`` is rounded to the features' dtype,
+so a bf16 table's backward moves bf16 rows too; the gradient has the
+features' dtype. Both devices go through one ``autograd.Function``, so the
+CPU runs the card's backward formula.
 
 A CUDA tensor goes to the kernel (or an exception); a CPU tensor goes to
 the plain PyTorch version :func:`spmm_mean_plain`, which also serves as the
@@ -42,7 +45,8 @@ def spmm_mean_plain(
     edge_dst: torch.Tensor,
     normalize: bool = True,
 ) -> torch.Tensor:
-    """The plain PyTorch version: per-edge row gather + ``index_add_`` in f32."""
+    """The plain PyTorch version: per-edge row gather + ``index_add_`` in
+    f32, rounded to the features' dtype."""
     n = indptr.numel() - 1
     deg = (indptr[1:] - indptr[:-1]).long()
     e = int(indptr[-1])
@@ -52,7 +56,7 @@ def spmm_mean_plain(
                       device=features.device).index_add_(0, src, rows)
     if normalize:
         out = out / deg.clamp(min=1).to(torch.float32)[:, None]
-    return out
+    return out.to(features.dtype)
 
 
 def spmm_transpose_plain(
@@ -69,6 +73,10 @@ def spmm_transpose_plain(
                                                    g.to(torch.float32)[src])
 
 
+# The C entry point for each table dtype.
+_ENTRIES = {torch.float32: "gsage_spmm_mean_f32", torch.bfloat16: "gsage_spmm_mean_bf16"}
+
+
 def _check(features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor) -> None:
     if features.dim() != 2:
         raise ValueError(f"features must be [N, F], got {tuple(features.shape)}")
@@ -79,8 +87,8 @@ def _check(features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor)
         )
     if edge_dst.dim() != 1:
         raise ValueError(f"edge_dst must be 1-D, got {tuple(edge_dst.shape)}")
-    if features.dtype != torch.float32:
-        raise TypeError(f"features must be float32, got {features.dtype}")
+    if features.dtype not in _ENTRIES:
+        raise TypeError(f"features must be float32 or bfloat16, got {features.dtype}")
     if indptr.dtype != torch.int32 or edge_dst.dtype != torch.int32:
         raise TypeError(
             f"indptr and edge_dst must be int32, got {indptr.dtype} and "
@@ -114,7 +122,7 @@ def chunking(num_items: int) -> tuple[int, int]:
 def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
     global launches
     n, f = features.shape
-    out = torch.empty((n, f), dtype=torch.float32, device=features.device)
+    out = torch.empty((n, f), dtype=features.dtype, device=features.device)
     if n == 0 or f == 0:
         return out
     # E = indptr[N] lives on the card; edge_dst's length bounds it, and the
@@ -123,14 +131,15 @@ def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
     if items >= 2**31:
         raise ValueError(f"spmm_mean kernel: N + E_pad = {items} needs 64-bit offsets")
     chunk, num_chunks = chunking(items)
-    # Per chunk: one F-wide f32 carry row, then one int32 row id. Freed on
-    # return: the caching allocator gives it out again only to work queued
-    # after these kernels on this stream.
-    scratch = torch.empty(num_chunks * (f + 1), dtype=torch.float32,
+    # Per chunk: an f32 carry row and head row (the pieces of the rows that
+    # the chunk's ends cut), F rounded up to even apart, then one int32 row
+    # id. Freed on return: the caching allocator gives it out again only to
+    # work queued after these kernels on this stream.
+    scratch = torch.empty(num_chunks * (2 * (f + f % 2) + 1), dtype=torch.float32,
                           device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
     with torch.cuda.device(features.device):
-        err = _build.library().gsage_spmm_mean_f32(
+        err = getattr(_build.library(), _ENTRIES[features.dtype])(
             features.data_ptr(), indptr.data_ptr(), edge_dst.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), n, f, int(normalize), chunk,
             num_chunks, stream,
@@ -149,6 +158,7 @@ class _SpmmMean(torch.autograd.Function):
     def forward(ctx, features, indptr, edge_dst, normalize, symmetric, fwd):
         ctx.save_for_backward(indptr, edge_dst)
         ctx.normalize, ctx.symmetric, ctx.fwd = normalize, symmetric, fwd
+        ctx.dtype = features.dtype
         return fwd(features, indptr, edge_dst, normalize)
 
     @staticmethod
@@ -160,11 +170,11 @@ class _SpmmMean(torch.autograd.Function):
         if ctx.normalize:
             deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(torch.float32)
             gs = gs / deg[:, None]
-        gs = gs.contiguous()
+        gs = gs.to(ctx.dtype).contiguous()
         if ctx.symmetric:
             dx = ctx.fwd(gs, indptr, edge_dst, False)
         else:
-            dx = spmm_transpose_plain(gs, indptr, edge_dst)
+            dx = spmm_transpose_plain(gs, indptr, edge_dst).to(ctx.dtype)
         return dx, None, None, None, None, None
 
 
@@ -175,7 +185,8 @@ def spmm_mean(
     normalize: bool = True,
     symmetric: bool = True,
 ) -> torch.Tensor:
-    """CSR (mean-)SpMM ``[N, F]`` f32 (see module docstring). ``symmetric``
+    """CSR (mean-)SpMM ``[N, F]`` in the features' dtype (see module
+    docstring). ``symmetric``
     says that the adjacency equals its transpose, which picks the backward."""
     _check(features, indptr, edge_dst)
     if features.device.type == "cpu":

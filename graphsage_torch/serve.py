@@ -15,6 +15,12 @@
 Requests pad to a small set of static batch **buckets** (the smallest that
 fits, or a multiple of the largest) with node 0, so the work per request
 takes a few fixed shapes. Everything runs under ``torch.no_grad()``.
+
+``quantize_table=True`` (table tier only) keeps the refreshed table as an
+int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable` (a quarter of the
+f32 bytes); a request dequantizes its rows before the head. bf16 models
+(``compute_dtype``) serve through both tiers; their representations and
+logits are f32.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from graphsage_torch._device import resolve_device
 from graphsage_torch.data.graph import Graph
 from graphsage_torch.models.graphsage import GraphSAGE
+from graphsage_torch.ops.quantize import gather_dequant, is_quantized, quantize_rows
 
 
 class ServingEngine:
@@ -41,6 +48,10 @@ class ServingEngine:
         serving (``None`` entries mean full neighborhoods).
     seed : sampled mode only — fixes the sampling stream per request.
     device : ``cuda`` unless the caller passes ``device="cpu"``.
+    quantize_table : table mode only — store the refreshed ``[N, d_L]``
+        table as int8 rows and per-row f32 scales; logits move by at most
+        the quantization error of the representations (half a scale step
+        per element).
     """
 
     def __init__(
@@ -53,9 +64,12 @@ class ServingEngine:
         eval_fanouts: tuple[int | None, ...] | None = None,
         seed: int = 0,
         device=None,
+        quantize_table: bool = False,
     ):
         if mode not in ("table", "sampled"):
             raise ValueError(f"unknown serving mode {mode!r}")
+        if quantize_table and mode != "table":
+            raise ValueError("quantize_table requires mode='table'")
         if not batch_buckets or any(b <= 0 for b in batch_buckets):
             raise ValueError("batch_buckets must be positive ints")
         if eval_fanouts is not None and len(eval_fanouts) != model.num_layers:
@@ -64,6 +78,7 @@ class ServingEngine:
         self.model = model.to(self.device)
         self.graph = graph.to(self.device)
         self.mode = mode
+        self.quantize_table = quantize_table
         self.buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
         self.eval_fanouts = None if eval_fanouts is None else tuple(eval_fanouts)
         self.seed = seed
@@ -79,11 +94,13 @@ class ServingEngine:
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         if self.mode == "table":
-            self._table = self.model.embed_full_graph(self.graph)
+            table = self.model.embed_full_graph(self.graph)
+            self._table = quantize_rows(table) if self.quantize_table else table
 
     @property
-    def table(self) -> torch.Tensor | None:
-        """The current ``[N, d_L]`` embedding table (table mode)."""
+    def table(self):
+        """The current ``[N, d_L]`` embedding table (table mode; a
+        ``QuantizedTable`` under ``quantize_table``)."""
         return self._table
 
     # ------------------------------------------------------------ requests
@@ -113,7 +130,8 @@ class ServingEngine:
         ids_np, n = self._pad(nodes)
         ids = torch.from_numpy(ids_np).to(self.device)
         if self.mode == "table":
-            rows = self._table[ids.long()]
+            rows = (gather_dequant(self._table, ids) if is_quantized(self._table)
+                    else self._table[ids.long()])
         else:
             gen = torch.Generator(device=self.device).manual_seed(self.seed + 7)
             frontier = self.model.sample(gen, self.graph, ids, self.eval_fanouts)
@@ -127,7 +145,7 @@ class ServingEngine:
         """Capacity-planning numbers: the resident table's bytes."""
         out = {"mode": self.mode, "buckets": self.buckets}
         if self._table is not None:
-            out["table_bytes_per_chip"] = self._table.numel() * self._table.element_size()
+            out["table_bytes_per_chip"] = self._table.nbytes
         return out
 
     def logits(self, nodes) -> np.ndarray:

@@ -17,8 +17,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from graphsage_torch.data.graph import Graph
+from graphsage_torch.data.graph import Graph, quantize_graph
 from graphsage_torch.data.loaders import load_cora, load_pubmed
+from graphsage_torch.data.synthetic import power_law_graph
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.train.config import PRESETS, ExperimentConfig
 from graphsage_torch.train.trainer import Trainer
@@ -28,17 +29,30 @@ from graphsage_torch.train.trainer import Trainer
 _NOT_PORTED_MODES = {"full-graph": 10, "sharded": 14, "fully-sharded": 14}
 
 
+# The synthetic power-law datasets: JAX's sizes (its train/experiments.py),
+# homophily 0.8 so that a model which sees only neighbour means can learn the
+# labels. ``reddit`` has the real dataset's shape (232965 nodes, 602
+# features, 41 classes; about 11.6M directed edge slots), ``powerlaw_1m``
+# 1M nodes and about 20M slots; both keep bf16 features.
+POWER_LAW_DATASETS = {
+    "powerlaw": dict(num_nodes=100_000, num_edges=2_000_000, num_feats=256,
+                     num_classes=16),
+    "reddit": dict(num_nodes=232_965, num_edges=5_800_000, num_feats=602,
+                   num_classes=41, feature_dtype=torch.bfloat16),
+    "powerlaw_1m": dict(num_nodes=1_000_000, num_edges=10_000_000, num_feats=256,
+                        num_classes=32, feature_dtype=torch.bfloat16),
+}
+
+
 def load_dataset(name: str, data_root: str | None = None, device=None) -> Graph:
-    """The preset's dataset as a :class:`Graph` on ``device``."""
+    """The preset's dataset as a :class:`Graph` on ``device``: the Cora and
+    Pubmed files, or a seeded ``power_law_graph`` stand-in."""
     if name == "cora":
         return load_cora(data_root or "cora", device=device)
     if name == "pubmed":
         return load_pubmed(data_root or "pubmed-data", device=device)
-    if name in ("powerlaw", "powerlaw_1m", "reddit"):
-        raise NotImplementedError(
-            f"the presets on dataset {name!r} (a power_law_graph) train in "
-            "bfloat16, which is not ported yet (ROADMAP Queue 1 item 8)"
-        )
+    if name in POWER_LAW_DATASETS:
+        return power_law_graph(**POWER_LAW_DATASETS[name], homophily=0.8, device=device)
     raise ValueError(f"unknown dataset {name!r}")
 
 
@@ -80,7 +94,9 @@ def run_preset(
     """Train one of the presets end to end (``mode="sampled"``, minibatch
     neighbor sampling, the reference's scheme): load its dataset, build its
     model and trainer, run. The result holds the losses, step times,
-    validation F1 and the ``trainer`` (with the trained model)."""
+    validation F1 and the ``trainer`` (with the trained model).
+    ``quantize_features`` in the preset (or the overrides) quantizes the
+    loaded graph's feature table to int8 first."""
     if mode in _NOT_PORTED_MODES:
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet (ROADMAP Queue 1 item "
@@ -90,6 +106,10 @@ def run_preset(
         raise ValueError(f"unknown mode {mode!r}")
     config = preset_config(name, overrides)
     graph = load_dataset(config.dataset, data_root, device)
+    if config.model.quantize_features:
+        graph = quantize_graph(graph)
+        if log:
+            log(f"feature table quantized to int8: {graph.features.nbytes} B resident")
     trainer = Trainer(build_model(config, graph), graph, config.train)
     result = trainer.run(log=log)
     result["trainer"] = trainer
@@ -117,7 +137,6 @@ _NOT_PORTED_FLAGS = {
     "log_jsonl": 12,
     "diagnostics_dir": 12,
     "sampling": 9,
-    "quantize_features": 8,
     "hub_cache_rows": 14,
     "debug_nans": "the port has no NaN-checking mode yet",
     "compilation_cache": "the port compiles no XLA programs",
@@ -155,10 +174,12 @@ def main(argv: Optional[list[str]] = None) -> None:
                         help="layer-0 formulation: sampled (the reference's "
                         "estimator) | full (one full-graph pass per step) | "
                         "cached (a frozen aggregate table built once)")
+    parser.add_argument("--quantize-features", action="store_true",
+                        help="int8-quantize the frozen feature table at load "
+                        "time (per-row scales)")
     for flag in _NOT_PORTED_FLAGS:
         opt = "--" + flag.replace("_", "-")
-        if flag in ("eval_only", "debug_nans", "quantize_features",
-                    "no_compilation_cache"):
+        if flag in ("eval_only", "debug_nans", "no_compilation_cache"):
             parser.add_argument(opt, action="store_true", help="not ported yet")
         else:
             parser.add_argument(opt, default=None, help="not ported yet")
@@ -177,6 +198,8 @@ def main(argv: Optional[list[str]] = None) -> None:
                         ("val_size", "val_size"), ("layer0", "layer0")):
         if getattr(args, flag) is not None:
             overrides[field] = getattr(args, flag)
+    if args.quantize_features:
+        overrides["quantize_features"] = True
     if args.quiet:
         overrides["log_every"] = 0
     run_preset(args.preset, data_root=args.data_root, overrides=overrides or None,

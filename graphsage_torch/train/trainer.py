@@ -6,7 +6,8 @@ frontier on the graph's device, forward, softmax cross-entropy, backward
 (the sampled mean layer 0's gather-mean backward is the scatter-mean kernel
 on the card; ``layer0="full"``'s is the SpMM kernel again) and one optimizer
 update. A ``layer0="cached"`` model gets its graph's cache built at
-construction when the graph has none. There is no ``jit`` or ``scan``: the loop dispatches
+construction when the graph has none (int8 for an int8 graph). There is no
+``jit`` or ``scan``: the loop dispatches
 one step at a time, and ``TrainConfig.steps_per_dispatch`` has no meaning
 here.
 
@@ -35,6 +36,7 @@ import torch
 
 from graphsage_torch.data.graph import Graph, with_cached_layer0
 from graphsage_torch.models.graphsage import GraphSAGE
+from graphsage_torch.ops.quantize import is_quantized
 from graphsage_torch.train.config import TrainConfig
 from graphsage_torch.utils.metrics import macro_f1, micro_f1
 
@@ -89,7 +91,10 @@ class Trainer:
             )
         if model.layer0 == "cached":
             if graph.layer0_cache is None:
-                graph = with_cached_layer0(graph, self_loop=model.self_loop)
+                # An int8 graph keeps an int8 cache: a dense one would be
+                # four times the table that quantize_graph shrank.
+                graph = with_cached_layer0(graph, self_loop=model.self_loop,
+                                           quantize=is_quantized(graph.features))
             model.check_layer0_cache(graph)
         self.model = model
         self.graph = graph

@@ -57,6 +57,7 @@ def _gather_case(n, f, b, k, seed, dev, dtype=torch.float32):
     (300, 500, 256, 10),   # Pubmed mean-first width (8-byte bf16 loads)
     (400, 1433, 64, 10),   # Cora mean-first width
     (120, 64, 33, 40),     # more than 32 slots per row
+    (300, 602, 256, 10),   # Reddit's width (bf16 pairs, f32 pairs)
 ])
 def test_gather_mean_kernel_matches_plain(cuda, dtype, n, f, b, k):
     x, idx, mask = _gather_case(n, f, b, k, seed=n + f, dev=cuda, dtype=dtype)
@@ -194,7 +195,7 @@ def test_gather_mean_dma_unaligned_table_and_dispatch(cuda):
     torch.testing.assert_close(gather_mean(table, idx, mask, impl="dma"), want, **TOL)
     assert gd.launches == before + 1
     with pytest.raises(TypeError):
-        gd.gather_mean_dma(table.to(torch.bfloat16), idx, mask)
+        gd.gather_mean_dma(table.half(), idx, mask)
 
 
 def _csr_case(n, avg_deg, seed, dev):
@@ -277,7 +278,8 @@ def test_spmm_gradient_matches_plain(cuda, symmetric, n, f):
 
 @pytest.mark.parametrize("dtype,f", [
     (torch.float32, 128),   # 16-byte loads
-    (torch.bfloat16, 128),  # 8-element bf16 loads
+    (torch.bfloat16, 256),  # 8-element bf16 loads
+    (torch.bfloat16, 128),  # 4-element bf16 loads: 8 would leave half the lanes idle
     (torch.bfloat16, 500),  # 4-element bf16 loads
     (torch.bfloat16, 45),   # 1-element loads
 ])
@@ -505,3 +507,148 @@ def test_layer0_full_step_launches_the_spmm_twice(cuda):
     for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
         scale = float(q.grad.abs().max())
         assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, name
+
+
+# ----------------------------------------------------------------- precision
+# A bf16 result is an f32 sum rounded once; sums in another order may round
+# to the neighbouring bf16 value, one step of 2**-7 relative.
+BF16_TOL = dict(rtol=2.0**-7, atol=1e-5)
+
+
+def _int8_case(n, f, b, k, seed, dev):
+    """An int8 table (row 5 with scale 0, row 6 all zeros) and a frontier
+    whose row 0 is all masked and row 1 names only row 5."""
+    from graphsage_torch.ops.quantize import quantize_features
+    x, idx, mask = _gather_case(n, f, b, k, seed, dev)
+    qt = quantize_features(x)
+    scale = qt.scale.clone()
+    scale[5] = 0.0
+    q = qt.q.clone()
+    q[6] = 0
+    idx[1], mask[1] = 5, True
+    return q, scale.contiguous(), idx, mask
+
+
+@pytest.mark.parametrize("n,f,b,k", [
+    (1000, 256, 4096, 5),    # powerlaw width (8-byte int8 loads on all 32 lanes)
+    (300, 512, 256, 5),      # 16-byte int8 loads
+    (700, 602, 512, 10),     # Reddit's width (2-byte int8 loads)
+    (300, 45, 64, 40),       # single loads, more than 32 slots per row
+])
+def test_gather_mean_int8_kernel_matches_plain(cuda, n, f, b, k):
+    q, scale, idx, mask = _int8_case(n, f, b, k, seed=n, dev=cuda)
+    before = gm.launches
+    got = gm.gather_mean_int8(q, scale, idx, mask)
+    torch.cuda.synchronize()
+    assert gm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, f)
+    torch.testing.assert_close(got, gm.gather_mean_int8_plain(q, scale, idx, mask), **TOL)
+    assert (got[0] == 0).all() and (got[1] == 0).all()
+    assert torch.equal(got, gm.gather_mean_int8(q, scale, idx, mask))  # fixed order
+
+
+def test_gather_mean_int8_rejects_what_the_kernel_does_not_take(cuda):
+    q, scale, idx, mask = _int8_case(20, 16, 8, 3, seed=5, dev=cuda)
+    with pytest.raises(TypeError):
+        gm.gather_mean_int8(q.to(torch.uint8), scale, idx, mask)
+    with pytest.raises(TypeError):
+        gm.gather_mean_int8(q, scale.double(), idx, mask)
+    with pytest.raises(ValueError):
+        gm.gather_mean_int8(q, scale[:-1].contiguous(), idx, mask)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("n,f,avg_deg", [
+    (2000, 128, 5), (3000, 256, 7), (1500, 602, 6), (300, 45, 70),
+])
+def test_spmm_kernel_bf16_matches_plain(cuda, normalize, n, f, avg_deg):
+    indptr, edge_dst = _csr_case(n, avg_deg, seed=n + f, dev=cuda)
+    x = torch.randn(n, f, generator=torch.Generator().manual_seed(n)).to(cuda)
+    xb = x.to(torch.bfloat16)
+    before = sp.launches
+    got = sp.spmm_mean(xb, indptr, edge_dst, normalize)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 1 and got.dtype == torch.bfloat16
+    want = sp.spmm_mean_plain(xb, indptr, edge_dst, normalize)
+    assert want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert (got[::7] == 0).all()
+    assert torch.equal(got, sp.spmm_mean(xb, indptr, edge_dst, normalize))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("graph", ["star", "about a chunk"])
+@pytest.mark.parametrize("f,offset", [(1, 0), (45, 0), (601, 0), (128, 1), (45, 1)])
+def test_spmm_kernel_bf16_odd_width_or_offset(cuda, graph, f, offset, normalize):
+    """bf16 pairs read from any 2-byte address: at an odd width every other
+    row starts in the middle of a 4-byte word and the last element is read
+    alone; a table at a 2-byte offset puts every row there. Rows cut by
+    chunk boundaries go through the fix-up's f32 rows."""
+    indptr, edge_dst = _csr_from_degrees(SPMM_GRAPHS[graph], seed=f + offset, dev=cuda)
+    n = indptr.numel() - 1
+    flat = torch.randn(n * f + offset, generator=torch.Generator().manual_seed(f))
+    x = flat.to(cuda).to(torch.bfloat16)[offset:].view(n, f)
+    assert x.is_contiguous() and (x.data_ptr() % 4 != 0) == bool(offset)
+    got = sp.spmm_mean(x, indptr, edge_dst, normalize)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (n, f)
+    want = sp.spmm_mean_plain(x, indptr, edge_dst, normalize).float()
+    magnitude = sp.spmm_mean_plain(x.abs(), indptr, edge_dst, normalize).float()
+    tol = BF16_TOL["atol"] + BF16_TOL["rtol"] * magnitude
+    assert ((got.float() - want).abs() <= tol).all()
+    assert torch.equal(got, sp.spmm_mean(x, indptr, edge_dst, normalize))
+
+
+@pytest.mark.parametrize("n,f", [(1500, 128), (1500, 602), (1500, 601)])
+def test_spmm_bf16_gradient_matches_plain(cuda, n, f):
+    indptr, edge_dst = _symmetric_csr(n, 6 * n, seed=n + f, dev=cuda)
+    x = torch.randn(n, f, generator=torch.Generator().manual_seed(1)).to(cuda)
+    g = torch.randn(n, f, generator=torch.Generator().manual_seed(2)).to(cuda)
+    xb = x.to(torch.bfloat16)
+    x_kern = xb.clone().requires_grad_(True)
+    before = sp.launches
+    sp.spmm_mean(x_kern, indptr, edge_dst).backward(g.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert sp.launches == before + 2 and x_kern.grad.dtype == torch.bfloat16
+    x_plain = xb.clone().requires_grad_(True)
+    sp._SpmmMean.apply(x_plain, indptr, edge_dst, True, True,
+                       sp.spmm_mean_plain).backward(g.to(torch.bfloat16))
+    torch.testing.assert_close(x_kern.grad.float(), x_plain.grad.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("n,f,b,k", [
+    (2000, 128, 25600, 10),  # whole-row copies, 8 stages
+    (1500, 602, 2560, 25),   # Reddit's width: envelopes
+    (400, 45, 64, 40),       # odd width
+])
+def test_gather_mean_dma_bf16_matches_plain(cuda, n, f, b, k):
+    x, idx, mask = _gather_case(n, f, b, k, seed=n + 3, dev=cuda, dtype=torch.bfloat16)
+    before = gd.launches
+    got = gd.gather_mean_dma(x, idx, mask)
+    torch.cuda.synchronize()
+    assert gd.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, gd.gather_mean_dma_plain(x, idx, mask), **TOL)
+    assert (got[0] == 0).all()
+    assert torch.equal(got, gd.gather_mean_dma(x, idx, mask))
+
+
+def test_bf16_model_step_on_the_card(cuda):
+    """A bf16 power-law model: one sampled step's parameter gradients on the
+    card against the CPU's, within 2e-2 of each leaf's largest entry."""
+    import copy
+    from graphsage_torch import GraphSAGE
+    from graphsage_torch.data.synthetic import power_law_graph
+    graph = power_law_graph(3000, 20000, num_feats=64, num_classes=5, homophily=0.8,
+                            feature_dtype=torch.bfloat16, device=cuda)
+    model = GraphSAGE(64, 5, (32, 32), (5, 10), compute_dtype=torch.bfloat16,
+                      project_first=True, device=cuda)
+    seeds = torch.arange(256, dtype=torch.int32, device=cuda)
+    fr = model.sample(torch.Generator(device=cuda).manual_seed(0), graph, seeds)
+    labels = graph.labels[seeds.long()]
+    model.loss(graph.features, fr, labels).backward()
+    cpu_model, cpu_graph = copy.deepcopy(model).to("cpu"), graph.to("cpu")
+    cpu_model.zero_grad()
+    cpu_model.loss(cpu_graph.features, fr.to("cpu"), labels.cpu()).backward()
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        scale = float(q.grad.abs().max())
+        assert scale > 0 and float((p.grad.cpu() - q.grad).abs().max()) <= 2e-2 * scale, name

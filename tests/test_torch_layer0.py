@@ -125,9 +125,23 @@ def test_cache_matches_jax_host_build(graphs, self_loop):
     assert moved.layer0_cache_self_loop is self_loop
 
 
-def test_cache_quantized_is_not_ported(graphs):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        with_cached_layer0(graphs[1], quantize=True)
+@pytest.mark.parametrize("self_loop", [False, True])
+def test_cache_quantized_is_not_ported(graphs, self_loop):
+    """``quantize=True``: an int8 cache, the JAX build's to one int8 step (the
+    f32 sums round apart), idempotent; a dense cache asked for int8 raises."""
+    jg, tg = graphs
+    want = jax_with_cached_layer0(jg, self_loop=self_loop, quantize=True).layer0_cache
+    got = with_cached_layer0(tg, self_loop=self_loop, quantize=True)
+    cache = got.layer0_cache
+    assert cache.q.dtype == torch.int8 and cache.scale.shape == (tg.num_nodes, 1)
+    assert np.abs(cache.q.numpy().astype(int) - np.asarray(want.q).astype(int)).max() <= 1
+    np.testing.assert_allclose(cache.scale.numpy(), np.asarray(want.scale), rtol=1e-5)
+    assert with_cached_layer0(got, self_loop=self_loop, quantize=True) is got
+    with pytest.raises(ValueError, match="quantize=False"):
+        with_cached_layer0(got, self_loop=self_loop)
+    dense = with_cached_layer0(tg, self_loop=self_loop)
+    with pytest.raises(ValueError, match="dense layer0_cache"):
+        with_cached_layer0(dense, self_loop=self_loop, quantize=True)
 
 
 # ------------------------------------------------------------------- models

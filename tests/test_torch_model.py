@@ -128,11 +128,37 @@ def test_sample_shapes_and_masks(graphs):
     ("multilabel", True, 10),
     ("sampling", "topk", 9),
     ("sampling", "windowed", 9),
-    ("compute_dtype", torch.bfloat16, 8),
 ])
 def test_not_ported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         GraphSAGE(8, 2, (4, 4), (2, 2), device="cpu", **{field: value})
+
+
+def test_compute_dtype():
+    m = GraphSAGE(8, 2, (4, 4), (2, 2), device="cpu", compute_dtype=torch.bfloat16)
+    assert m.compute_dtype == torch.bfloat16
+    # Parameters stay f32; the products cast them at use.
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        GraphSAGE(8, 2, (4, 4), (2, 2), device="cpu", compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("project_first,num_nodes,slots,want", [
+    ("auto", 2708, 25600, True),       # Cora's frontier: project first
+    ("auto", 19717, 256000, True),     # Pubmed's
+    ("auto", 232965, 128000, False),   # Reddit's: aggregate first
+    ("auto", 232965, 512000, False),   # Reddit's at 4x the batch: still
+    ("auto", 232965, 1024000, True),   # and at 8x: project first
+    (True, 232965, 128000, True),      # pinned either way
+    (False, 2708, 25600, False),
+])
+def test_sampled_layer0_order_rule(project_first, num_nodes, slots, want):
+    m = GraphSAGE(602, 4, (128, 128), (10, 25), project_first=project_first,
+                  device="cpu")
+    assert m.sampled_layer0_project_first(num_nodes, slots) is want
+    # A layer that does not shrink never projects first on "auto".
+    wide = GraphSAGE(64, 4, (128, 128), (10, 25), device="cpu")
+    assert not wide.sampled_layer0_project_first(10, 10**6)
 
 
 def test_model_validation():
@@ -160,9 +186,12 @@ def test_from_config_presets(name):
     assert m.hidden_dims == tuple(cfg.hidden_dims) and m.fanouts == tuple(cfg.fanouts)
     assert [tuple(layer.weight.shape) for layer in m.layers] == [(50, 128), (128, 128)]
     assert tuple(m.head.shape) == (128, 3) and m.device == torch.device("cpu")
-    for preset in ("cora_unsup", "powerlaw", "powerlaw_1m_layer0_cached"):
-        with pytest.raises(NotImplementedError):
-            GraphSAGE.from_config(PRESETS[preset].model, 50, 3, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        GraphSAGE.from_config(PRESETS["cora_unsup"].model, 50, 3, device="cpu")
+    for preset in ("powerlaw", "powerlaw_1m_layer0_cached", "reddit"):
+        m = GraphSAGE.from_config(PRESETS[preset].model, 50, 3, device="cpu")
+        assert m.compute_dtype == torch.bfloat16
+        assert m.layer0 == PRESETS[preset].model.layer0
 
 
 def test_seeded_init_is_reproducible_and_glorot():

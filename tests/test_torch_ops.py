@@ -202,30 +202,35 @@ def test_rows_per_warp(b, k, want):
     assert r == 1 or r * k <= 32  # one ballot covers the warp's slots
 
 
-# Whole-row copies need F % 4 == 0.
-@pytest.mark.parametrize("f,whole_rows", [
-    (f, whole) for f in (1, 3, 45, 64, 128, 129, 500, 512, 513, 1433, 2048, 3703)
-    for whole in (True, False) if not (whole and f % 4)])
-def test_dma_plan_fits_every_copy(f, whole_rows):
-    p = gd.plan(25600, 10, f, whole_rows)
+# Whole-row copies need rows of a multiple of 16 bytes (F % 4 == 0 in f32,
+# F % 8 == 0 in bf16).
+@pytest.mark.parametrize("f,whole_rows,itemsize", [
+    (f, whole, size) for size in (4, 2)
+    for f in (1, 3, 45, 64, 128, 129, 500, 512, 513, 602, 1433, 2048, 3703)
+    for whole in (True, False) if not (whole and (f * size) % 16)])
+def test_dma_plan_fits_every_copy(f, whole_rows, itemsize):
+    p = gd.plan(25600, 10, f, whole_rows, itemsize)
     width = min(f, 128 * p.chunks)
     assert p.chunks in gd.CHUNKS and (width == f or p.chunks == gd.CHUNKS[-1])
-    assert 2 <= p.stages <= gd.MAX_STAGES and p.stage_floats % 4 == 0
+    assert 2 <= p.stages <= gd.MAX_STAGES and p.stage_bytes % 16 == 0
     assert p.rows_per_warp == 3
     # The widest copy of a pass: the row itself, or its 16-byte-aligned
-    # envelope from any 4-byte-aligned start.
-    for start in ((0,) if whole_rows else (0, 4, 8, 12)):
-        lo, hi = 0, -(-(start + 4 * width) // 16) * 16
-        assert hi - lo <= 4 * p.stage_floats
+    # envelope from any element-aligned start.
+    for start in ((0,) if whole_rows else range(0, 16, itemsize)):
+        lo, hi = 0, -(-(start + itemsize * width) // 16) * 16
+        assert hi - lo <= p.stage_bytes
     # A block's barriers and rings fit the shared memory of one SM.
     warps = gd.WARPS_PER_BLOCK
-    assert warps * p.stages * (8 + 4 * p.stage_floats) + 16 <= 227 * 1024
+    assert warps * p.stages * (8 + p.stage_bytes) + 16 <= 227 * 1024
 
 
 def test_dma_plan_at_the_main_widths():
-    assert gd.plan(25600, 10, 128, True) == (3, 1, 4, 128)
-    assert gd.plan(25600, 10, 500, True) == (3, 4, 2, 500)
-    assert gd.plan(2560, 10, 1433, False) == (1, 16, 2, 1440)
+    assert gd.plan(25600, 10, 128, True) == (3, 1, 4, 512)
+    assert gd.plan(25600, 10, 500, True) == (3, 4, 2, 2000)
+    assert gd.plan(2560, 10, 1433, False) == (1, 16, 2, 5760)
+    # bf16: 8 stages of a 128-wide row; Reddit's 602 columns take envelopes.
+    assert gd.plan(25600, 10, 128, True, 2) == (3, 1, 8, 256)
+    assert gd.plan(128000, 10, 602, False, 2) == (3, 16, 2, 1232)
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas_vmem", "xla"])

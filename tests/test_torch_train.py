@@ -21,7 +21,7 @@ from graphsage_tpu.utils.metrics import micro_f1 as jax_micro_f1
 from graphsage_torch import PRESETS, GraphSAGE, Trainer, load_cora, params_from_numpy
 from graphsage_torch.data.synthetic import synthetic_cora_graph
 from graphsage_torch.models.graphsage import Frontier
-from graphsage_torch.train import TrainConfig, make_optimizer, reference_splits
+from graphsage_torch.train import TrainConfig, experiments, make_optimizer, reference_splits
 from graphsage_torch.train.experiments import load_dataset, main, run_cora, run_preset
 from graphsage_torch.utils.metrics import accuracy, macro_f1, micro_f1
 
@@ -297,8 +297,21 @@ def test_cli_layer0_override(layer0, synth_cora_root, capsys, monkeypatch):
     assert lines[0].startswith("Validation F1: ")
 
 
-def test_load_dataset_names():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        load_dataset("reddit")
+def test_load_dataset_names(monkeypatch):
+    # The power-law datasets are JAX's power_law_graph calls (its
+    # train/experiments.py), bf16 features for reddit and powerlaw_1m.
+    want = {
+        "powerlaw": (100_000, 2_000_000, 256, 16, torch.float32),
+        "reddit": (232_965, 5_800_000, 602, 41, torch.bfloat16),
+        "powerlaw_1m": (1_000_000, 10_000_000, 256, 32, torch.bfloat16),
+    }
+    seen = {}
+    monkeypatch.setattr(experiments, "power_law_graph",
+                        lambda **kw: seen.setdefault(kw["num_nodes"], kw))
+    for name, (n, e, f, c, dtype) in want.items():
+        kw = load_dataset(name, device="cpu")
+        assert (kw["num_nodes"], kw["num_edges"], kw["num_feats"], kw["num_classes"],
+                kw.get("feature_dtype", torch.float32)) == (n, e, f, c, dtype)
+        assert kw["homophily"] == 0.8 and kw["device"] == "cpu"
     with pytest.raises(ValueError):
         load_dataset("citeseer")

@@ -99,7 +99,28 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    bf16 models within 2e-2 of each leaf's largest entry; serving ``reddit``
    through both tiers and a bf16 ``powerlaw`` model through the table tier
    with and without ``quantize_table``; the two layer-0 orders at ``reddit``.
-11. a ``{"kernels": [...]}`` line, then the last line
+11. samplers, full-batch training, the multilabel head: ``powerlaw_1m``
+   and ``powerlaw_1m_layer0_cached`` with ``sampling="windowed"`` (30 steps
+   each on the graphs of the Floyd runs, the cached one with its cache;
+   the 0.8 floor; beside the Floyd runs' host and device ms, idle share and
+   kernel 1's launches); the sampling stage's device ms by method (one hop
+   of fanout 15 over 4096 seeds and the preset's three-hop frontier; ``topk``
+   only on a graph whose ELL covers every row). ``FullGraphTrainer`` on
+   ``bench.py``'s ``fullbatch`` configuration (40 steps, floor 0.8), on the
+   ``pubmed`` preset through ``run_preset(mode="full-graph")`` and on
+   ``reddit`` at full graph (100 steps; last loss below 0.7x the first,
+   validation micro-F1 above 0.5): kernel 3 once per layer in the forward
+   and once per layer whose input needs a gradient in the backward, every
+   step; host and device ms per step and the idle share. One full-batch
+   step's card gradients against the CPU's (kernel 3 and the bucketed
+   pass). Kernel 3 timed forward and backward (on ``g / deg``) at the
+   ``fullbatch`` and ``reddit`` full-graph layer-0 shapes beside
+   ``torch.sparse.mm`` and the bucketed pass. The PPI protocol at the
+   paper's shape (24 graphs of 2372 nodes, 121 labels): train on the union
+   of 20, sampled and full-batch, each over the bars of
+   ``tests/test_multilabel.py`` on the 4 held out; one held-out graph
+   served through the table tier with the trainer's multi-hot predictions.
+12. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -124,19 +145,33 @@ import graphsage_torch.ops.gather_dma as dma_kernel
 import graphsage_torch.ops.gather_mean as gm_kernel
 import graphsage_torch.ops.scatter_mean as sm_kernel
 import graphsage_torch.ops.spmm as spmm_kernel
-from graphsage_torch import PRESETS, GraphSAGE, ServingEngine, load_cora, run_preset
+from graphsage_torch import (
+    PRESETS,
+    FullGraphTrainer,
+    GraphSAGE,
+    ServingEngine,
+    TrainConfig,
+    disjoint_union,
+    load_cora,
+    run_preset,
+)
 from graphsage_torch.data.graph import quantize_graph, with_cached_layer0
 from graphsage_torch.data.synthetic import (
     power_law_graph,
     synth_cora_files,
     synth_pubmed_files,
+    synthetic_ppi_graphs,
     synthetic_pubmed_graph,
 )
 from graphsage_torch.ops import _build
 from graphsage_torch.ops import quantize as tq
 from graphsage_torch.ops.aggregate import gather
+from graphsage_torch.ops.bucketed_spmm import _Pass as BucketedPass
+from graphsage_torch.ops.bucketed_spmm import plan_bucketed_spmm
+from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.train.experiments import build_model, load_dataset, preset_config
 from graphsage_torch.train.trainer import Trainer
+from graphsage_torch.utils.metrics import micro_f1
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 outside the tensor cores.
@@ -254,10 +289,10 @@ def device_profile(fn, iters: int = 20, attempts: int = 3) -> dict:
     raise RuntimeError(f"the profiler saw no device time in {attempts} sessions")
 
 
-def device_ms(fn, kernel: str | None = None) -> float:
+def device_ms(fn, kernel: str | None = None, iters: int = 20) -> float:
     """Summed device time per call of every kernel ``fn`` launches; with
     ``kernel``, also check that a kernel of that name ran."""
-    by_name = device_profile(fn)
+    by_name = device_profile(fn, iters=iters)
     if kernel is not None and not any(kernel in name for name in by_name):
         raise AssertionError(f"no {kernel} among the kernels run: {list(by_name)}")
     return sum(by_name.values())
@@ -806,9 +841,14 @@ def short_name(kernel: str) -> str:
 
 def step_device_ms(trainer, iters: int = 10) -> tuple[float, list]:
     """Device time of one training step (profiler, summed over kernels) and
-    the four kernels that take most of it."""
-    seeds = next(trainer.batches())
-    by_name = device_profile(lambda: trainer.step(seeds), iters=iters)
+    the four kernels that take most of it (a full-batch trainer's step
+    takes no seeds)."""
+    if isinstance(trainer, FullGraphTrainer):
+        step = trainer.step
+    else:
+        seeds = next(trainer.batches())
+        step = lambda: trainer.step(seeds)  # noqa: E731
+    by_name = device_profile(step, iters=iters)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return sum(by_name.values()), [(short_name(k), v) for k, v in top]
 
@@ -1443,6 +1483,349 @@ def serve_precision(pg, main_launches) -> None:
           f"{agree:.4f} of 1024 nodes; representations within half a step")
 
 
+# ------------------------------------------- samplers, full-batch, multilabel
+# bench.py's full-batch configuration (its fullbatch row and floor).
+FULLBATCH_GRAPH = dict(num_nodes=100_000, num_edges=1_000_000, num_feats=128,
+                       num_classes=16, seed=0, homophily=0.8)
+FULLBATCH_FLOOR = 0.8
+# The GraphSAGE paper's PPI shape: 24 graphs of about 2372 nodes, 50
+# features, 121 labels, about 28 edge slots per node; 20 graphs train, 4 are
+# held out. The model and bars of tests/test_multilabel.py.
+PPI = dict(num_graphs=24, num_nodes=2372, num_feats=50, num_classes=121,
+           edges_per_node=14, seed=0)
+PPI_TRAIN_GRAPHS = 20
+PPI_STEPS = 100
+PPI_MODEL = dict(hidden_dims=(64, 64), fanouts=(10, 10), multilabel=True, concat_self=True)
+PPI_TRAIN = dict(batch_size=256, num_steps=PPI_STEPS, log_every=0, learning_rate=0.01,
+                 optimizer="adam", test_size=0, val_size=200)
+
+
+def full_graph_step_launches(model) -> dict:
+    """Kernel 3's launches in one full-batch step of a mean model: one per
+    layer in the forward, and one per layer whose SpMM input needs a
+    gradient in the backward (layer 0's only when it projects first: the
+    features are frozen); none on the bucketed route or for maxpool and
+    lstm."""
+    want = {name: 0 for name in KERNELS}
+    if model.aggregator == "mean" and model.spmm_impl != "bucketed_ell":
+        backward = sum(1 for l in range(model.num_layers)
+                       if l > 0 or model.use_project_first(0, model.in_dim))
+        want["spmm_mean"] = model.num_layers + backward
+    return want
+
+
+def train_full_graph(label, main_launches, model=None, graph=None, cfg=None,
+                     preset=None, root=None) -> dict:
+    """A ``FullGraphTrainer`` run (``run_preset(preset, mode="full-graph")``
+    when ``preset`` is given) with the launch counters set to 0 just before
+    it and read just after: kernel 3 launches ``full_graph_step_launches``
+    per step and once per layer in the evaluation."""
+    log: list[str] = []
+    reset_launches()
+    if preset is not None:
+        result = run_preset(preset, data_root=root, log=log.append, mode="full-graph")
+        trainer = result["trainer"]
+    else:
+        trainer = FullGraphTrainer(model, graph, cfg)
+        result = trainer.run(log=log.append)
+        result["trainer"] = trainer
+    launches = read_launches()
+    model, steps = trainer.model, trainer.cfg.num_steps
+    per_step = full_graph_step_launches(model)
+    want = {k: steps * v for k, v in per_step.items()}
+    if model.aggregator == "mean" and model.spmm_impl != "bucketed_ell":
+        want["spmm_mean"] += model.num_layers  # the evaluation's forward
+    losses = np.asarray(result["losses"])
+    print(f"   {label}: {steps} full-batch steps, launches {launches} "
+          f"({per_step['spmm_mean']} of kernel 3 per step; the backward on "
+          f"{'g / deg (symmetric graph)' if trainer.graph.symmetric else 'the index_add_ transpose (directed graph)'}); "
+          f"{log[-2]}; {log[-1]}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    if per_step["spmm_mean"]:  # the profiler sees kernel 3 in a step
+        device_ms(trainer.step, "spmm_mean_kernel", iters=2)
+    result["launches"] = launches
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    return result
+
+
+def sampling_stage_ms(pg, pubmed) -> None:
+    """Device ms of the sampling stage by method: one hop at fanout 15 (the
+    ``powerlaw_1m`` preset's first expansion) over a 4096-seed batch, and the
+    preset's whole three-hop frontier, on the 10^6-node graph (floyd and
+    windowed: its ELL is capped, which ``topk`` refuses) and on the
+    synthetic Pubmed graph, whose ELL covers every row (all three)."""
+    for label, g in (("powerlaw_1m", pg["powerlaw_1m"]), ("synthetic pubmed", pubmed)):
+        gen = torch.Generator(device=g.device).manual_seed(41)
+        seeds = torch.randint(0, g.num_nodes, (4096,), generator=gen, device=g.device,
+                              dtype=torch.int32)
+        methods = ("floyd", "windowed") + (("topk",) if g.ell_covers_all else ())
+        for method in methods:
+            def hop():
+                return sample_neighbors(gen, g.neighbors, g.degrees, seeds, 15, method=method,
+                                        indptr=g.indptr, edge_dst=g.edge_dst,
+                                        ell_covers_all=g.ell_covers_all)
+            # Sampling reads no parameter: narrow layers of the preset's depth.
+            model = GraphSAGE(g.num_features, g.num_classes, (8, 8, 8),
+                              PRESETS["powerlaw_1m"].model.fanouts, sampling=method)
+            frontier = lambda: model.sample(gen, g, seeds)  # noqa: E731
+            # Hundreds of small kernels a call: few iterations under the profiler.
+            print(f"   sampling {label} {method}: one hop of fanout 15 over 4096 seeds "
+                  f"device ms {device_ms(hop, iters=5):.4f} (per call "
+                  f"{call_ms(hop, iters=10):.4f}); the 3-hop frontier (5/10/15) device ms "
+                  f"{device_ms(frontier, iters=5):.4f} (per call "
+                  f"{call_ms(frontier, iters=5):.4f})")
+            del model
+
+
+def windowed_runs(pg, results, main_launches) -> None:
+    """``powerlaw_1m`` and ``powerlaw_1m_layer0_cached`` with
+    ``sampling="windowed"`` for the presets' 30 steps on the graphs the
+    Floyd runs used (the cached one with its cache), against the 0.8 floor,
+    beside the Floyd runs' numbers."""
+    for name, graph in (
+            ("powerlaw_1m", pg["powerlaw_1m"]),
+            ("powerlaw_1m_layer0_cached",
+             results["powerlaw_1m_layer0_cached"]["trainer"].graph)):
+        label = f"{name} windowed"
+        with phase(f"training {label}"):
+            results[label] = train_preset(name, None, main_launches,
+                                          overrides={"sampling": "windowed"}, graph=graph)
+            if results[label]["trainer"].model.sampling != "windowed":
+                raise AssertionError(f"{label}: the model samples "
+                                     f"{results[label]['trainer'].model.sampling}")
+            results[label].update(check_learning(label, results[label], FLOORS[name]))
+            keys = ("host_ms_per_step", "device_ms_per_step", "device_idle_share")
+            for run in (name, label):
+                r = results[run]
+                print(f"   {run}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys)
+                      + f", kernel 1 launches {r['launches']['gather_mean']}, loss "
+                      f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}")
+
+
+def check_full_graph_gradients() -> None:
+    """One full-batch step's parameter gradients on the card against the
+    CPU's, for the ``fullbatch`` model on a 2000-node power-law graph, with
+    kernel 3 (``"auto"``) and with the bucketed pass."""
+    g = power_law_graph(**{**FULLBATCH_GRAPH, "num_nodes": 2000, "num_edges": 20000})
+    cfg = TrainConfig(num_steps=1, test_size=200, val_size=100, log_every=0)
+    for impl in ("auto", "bucketed_ell"):
+        model = GraphSAGE(128, 16, (128, 128), (None, None), spmm_impl=impl,
+                          generator=torch.Generator().manual_seed(0))
+        launches = card_vs_cpu_grads(
+            f"fullbatch step, spmm_impl={impl!r} (N=2000)", model,
+            lambda m, graph: FullGraphTrainer(m, graph, cfg)._loss(), g)
+        if launches != full_graph_step_launches(model):
+            raise AssertionError(f"full-batch step {impl}: launched {launches}")
+
+
+def time_full_graph_spmm(fb_graph, reddit, reddit_model) -> list:
+    """Kernel 3 forward (normalised) and backward (unnormalised, on
+    ``g / deg``) at the full-batch shapes: the ``fullbatch`` graph's layers
+    (X [100000,128] f32) and ``reddit``'s full-graph layer 0 (its projected
+    rows, [232965,128] bf16); beside the plain version, ``torch.sparse.mm``
+    and the bucketed pass (``ops/bucketed_spmm.py``, forward and backward).
+    Bounds as in ``time_kernels``: X and the output once, indptr, the used
+    ids; operations one add per edge and element (and one scale per row);
+    and, as for the cache build, with one row read per edge."""
+    out = []
+    with torch.no_grad():
+        projected = (reddit.features @ reddit_model.layers[0].weight.to(torch.bfloat16))
+    rng = np.random.default_rng(51)
+    for label, g, x in (
+            ("fullbatch", fb_graph, torch.from_numpy(rng.standard_normal(
+                (fb_graph.num_nodes, 128), dtype=np.float32)).to(fb_graph.device)),
+            ("reddit full-graph layer 0", reddit, projected.contiguous())):
+        n, f = x.shape
+        e = g.num_edges
+        elt = x.element_size()
+        deg = (g.indptr[1:] - g.indptr[:-1]).long()
+        grad = torch.randn(n, f, generator=torch.Generator().manual_seed(52)).to(x.device)
+        gs = (grad / deg.clamp(min=1)[:, None]).to(x.dtype)
+        rows = torch.repeat_interleave(torch.arange(n, device=g.device), deg)
+        vals = (1.0 / deg.clamp(min=1).float())[rows]
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            mean = torch.sparse_csr_tensor(g.indptr.long(), g.edge_dst[:e].long(),
+                                           vals.to(x.dtype), size=(n, n))
+            ones = torch.sparse_csr_tensor(g.indptr.long(), g.edge_dst[:e].long(),
+                                           torch.ones(e, device=g.device, dtype=x.dtype),
+                                           size=(n, n))
+        t0 = time.perf_counter()
+        plan = plan_bucketed_spmm(g)
+        plan_s = time.perf_counter() - t0
+        # The bucketed pass, normalised (the forward) and not (the backward
+        # on g / deg, as make_spmm_mean_bucketed's backward runs it).
+        bucketed = BucketedPass(plan)
+        for normalize, arg in ((True, x), (False, gs)):
+            # Sums of up to 8016 terms in two orders: each element held to
+            # the tolerance of its terms' magnitude, as in check_kernels.
+            max_err(bucketed(arg, normalize).float(),
+                    spmm_kernel.spmm_mean(arg, g.indptr, g.edge_dst, normalize).float(),
+                    f"bucketed pass {label} normalize={normalize}",
+                    BF16_TOL if elt == 2 else TOL,
+                    magnitude=spmm_kernel.spmm_mean_plain(
+                        arg.abs(), g.indptr, g.edge_dst, normalize).float())
+        for direction, normalize, arg, lib in (("forward", True, x, mean),
+                                               ("backward on g/deg", False, gs, ones)):
+            kernel = lambda: spmm_kernel.spmm_mean(arg, g.indptr, g.edge_dst, normalize)  # noqa: E731
+            bd, by = bound(2 * n * f * elt + (n + 1) * 4 + e * 4, e * f + n * f * normalize)
+            # The tables do not fit the 50 MB L2 once: also one row read per edge.
+            per_edge, _ = bound(e * f * elt + n * f * elt + (n + 1) * 4 + e * 4, 0)
+            library = library_ms(lambda: torch.sparse.mm(lib, arg),
+                                 lambda: torch.sparse.mm(lib.to(torch.float32), arg.float()),
+                                 f"sparse.mm {label} {direction}")
+            rec = dict(
+                label=f"{label} {direction}",
+                shape=f"{label} {direction}: X [{n},{f}] {x.dtype}, E={e}",
+                ms=device_ms(kernel, "spmm_mean_kernel"),
+                plain_ms=device_ms(lambda: spmm_kernel.spmm_mean_plain(
+                    arg, g.indptr, g.edge_dst, normalize)),
+                library_ms=library[0], library_note=library[1],
+                bound_ms=bd, bound_by=by, bound_row_per_edge_ms=per_edge,
+                call_ms=call_ms(kernel, iters=20),
+                bucketed_ms=device_ms(lambda: bucketed(arg, normalize), iters=5),
+                bucketed_call_ms=call_ms(lambda: bucketed(arg, normalize), iters=5, warmup=1),
+                bucketed_plan_s=plan_s,
+            )
+            out.append(rec)
+            print(f"   spmm_mean [{rec['shape']}]: device ms: kernel {rec['ms']:.4f}, plain "
+                  f"{rec['plain_ms']:.4f}, sparse.mm {rec['library_ms']:.4f} "
+                  f"({rec['library_note']}), bucketed pass {rec['bucketed_ms']:.4f} (per "
+                  f"call {rec['bucketed_call_ms']:.4f}; plan built in {plan_s:.2f} s on the "
+                  f"host), bound {rec['bound_ms']:.4f} ({rec['bound_by']}), one row per edge "
+                  f"{per_edge:.4f}; per call through the wrapper {rec['call_ms']:.4f} ms")
+        del mean, ones, rows, vals, plan, bucketed
+        torch.cuda.empty_cache()
+    return out
+
+
+def ppi_runs(main_launches) -> None:
+    """The inductive PPI protocol at the paper's shape: train the
+    multilabel model of tests/test_multilabel.py on the disjoint union of
+    20 graphs, sampled (``Trainer``) and full-batch (``FullGraphTrainer``),
+    and hold each to that test's bars on the 4 held-out graphs (evaluated
+    over complete neighborhoods); serve one held-out graph through the table
+    tier and check its multi-hot predictions against the trainer's."""
+    t0 = time.perf_counter()
+    graphs = synthetic_ppi_graphs(**PPI)
+    train_g = disjoint_union(graphs[:PPI_TRAIN_GRAPHS])
+    test_g = disjoint_union(graphs[PPI_TRAIN_GRAPHS:])
+    print(f"   {len(graphs)} PPI graphs built in {time.perf_counter() - t0:.1f} s; "
+          f"train {train_g}, held out {test_g}; degree mean "
+          f"{float(train_g.degrees.float().mean()):.2f}")
+    truth = test_g.labels.cpu().numpy()
+    trivial = max(micro_f1(truth, np.ones_like(truth)), micro_f1(truth, np.zeros_like(truth)))
+    eval_cfg = TrainConfig(num_steps=1, test_size=0, val_size=64, log_every=0)
+    for route in ("sampled", "full-batch"):
+        label = f"ppi {route}"
+        with phase(f"training {label}"):
+            model = GraphSAGE(50, PPI["num_classes"], generator=torch.Generator().manual_seed(0),
+                              **{**PPI_MODEL, **({"fanouts": (None, None)}
+                                                 if route == "full-batch" else {})})
+            cfg = TrainConfig(**PPI_TRAIN)
+            if route == "sampled":
+                log: list[str] = []
+                reset_launches()
+                trainer = Trainer(model, train_g, cfg)
+                result = trainer.run(log=log.append)
+                result["trainer"] = trainer
+                launches = read_launches()
+                per_step = step_launches(model, train_g.num_nodes, cfg.batch_size)
+                want = {k: PPI_STEPS * v for k, v in per_step.items()}
+                want["spmm_mean"] += model.num_layers  # the full-graph evaluation
+                if launches != want:
+                    raise AssertionError(f"{label}: launches {launches}, want {want}")
+                for kernel, count in launches.items():
+                    main_launches[kernel] += count
+                print(f"   {label}: {PPI_STEPS} steps, launches {launches}")
+            else:
+                result = train_full_graph(label, main_launches, model, train_g, cfg)
+            losses = result["losses"]
+            reset_launches()
+            held = (FullGraphTrainer if route == "full-batch" else Trainer)(
+                model, test_g, eval_cfg).evaluate(np.arange(test_g.num_nodes))
+            main_launches["spmm_mean"] += read_launches()["spmm_mean"]
+            host_ms = result["mean_step_time"] * 1e3
+            dev_ms, top = step_device_ms(result["trainer"])
+            print(f"   {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (bar: below "
+                  f"{0.25 * losses[0]:.4f}); inductive micro-F1 on the {len(graphs) - PPI_TRAIN_GRAPHS}"
+                  f" held-out graphs {held['micro_f1']:.4f} (bars: above {trivial + 0.2:.4f}, the "
+                  f"best trivial predictor + 0.2, and 0.75); host ms per step {host_ms:.3f}, "
+                  f"device ms per step {dev_ms:.4f}, idle share {1.0 - dev_ms / host_ms:.4f}; "
+                  f"top {top}")
+            if not (losses[-1] < 0.25 * losses[0] and held["micro_f1"] > trivial + 0.2
+                    and held["micro_f1"] > 0.75):
+                raise AssertionError(f"{label}: the run did not clear the PPI bars")
+    # The table tier on one held-out graph against the full-batch trainer.
+    g = graphs[PPI_TRAIN_GRAPHS]
+    nodes = np.arange(g.num_nodes)
+    reset_launches()
+    served = ServingEngine(model, g).predict(nodes)
+    want = FullGraphTrainer(model, g, eval_cfg)
+    with torch.no_grad():
+        logits = want._logits().cpu().numpy()
+    want_f1 = want.evaluate(nodes)["micro_f1"]
+    main_launches["spmm_mean"] += read_launches()["spmm_mean"]
+    got_f1 = micro_f1(g.labels.cpu().numpy(), served)
+    if served.shape != (g.num_nodes, PPI["num_classes"]) or served.dtype != np.int8:
+        raise AssertionError(f"ppi serving: predictions {served.shape} {served.dtype}")
+    # The head's products run at other batch sizes in the two paths and may
+    # round differently: a logit within 1e-4 of 0 may fall either way.
+    decided = np.abs(logits) > 1e-4
+    if not np.array_equal(served[decided], model.predictions(logits)[decided]):
+        raise AssertionError("ppi serving: table-tier predictions differ from the trainer's")
+    if abs(got_f1 - want_f1) > (~decided).sum() / served.size:
+        raise AssertionError(f"ppi serving: micro-F1 {got_f1} against the trainer's {want_f1}")
+    print(f"   ppi serving: the table tier's multi-hot predictions on held-out graph "
+          f"{PPI_TRAIN_GRAPHS} equal FullGraphTrainer's ({int((~decided).sum())} logits within "
+          f"1e-4 of 0 left out); micro-F1 {got_f1:.4f} against evaluate's {want_f1:.4f}")
+
+
+def samplers_full_batch_multilabel(pg, pubmed, pubmed_root, results, timings,
+                                   main_launches) -> None:
+    """The phases of the windowed sampler, full-batch training and the
+    multilabel head, on the reduced-precision phases' graphs (``pg``) and
+    runs (``results``); kernel 3's new timing rows go into ``timings``."""
+    windowed_runs(pg, results, main_launches)
+    with phase("sampling stage by method"):
+        sampling_stage_ms(pg, pubmed)
+    with phase("data: the fullbatch graph"):
+        fb_graph = power_law_graph(**FULLBATCH_GRAPH)
+        print(f"   fullbatch: {fb_graph}; degree max {int(fb_graph.degrees.max())}")
+    with phase("training fullbatch (FullGraphTrainer)"):
+        fb_model = GraphSAGE(128, 16, (128, 128), (None, None),
+                             generator=torch.Generator().manual_seed(0))
+        results["fullbatch"] = train_full_graph(
+            "fullbatch", main_launches, fb_model, fb_graph, TrainConfig(num_steps=40))
+        results["fullbatch"].update(check_learning("fullbatch", results["fullbatch"],
+                                                   FULLBATCH_FLOOR))
+    with phase("training pubmed, mode='full-graph'"):
+        results["pubmed full-graph"] = train_full_graph(
+            "pubmed full-graph", main_launches, preset="pubmed", root=pubmed_root)
+        results["pubmed full-graph"].update(
+            check_learning("pubmed full-graph", results["pubmed full-graph"]))
+    with phase("training reddit, mode='full-graph'"):
+        cfg = preset_config("reddit", {"fanouts": (None, None)})
+        results["reddit full-graph"] = train_full_graph(
+            "reddit full-graph", main_launches, build_model(cfg, pg["reddit"]),
+            pg["reddit"], cfg.train)
+        results["reddit full-graph"].update(
+            check_learning("reddit full-graph", results["reddit full-graph"]))
+    with phase("full-batch gradients, card against CPU"):
+        check_full_graph_gradients()
+    with phase("timings, kernel 3 at the full-batch shapes"):
+        timings["spmm_mean"] += time_full_graph_spmm(
+            fb_graph, pg["reddit"], results["reddit full-graph"]["trainer"].model)
+    del fb_graph
+    torch.cuda.empty_cache()
+    with phase("multilabel: PPI, sampled and full-batch"):
+        ppi_runs(main_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1614,6 +1997,8 @@ def main() -> int:
     with phase("reddit layer-0 orders"):
         project_first_times({"reddit": results["reddit"]["trainer"]},
                             batch_scales=(1, 2, 4, 8, 16))
+    samplers_full_batch_multilabel(pg, graphs["pubmed"], roots["pubmed"], results,
+                                   timings, main_launches)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -13,17 +13,25 @@ Every entry point places its tensors on ``cuda`` unless the caller passes
   ops     — sampler, aggregators, Hopper kernels
   models  — GraphSAGE layers + supervised classifier
   serve   — table and sampled serving tiers
-  train   — configs, presets, the sampled trainer and its CLI
+  train   — configs, presets, the sampled and full-graph trainers, the CLI
   utils   — metrics
 """
 
 from graphsage_torch._device import resolve_device
-from graphsage_torch.data.graph import Graph, build_graph
+from graphsage_torch.data.graph import (
+    Graph,
+    build_graph,
+    disjoint_union,
+    quantize_graph,
+    with_cached_layer0,
+)
+from graphsage_torch.ops.quantize import QuantizedTable, dequantize, quantize_features
 from graphsage_torch.data.loaders import load_cora, load_pubmed
 from graphsage_torch.models.graphsage import Frontier, GraphSAGE
 from graphsage_torch.serve import ServingEngine
 from graphsage_torch.train.config import ExperimentConfig, ModelConfig, PRESETS, TrainConfig
-from graphsage_torch.train.experiments import run_preset
+from graphsage_torch.train.experiments import run_cora, run_preset, run_pubmed
+from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
 from graphsage_torch.convert import params_from_numpy
 
@@ -33,6 +41,12 @@ __all__ = [
     "resolve_device",
     "Graph",
     "build_graph",
+    "quantize_graph",
+    "with_cached_layer0",
+    "disjoint_union",
+    "QuantizedTable",
+    "quantize_features",
+    "dequantize",
     "load_cora",
     "load_pubmed",
     "Frontier",
@@ -43,6 +57,9 @@ __all__ = [
     "TrainConfig",
     "PRESETS",
     "Trainer",
+    "FullGraphTrainer",
+    "run_cora",
+    "run_pubmed",
     "run_preset",
     "params_from_numpy",
     "__version__",

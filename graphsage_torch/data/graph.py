@@ -15,7 +15,8 @@ every array is identical from the same edges:
 
 :func:`with_cached_layer0` attaches the precomputed full-neighborhood feature
 means behind ``GraphSAGE(layer0="cached")``; :func:`quantize_graph` swaps the
-feature table for an int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable`.
+feature table for an int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable`;
+:func:`disjoint_union` puts several graphs side by side in one.
 
 Indices are int32 throughout, as in the JAX ``Graph``.
 """
@@ -32,6 +33,7 @@ import torch
 from graphsage_torch._device import resolve_device
 from graphsage_torch.ops.quantize import (
     QuantizedTable,
+    dense_host_view,
     dequantize,
     is_quantized,
     quantize_features,
@@ -55,7 +57,7 @@ class Graph:
     edge_src: torch.Tensor  # int32 [num_edges_pad] (COO row per edge)
     edge_mask: torch.Tensor  # bool  [num_edges_pad] (False on padding)
     features: torch.Tensor | QuantizedTable  # float or int8 [num_nodes, num_features]
-    labels: torch.Tensor  # int32 [num_nodes]
+    labels: torch.Tensor  # int32 [num_nodes], or int8 multi-hot [num_nodes, C]
 
     num_nodes: int
     num_features: int
@@ -229,17 +231,25 @@ def build_graph(
 
     ``max_degree`` hard-truncates the graph in both views; ``ell_width_cap``
     bounds only the ELL table's width (rows longer than the cap keep their
-    full neighbor lists in CSR).
+    full neighbor lists in CSR). ``labels`` are class ids ``[N]`` or
+    multi-hot rows ``[N, C]`` (kept 2-D as int8; ``num_classes`` must then
+    equal ``C``).
     """
     dev = resolve_device(device)
     features = np.asarray(features)
     labels = np.asarray(labels)
     if labels.ndim == 2 and labels.shape[1] > 1:
-        raise NotImplementedError(
-            "multi-hot labels come with the multilabel head (ROADMAP Queue 1 "
-            "item 10)"
-        )
-    labels = labels.reshape(-1).astype(np.int32)
+        # Multi-hot [N, C] rows (multilabel / PPI family): kept 2-D, int8.
+        labels = (labels != 0).astype(np.int8)
+        if num_classes is None:
+            num_classes = labels.shape[1]
+        elif num_classes != labels.shape[1]:
+            raise ValueError(
+                f"num_classes ({num_classes}) != multi-hot label width "
+                f"({labels.shape[1]})"
+            )
+    else:
+        labels = labels.reshape(-1).astype(np.int32)
     num_nodes, num_features = features.shape
     if labels.shape[0] != num_nodes:
         raise ValueError(f"labels ({labels.shape[0]}) != num_nodes ({num_nodes})")
@@ -309,3 +319,46 @@ def build_graph(
         # Per-row truncation drops (u,v) without dropping (v,u).
         symmetric=bool(undirected and max_degree is None),
     )
+
+
+def disjoint_union(graphs: Sequence[Graph], device=None, **build_kwargs) -> Graph:
+    """One :class:`Graph` holding every input graph side by side, node ids
+    offset so that no edge crosses inputs: the multigraph-training
+    primitive of the inductive (PPI-style) protocol. Train one model over
+    the union (message passing never leaks across components), then
+    evaluate it on each held-out graph.
+
+    All inputs must agree on feature width, label layout and
+    ``num_classes``. The inputs' arrays are taken to the host and rebuilt
+    with :func:`build_graph` (``build_kwargs`` forward to it; an int8 table
+    is dequantized); the union lies on the first input's device unless
+    ``device`` says otherwise. A union of symmetric graphs is symmetric.
+    """
+    if not graphs:
+        raise ValueError("disjoint_union of no graphs")
+    g0 = graphs[0]
+    for g in graphs:
+        if g.num_features != g0.num_features:
+            raise ValueError("feature widths differ across graphs")
+        if g.num_classes != g0.num_classes:
+            raise ValueError("num_classes differs across graphs")
+        if g.labels.dim() != g0.labels.dim():
+            raise ValueError("label layouts differ across graphs")
+    feats = np.concatenate([dense_host_view(g.features) for g in graphs])
+    labels = np.concatenate([g.labels.cpu().numpy() for g in graphs])
+    parts, offset = [], 0
+    for g in graphs:
+        e = g.num_edges
+        src = g.edge_src[:e].cpu().numpy().astype(np.int64) + offset
+        dst = g.edge_dst[:e].cpu().numpy().astype(np.int64) + offset
+        parts.append(np.stack([src, dst], axis=1))
+        offset += g.num_nodes
+    # The inputs' edge lists are already mirrored where symmetric, so build
+    # directed; the offsets move both directions of an edge together, so a
+    # union of symmetric graphs is symmetric again.
+    build_kwargs.setdefault("undirected", False)
+    union = build_graph(feats, labels, np.concatenate(parts), num_classes=g0.num_classes,
+                        device=g0.device if device is None else device, **build_kwargs)
+    if all(g.symmetric for g in graphs) and build_kwargs.get("max_degree") is None:
+        union = dataclasses.replace(union, symmetric=True)
+    return union

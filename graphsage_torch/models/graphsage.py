@@ -2,12 +2,14 @@
 counterpart of ``graphsage_tpu/models/graphsage.py``.
 
   1. ``sample``  — build hop frontiers seeds -> hop1 -> ... -> hopL with the
-     fixed-fanout sampler. Frontiers are flat ``[B * prod(k)]`` tensors; no
+     fixed-fanout sampler (``sampling``: ``"floyd"``, ``"topk"`` or
+     ``"windowed"``). Frontiers are flat ``[B * prod(k)]`` tensors; no
      deduplication.
   2. ``forward`` — layer 0, then the upper layers fold inward: reshape to
      ``[parents, k, d]``, aggregate, project, ReLU.
   3. a linear classification head; ``loss`` is its mean softmax
-     cross-entropy, the training objective.
+     cross-entropy, the training objective (with ``multilabel``, the mean
+     sigmoid BCE over multi-hot labels).
 
 Layer 0 runs in one of three modes (``layer0``):
 
@@ -71,6 +73,7 @@ from graphsage_torch.ops.quantize import (
     is_quantized,
     project_table,
 )
+from graphsage_torch.ops.sampling import METHODS as SAMPLING_METHODS
 from graphsage_torch.ops.sampling import sample_neighbors
 
 
@@ -92,11 +95,6 @@ class Frontier(NamedTuple):
         )
 
 
-# What the port does not run yet, and the ROADMAP Queue 1 item that brings it.
-_NOT_PORTED = {
-    "sampling": ("floyd", 9),
-    "multilabel": (False, 10),
-}
 LAYER0_MODES = ("sampled", "full", "cached")
 # ModelConfig.compute_dtype names.
 COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
@@ -163,13 +161,8 @@ class GraphSAGE(nn.Module):
                 isinstance(compute_dtype, torch.dtype) and compute_dtype.is_floating_point):
             raise ValueError(f"compute_dtype must be a floating torch dtype, got "
                              f"{compute_dtype!r}")
-        given = {"sampling": sampling, "multilabel": multilabel}
-        for name, (supported, item) in _NOT_PORTED.items():
-            if given[name] != supported:
-                raise NotImplementedError(
-                    f"{name}={given[name]!r} is not ported yet (ROADMAP Queue 1 "
-                    f"item {item}); the port runs {name}={supported!r}"
-                )
+        if sampling not in SAMPLING_METHODS:
+            raise ValueError(f"unknown sampling method {sampling!r}")
         dev = resolve_device(device)
         self.in_dim = in_dim
         self.num_classes = num_classes
@@ -180,6 +173,8 @@ class GraphSAGE(nn.Module):
         self.self_loop = self_loop
         self.pool_dim = pool_dim
         self.layer0 = layer0
+        self.sampling = sampling
+        self.multilabel = multilabel
         self.compute_dtype = compute_dtype
         self.gather_impl = gather_impl
         self.spmm_impl = spmm_impl
@@ -274,7 +269,7 @@ class GraphSAGE(nn.Module):
             parent_ids, parent_mask = ids[-1], masks[-1]
             nids, nmask = sample_neighbors(
                 generator, graph.neighbors, graph.degrees, parent_ids,
-                fanouts[L - h],
+                fanouts[L - h], method=self.sampling,
                 indptr=graph.indptr, edge_dst=graph.edge_dst,
                 ell_covers_all=graph.ell_covers_all,
             )
@@ -487,25 +482,48 @@ class GraphSAGE(nn.Module):
         *, graph: Graph | None = None,
     ) -> torch.Tensor:
         """Mean softmax cross-entropy of the frontier's seeds against their
-        integer ``labels`` (reference model.py:35-37)."""
+        integer ``labels`` (reference model.py:35-37), or mean sigmoid BCE
+        over multi-hot labels under ``multilabel=True``."""
         return self.classification_loss(
             self(features, frontier, graph=graph), labels).mean()
 
     def classification_loss(
         self, logits: torch.Tensor, labels: torch.Tensor
     ) -> torch.Tensor:
-        """Per-example softmax cross-entropy ``[B]`` on integer labels."""
+        """Per-example loss ``[B]``, the one head objective every trainer
+        uses: softmax cross-entropy on integer labels, or under
+        ``multilabel`` the mean over classes of sigmoid BCE on multi-hot
+        ``[B, C]`` labels (the GraphSAGE paper's PPI objective; optax's
+        ``sigmoid_binary_cross_entropy``)."""
+        if self.multilabel:
+            if labels.dim() != 2:
+                raise ValueError(
+                    f"multilabel=True needs multi-hot [B, C] labels, got "
+                    f"shape {tuple(labels.shape)} — build the graph with 2-D labels"
+                )
+            return F.binary_cross_entropy_with_logits(
+                logits, labels.to(logits.dtype), reduction="none").mean(dim=-1)
         return F.cross_entropy(logits, labels.reshape(-1).long(), reduction="none")
 
     # --------------------------------------------------------- full graph
     def forward_full_graph(
-        self, graph: Graph, return_embeddings: bool = False
+        self, graph: Graph, return_embeddings: bool = False, spmm_override=None,
     ) -> torch.Tensor:
         """Deterministic logits for every node, using complete neighborhoods
         (the reference with ``num_sample=None``, quirk Q7). The LSTM reads
         each node's ELL row in adjacency order (the parent first with
         ``self_loop``), the order covering-fanout sampling gives, so it needs
-        an ELL table that covers every neighbor."""
+        an ELL table that covers every neighbor.
+
+        ``spmm_override`` (``x -> (neighbor mean, valid count)``) replaces
+        the mean aggregator's SpMM, as the full-graph trainer's bucketed
+        pass does; maxpool ignores it and lstm rejects it."""
+        if self.aggregator == "lstm" and spmm_override is not None:
+            raise ValueError(
+                "the edge-partitioned/halo full-graph paths support mean and "
+                "maxpool only — an LSTM over neighbor sequences is not a "
+                "per-edge segment reduction"
+            )
         if self.aggregator == "lstm" and not graph.ell_covers_all:
             raise ValueError(
                 "full-graph forward with aggregator='lstm' needs the ELL table "
@@ -517,10 +535,11 @@ class GraphSAGE(nn.Module):
             h = dequantize(h, self.compute_dtype or torch.float32)
         if self.compute_dtype is not None:
             h = h.to(self.compute_dtype)
+        spmm = self._spmm(graph) if spmm_override is None else spmm_override
         for l, layer in enumerate(self.layers):
             if self.aggregator == "mean":
                 h = apply_full_graph_mean_layer(
-                    layer, h, self._spmm(graph),
+                    layer, h, spmm,
                     self_loop=self.self_loop,
                     project_first=self.use_project_first(l, h.shape[-1]),
                 )
@@ -549,7 +568,12 @@ class GraphSAGE(nn.Module):
         return self.forward_full_graph(graph, return_embeddings=True)
 
     def predictions(self, logits) -> np.ndarray:
-        """Host-side class decisions from logits (argmax)."""
+        """Host-side class decisions from logits: argmax (single-label,
+        reference model.py:105) or per-class ``logit > 0`` multi-hot int8
+        rows (``multilabel``: the sigmoid's 0.5 threshold)."""
         if isinstance(logits, torch.Tensor):
             logits = logits.detach().cpu().numpy()
-        return np.asarray(logits).argmax(axis=-1)
+        logits = np.asarray(logits)
+        if self.multilabel:
+            return (logits > 0).astype(np.int8)
+        return logits.argmax(axis=-1)

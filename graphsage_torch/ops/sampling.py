@@ -1,5 +1,5 @@
 """Vectorized fixed-fanout neighbor sampling: the counterpart of
-``graphsage_tpu/ops/sampling.py`` (its ``"floyd"`` method).
+``graphsage_tpu/ops/sampling.py``.
 
 Semantics are pinned to the reference's (quirk Q8):
 
@@ -9,6 +9,11 @@ Semantics are pinned to the reference's (quirk Q8):
 * ``fanout=None`` returns the full (padded) row — the deterministic path
   (quirk Q7);
 * zero-degree nodes yield a fully-masked row (guarded downstream, quirk Q4).
+
+Three methods (``method``): ``"floyd"`` (default) and ``"topk"`` draw exact
+uniform k-subsets; ``"windowed"`` draws within one 128-slot window of the
+CSR edge list per parent (:func:`_windowed_sample`), which keeps the masked
+mean unbiased and the marginals uniform but correlates the draws.
 
 Random numbers come from a ``torch.Generator`` on the tensors' device. Its
 stream differs from ``jax.random``'s, so tests hold sampled paths to the JAX
@@ -72,6 +77,54 @@ def _floyd_slots(
     return slots, mask
 
 
+# The windowed sampler's window: 128 consecutive positions of ``edge_dst``,
+# aligned to position 0 of the edge list (not to a row's start), as in the
+# JAX package, whose graphs pad ``edge_dst`` the same way.
+WINDOW = 128
+
+
+def _windowed_sample(
+    generator: torch.Generator,
+    degrees: torch.Tensor,
+    indptr: torch.Tensor,
+    edge_dst: torch.Tensor,
+    nodes: torch.Tensor,
+    fanout: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sample within one window of the parent's CSR row.
+
+    Draw ``u ~ U[0, d)`` per parent; the window is the ``WINDOW``-aligned
+    block of ``edge_dst`` positions holding ``indptr[v] + u``, clipped to
+    the row on both ends (so a window is chosen with probability
+    proportional to how many of the parent's neighbors it holds); then
+    Floyd-sample up to ``fanout`` slots without replacement inside it. The
+    masked mean stays unbiased for any partition into windows, and each
+    neighbor's marginal is ``min(fanout, |w|) / d``; the draws of one parent
+    share a window. The valid count is ``min(fanout, |window|)``; zero-degree
+    parents come back fully masked.
+
+    The JAX package fetches one 128-lane row of ``edge_dst`` per parent and
+    selects lanes by compare-and-reduce, a workaround for TPU gathers; here
+    ``edge_dst[lo + slot]`` reads the same ids.
+    """
+    d = degrees[nodes].to(torch.int32)
+    base = indptr[nodes].to(torch.int32)
+    u = torch.rand(d.shape, generator=generator, device=d.device)
+    u = torch.minimum((u * d.to(torch.float32)).to(torch.int32),
+                      (d - 1).clamp(min=0))
+    r = (base + u) // WINDOW
+    lo = torch.maximum(r * WINDOW, base)
+    hi = torch.minimum(r * WINDOW + WINDOW, base + d)
+    slots, mask = _floyd_slots(generator, (hi - lo).clamp(min=0), fanout)
+    mask = mask & (d > 0)[..., None]
+    # Masked slots may point past the edge list; their ids are never read.
+    flat = (lo[..., None].long() + slots).clamp_(max=edge_dst.shape[0] - 1)
+    return edge_dst[flat], mask
+
+
+METHODS = ("floyd", "topk", "windowed")
+
+
 def sample_neighbors(
     generator: torch.Generator,
     neighbors: torch.Tensor,
@@ -91,8 +144,11 @@ def sample_neighbors(
       degrees: true row lengths ``[N]``.
       nodes: node ids of any shape ``[...]``.
       fanout: neighbors to draw per node; ``None`` = all (deterministic).
-      method: ``"floyd"`` (the only method ported so far).
-      indptr/edge_dst: CSR view; required when ``ell_covers_all=False``.
+      method: ``"floyd"`` (default), ``"topk"`` (the same semantics from one
+        uniform key per ELL slot; ELL-only) or ``"windowed"`` (see
+        :func:`_windowed_sample`; needs the CSR view).
+      indptr/edge_dst: CSR view; required when ``ell_covers_all=False`` and
+        for ``"windowed"``.
       ell_covers_all: False when hub rows overflow the ELL width — sampling
         then resolves slots through CSR (``edge_dst[indptr[v] + slot]``),
         staying uniform over the full neighbor set at any degree.
@@ -108,19 +164,25 @@ def sample_neighbors(
                 "below the max degree — use the CSR full-graph forward instead"
             )
         return full_neighbors(neighbors, degrees, nodes)
-    if method in ("topk", "windowed"):
-        raise NotImplementedError(
-            f"sampling method {method!r} comes with ROADMAP Queue 1 item 9"
-        )
-    if method != "floyd":
+    if method not in METHODS:
         raise ValueError(f"unknown sampling method {method!r}")
 
     nodes = nodes.long()
+    if method == "windowed":
+        if indptr is None or edge_dst is None:
+            raise ValueError("windowed sampling requires indptr and edge_dst")
+        return _windowed_sample(generator, degrees, indptr, edge_dst, nodes, fanout)
+
     max_deg = neighbors.shape[-1]
 
     if not ell_covers_all:
         if indptr is None or edge_dst is None:
             raise ValueError("capped ELL sampling requires indptr and edge_dst")
+        if method != "floyd":
+            raise ValueError(
+                f"method={method!r} is ELL-only; capped graphs sample via CSR "
+                "(floyd)"
+            )
         slots, mask = _floyd_slots(generator, degrees[nodes], fanout)
         flat = indptr[nodes][..., None].long() + slots
         # Masked slots of the last rows may point past the edge list; their
@@ -137,6 +199,15 @@ def sample_neighbors(
         mask = torch.cat([valid, valid.new_zeros((*valid.shape[:-1], pad))], dim=-1)
         return ids, mask
 
+    rows = neighbors[nodes]
+    if method == "topk":
+        # One uniform key per valid slot, padding at -1: the top ``fanout``
+        # keys are a uniform ``fanout``-subset of the valid slots. Ties order
+        # differently from JAX's ``lax.top_k``; only the distribution is
+        # shared.
+        keys = torch.rand(rows.shape, generator=generator, device=rows.device)
+        scored = torch.where(_slot_validity(degrees[nodes], max_deg), keys, -1.0)
+        top_vals, top_slots = torch.topk(scored, fanout, dim=-1)
+        return torch.gather(rows, -1, top_slots), top_vals >= 0.0
     slots, mask = _floyd_slots(generator, degrees[nodes], fanout)
-    ids = torch.gather(neighbors[nodes], -1, slots.long())
-    return ids, mask
+    return torch.gather(rows, -1, slots.long()), mask

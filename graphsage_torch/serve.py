@@ -154,7 +154,8 @@ class ServingEngine:
         return logits[:n].cpu().numpy()
 
     def predict(self, nodes) -> np.ndarray:
-        """``[B]`` class predictions (argmax)."""
+        """``[B]`` class predictions (argmax), or ``[B, C]`` multi-hot rows
+        under ``model.multilabel``."""
         _, logits, n = self._logits(nodes)
         return self.model.predictions(logits[:n])
 

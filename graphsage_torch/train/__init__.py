@@ -1,5 +1,6 @@
 from graphsage_torch.train.config import ExperimentConfig, ModelConfig, TrainConfig, PRESETS
 from graphsage_torch.train.trainer import Trainer, make_optimizer, reference_splits
+from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.experiments import run_cora, run_preset, run_pubmed
 
 __all__ = [
@@ -8,6 +9,7 @@ __all__ = [
     "TrainConfig",
     "PRESETS",
     "Trainer",
+    "FullGraphTrainer",
     "make_optimizer",
     "reference_splits",
     "run_preset",

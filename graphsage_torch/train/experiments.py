@@ -1,5 +1,6 @@
 """Reference-compatible experiment drivers: the counterpart of
-``graphsage_tpu/train/experiments.py`` for sampled supervised training.
+``graphsage_tpu/train/experiments.py`` for supervised training, sampled or
+full-graph.
 
 ``run_cora()`` / ``run_pubmed()`` reproduce the observable surface of the
 reference's entry points (reference graphsage/model.py:65-106, 137-178):
@@ -22,11 +23,12 @@ from graphsage_torch.data.loaders import load_cora, load_pubmed
 from graphsage_torch.data.synthetic import power_law_graph
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.train.config import PRESETS, ExperimentConfig
+from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
 
 # Training modes of the JAX package that the port does not run yet, and the
 # ROADMAP Queue 1 item that brings each.
-_NOT_PORTED_MODES = {"full-graph": 10, "sharded": 14, "fully-sharded": 14}
+_NOT_PORTED_MODES = {"sharded": 14, "fully-sharded": 14}
 
 
 # The synthetic power-law datasets: JAX's sizes (its train/experiments.py),
@@ -91,18 +93,21 @@ def run_preset(
     mode: str = "sampled",
     device=None,
 ) -> dict[str, Any]:
-    """Train one of the presets end to end (``mode="sampled"``, minibatch
-    neighbor sampling, the reference's scheme): load its dataset, build its
-    model and trainer, run. The result holds the losses, step times,
-    validation F1 and the ``trainer`` (with the trained model).
+    """Train one of the presets end to end: load its dataset, build its
+    model and trainer, run. ``mode="sampled"`` trains on minibatches with
+    neighbor sampling (the reference's scheme), ``mode="full-graph"``
+    full-batch over complete neighborhoods (:class:`FullGraphTrainer`, the
+    model built with every fanout ``None``). The result holds the losses,
+    step times, validation F1 and the ``trainer`` (with the trained model).
     ``quantize_features`` in the preset (or the overrides) quantizes the
     loaded graph's feature table to int8 first."""
     if mode in _NOT_PORTED_MODES:
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet (ROADMAP Queue 1 item "
-            f"{_NOT_PORTED_MODES[mode]}); the port trains mode='sampled'"
+            f"{_NOT_PORTED_MODES[mode]}); the port trains mode='sampled' and "
+            "'full-graph'"
         )
-    if mode != "sampled":
+    if mode not in ("sampled", "full-graph"):
         raise ValueError(f"unknown mode {mode!r}")
     config = preset_config(name, overrides)
     graph = load_dataset(config.dataset, data_root, device)
@@ -110,7 +115,13 @@ def run_preset(
         graph = quantize_graph(graph)
         if log:
             log(f"feature table quantized to int8: {graph.features.nbytes} B resident")
-    trainer = Trainer(build_model(config, graph), graph, config.train)
+    if mode == "full-graph":
+        fanouts = tuple(None for _ in config.model.fanouts)
+        config = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, fanouts=fanouts))
+        trainer = FullGraphTrainer(build_model(config, graph), graph, config.train)
+    else:
+        trainer = Trainer(build_model(config, graph), graph, config.train)
     result = trainer.run(log=log)
     result["trainer"] = trainer
     return result
@@ -136,7 +147,6 @@ _NOT_PORTED_FLAGS = {
     "eval_only": 12,
     "log_jsonl": 12,
     "diagnostics_dir": 12,
-    "sampling": 9,
     "hub_cache_rows": 14,
     "debug_nans": "the port has no NaN-checking mode yet",
     "compilation_cache": "the port compiles no XLA programs",
@@ -169,6 +179,12 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--quiet", action="store_true", help="suppress per-step loss")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (cuda or cpu)")
+    parser.add_argument("--sampling", choices=("floyd", "topk", "windowed"),
+                        default=None,
+                        help="neighbor sampler: floyd (exact uniform, "
+                        "default) | topk (the same, by key sort) | windowed "
+                        "(one 128-slot CSR window per parent, unbiased-mean "
+                        "semantics)")
     parser.add_argument("--layer0", choices=("sampled", "full", "cached"),
                         default=None,
                         help="layer-0 formulation: sampled (the reference's "
@@ -195,7 +211,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     for flag, field in (("steps", "num_steps"), ("batch_size", "batch_size"),
                         ("lr", "learning_rate"), ("seed", "seed"),
                         ("batching", "batching"), ("test_size", "test_size"),
-                        ("val_size", "val_size"), ("layer0", "layer0")):
+                        ("val_size", "val_size"), ("layer0", "layer0"),
+                        ("sampling", "sampling")):
         if getattr(args, flag) is not None:
             overrides[field] = getattr(args, flag)
     if args.quantize_features:

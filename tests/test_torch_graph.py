@@ -149,10 +149,78 @@ def test_graph_to_moves_every_tensor():
     assert moved.num_edges == tg.num_edges and "device=cpu" in repr(moved)
 
 
-def test_multihot_labels_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        graph.build_graph(np.zeros((4, 2), np.float32), np.eye(4, 3), [[0, 1]],
-                          device="cpu")
+def test_multihot_labels_identical_to_jax():
+    """Multi-hot ``[N, C]`` labels stay 2-D as int8 (any non-zero is 1), and
+    ``num_classes`` defaults to their width."""
+    labels = (np.random.default_rng(3).random((30, 5)) < 0.3) * 2
+    feats = np.ones((30, 4), np.float32)
+    edges = CASES["directed"][1] % 30
+    jg = jax_graph.build_graph(feats, labels, edges)
+    tg = graph.build_graph(feats, labels, edges, device="cpu")
+    assert_same_graph(jg, tg)
+    assert tg.labels.dtype == torch.int8 and tg.labels.shape == (30, 5)
+    assert tg.num_classes == 5 and set(np.unique(tg.labels.numpy())) <= {0, 1}
+
+
+def test_multihot_label_width_must_match_num_classes():
+    with pytest.raises(ValueError, match="multi-hot"):
+        graph.build_graph(np.zeros((10, 4), np.float32), np.zeros((10, 3), np.int8),
+                          [(0, 1)], num_classes=5, device="cpu")
+
+
+def test_synthetic_ppi_graphs_identical_to_jax():
+    kw = dict(num_graphs=3, num_nodes=150, num_feats=20, num_classes=12,
+              edges_per_node=5, seed=4)
+    jgs = jax_synthetic.synthetic_ppi_graphs(**kw)
+    tgs = synthetic.synthetic_ppi_graphs(device="cpu", **kw)
+    assert len(tgs) == 3
+    for jg, tg in zip(jgs, tgs):
+        assert_same_graph(jg, tg)
+        assert tg.labels.shape == (150, 12)
+
+
+def _ppi_pair(**kw):
+    kw = dict(num_graphs=3, num_nodes=60, num_feats=8, num_classes=6, seed=1, **kw)
+    return (jax_synthetic.synthetic_ppi_graphs(**kw),
+            synthetic.synthetic_ppi_graphs(device="cpu", **kw))
+
+
+@pytest.mark.parametrize("case", ["multi-hot", "single-label directed"])
+def test_disjoint_union_identical_to_jax(case):
+    if case == "multi-hot":
+        jgs, tgs = _ppi_pair()
+    else:  # class-id labels on directed graphs: the union is not symmetric
+        jgs, tgs = [], []
+        for n in (20, 25):
+            feats = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
+            labels, edges = np.arange(n) % 3, _RNG.integers(0, n, (40, 2))
+            jgs.append(jax_graph.build_graph(feats, labels, edges, num_classes=3,
+                                             undirected=False))
+            tgs.append(graph.build_graph(feats, labels, edges, num_classes=3,
+                                         undirected=False, device="cpu"))
+    ju, tu = jax_graph.disjoint_union(jgs), graph.disjoint_union(tgs)
+    assert_same_graph(ju, tu)
+    assert tu.symmetric == (case == "multi-hot")
+    assert tu.num_nodes == sum(g.num_nodes for g in tgs)
+    assert tu.num_edges == sum(g.num_edges for g in tgs)
+    # No edge crosses components.
+    comp = np.repeat(np.arange(len(tgs)), [g.num_nodes for g in tgs])
+    src, dst = tu.edge_src[:tu.num_edges].numpy(), tu.edge_dst[:tu.num_edges].numpy()
+    assert (comp[src] == comp[dst]).all()
+
+
+def test_disjoint_union_rejects_mixed_inputs():
+    _, tgs = _ppi_pair()
+    single = graph.build_graph(np.zeros((8, 8), np.float32), np.zeros(8, np.int64),
+                               [(0, 1), (2, 3)], num_classes=6, device="cpu")
+    with pytest.raises(ValueError, match="label layouts"):
+        graph.disjoint_union([tgs[0], single])
+    narrow = graph.build_graph(np.zeros((8, 4), np.float32), np.zeros(8, np.int64),
+                               [(0, 1)], num_classes=6, device="cpu")
+    with pytest.raises(ValueError, match="feature widths"):
+        graph.disjoint_union([single, narrow])
+    with pytest.raises(ValueError, match="no graphs"):
+        graph.disjoint_union([])
 
 
 def test_data_entry_points_default_to_cuda(monkeypatch, synth_cora_root,
@@ -166,6 +234,7 @@ def test_data_entry_points_default_to_cuda(monkeypatch, synth_cora_root,
         lambda: loaders.load_pubmed(synth_pubmed_root),
         lambda: synthetic.synthetic_cora_graph(num_nodes=40, num_feats=40, num_edges=60),
         lambda: synthetic.power_law_graph(num_nodes=40, num_edges=80),
+        lambda: synthetic.synthetic_ppi_graphs(num_graphs=1, num_nodes=30),
         lambda: graph.build_graph(np.zeros((3, 2), np.float32), np.zeros(3),
                                   [[0, 1]], device="cpu").to("cuda"),
     ]

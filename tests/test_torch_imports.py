@@ -77,3 +77,42 @@ def test_chip_smoke_fails_alone(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert OK_LINE not in res.stdout
+
+
+def _jax_top_level_names() -> list[str]:
+    """``graphsage_tpu/__init__.py``'s ``__all__``, read without importing
+    the package (and so JAX)."""
+    tree = ast.parse((REPO / "graphsage_tpu" / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError("graphsage_tpu/__init__.py has no __all__")
+
+
+def _port_defined_names() -> set[str]:
+    """Every top-level function, class or assigned name in the port's
+    modules."""
+    names = set()
+    for path in (REPO / "graphsage_torch").rglob("*.py"):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.Assign):
+                names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return names
+
+
+def test_top_level_exports_every_ported_name_of_the_jax_package():
+    import graphsage_torch
+
+    jax_names = _jax_top_level_names()
+    ported = [n for n in jax_names if n in _port_defined_names()]
+    # The names this slice and the earlier ones brought (a floor, so that
+    # the check cannot pass by finding nothing).
+    assert {"with_cached_layer0", "run_cora", "run_pubmed", "quantize_graph",
+            "QuantizedTable", "quantize_features", "dequantize", "FullGraphTrainer",
+            "disjoint_union", "Trainer", "GraphSAGE"} <= set(ported)
+    missing = [n for n in ported if not hasattr(graphsage_torch, n)]
+    assert not missing, missing
+    assert set(ported) <= set(graphsage_torch.__all__)

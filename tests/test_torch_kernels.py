@@ -652,3 +652,35 @@ def test_bf16_model_step_on_the_card(cuda):
     for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
         scale = float(q.grad.abs().max())
         assert scale > 0 and float((p.grad.cpu() - q.grad).abs().max()) <= 2e-2 * scale, name
+
+
+@pytest.mark.parametrize("spmm_impl", ["auto", "bucketed_ell"])
+def test_full_graph_step_on_the_card(cuda, spmm_impl):
+    """One ``FullGraphTrainer`` step: with ``"auto"`` kernel 3 launches once
+    per layer in the forward and once per layer that needs a gradient in the
+    backward (two layers, the first projecting first: 2 + 2), with
+    ``"bucketed_ell"`` never; loss and gradients equal the CPU's."""
+    import copy
+
+    from graphsage_torch import FullGraphTrainer, GraphSAGE, TrainConfig
+    from graphsage_torch.data.synthetic import power_law_graph
+
+    g = power_law_graph(2000, 12000, num_feats=64, num_classes=5, homophily=0.8,
+                        device=cuda)
+    model = GraphSAGE(64, 5, (32, 32), (None, None), spmm_impl=spmm_impl, device=cuda)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cfg = TrainConfig(num_steps=1, test_size=200, val_size=100, log_every=0)
+    before = sp.launches
+    tr = FullGraphTrainer(model, g, cfg)
+    loss = tr._loss()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert sp.launches - before == (4 if spmm_impl == "auto" else 0)
+    cpu_tr = FullGraphTrainer(cpu_model, g.to("cpu"), cfg)
+    cpu_loss = cpu_tr._loss()
+    cpu_loss.backward()
+    loss, cpu_loss = float(loss.detach()), float(cpu_loss.detach())
+    assert abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        scale = float(q.grad.abs().max())
+        assert scale > 0 and float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, name

@@ -124,14 +124,36 @@ def test_sample_shapes_and_masks(graphs):
     assert not children[~parents].any()
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("multilabel", True, 10),
-    ("sampling", "topk", 9),
-    ("sampling", "windowed", 9),
-])
-def test_not_ported_options_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        GraphSAGE(8, 2, (4, 4), (2, 2), device="cpu", **{field: value})
+@pytest.mark.parametrize("sampling", ["floyd", "topk", "windowed"])
+def test_sample_uses_the_sampling_method(graphs, sampling, monkeypatch):
+    """``sampling`` reaches every hop's sampler call."""
+    import graphsage_torch.models.graphsage as model_module
+    _, tg = graphs
+    seen = []
+    real = model_module.sample_neighbors
+
+    def spy(*args, method="floyd", **kw):
+        seen.append(method)
+        return real(*args, method=method, **kw)
+
+    monkeypatch.setattr(model_module, "sample_neighbors", spy)
+    tm = GraphSAGE(tg.num_features, tg.num_classes, (4, 4), (2, 3), sampling=sampling,
+                   device="cpu")
+    fr = tm.sample(torch.Generator().manual_seed(0), tg, torch.arange(6, dtype=torch.int32))
+    assert seen == [sampling, sampling] and fr.ids[2].numel() == 6 * 3 * 2
+
+
+def test_unknown_sampling_method_raises():
+    with pytest.raises(ValueError, match="unknown sampling method"):
+        GraphSAGE(8, 2, (4, 4), (2, 2), sampling="reservoir", device="cpu")
+
+
+def test_from_config_carries_sampling_and_multilabel_is_a_head_option():
+    from graphsage_torch.train.config import ModelConfig
+    m = GraphSAGE.from_config(ModelConfig(hidden_dims=(4,), fanouts=(2,), sampling="topk"),
+                              8, 3, device="cpu")
+    assert (m.sampling, m.multilabel) == ("topk", False)
+    assert GraphSAGE(8, 3, (4,), (2,), multilabel=True, device="cpu").multilabel
 
 
 def test_compute_dtype():

@@ -251,13 +251,28 @@ def test_run_cora_quiet(synth_cora_root, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--checkpoint", "ckpt"], "Queue 1 item 12"),
-    (["--sampling", "windowed"], "Queue 1 item 9"),
+    (["--resume", "ckpt"], "Queue 1 item 12"),
     (["--debug-nans"], "not ported"),
-    (["--mode", "full-graph"], "Queue 1 item 10"),
+    (["--mode", "sharded"], "Queue 1 item 14"),
 ])
-def test_cli_rejects_what_is_not_ported(argv, match):
+def test_cli_rejects_what_is_not_ported(argv, match, synth_cora_root):
     with pytest.raises(NotImplementedError, match=match):
-        main(["--device", "cpu", *argv])
+        main(["--device", "cpu", "--data-root", str(synth_cora_root), *argv])
+
+
+@pytest.mark.parametrize("sampling", ["topk", "windowed"])
+def test_cli_sampling_flag(synth_cora_root, capsys, sampling, monkeypatch):
+    """``--sampling`` sets the model's sampler and trains."""
+    import graphsage_torch.train.experiments as experiments
+    built = []
+    real = experiments.build_model
+    monkeypatch.setattr(experiments, "build_model",
+                        lambda cfg, g: built.append(real(cfg, g)) or built[-1])
+    main(["--preset", "cora", "--data-root", str(synth_cora_root), "--device", "cpu",
+          "--steps", "2", "--sampling", sampling, "--test-size", "100", "--val-size", "80"])
+    assert built[0].sampling == sampling
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[2].startswith("Validation F1: ")
 
 
 # Each preset cut to a few steps and small batches on the small synthetic

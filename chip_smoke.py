@@ -120,7 +120,24 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    of 20, sampled and full-batch, each over the bars of
    ``tests/test_multilabel.py`` on the 4 held out; one held-out graph
    served through the table tier with the trainer's multi-hot predictions.
-12. a ``{"kernels": [...]}`` line, then the last line
+12. unsupervised training, checkpoints, inductive serving: ``run_preset`` of
+   ``cora_unsup`` at full width (150 steps of 3072 group seeds: kernels 1
+   and 2 once per step, kernel 3 once per layer in the probe's evaluation)
+   against the bars of ``tests/test_unsupervised.py`` (the last 10 losses'
+   mean below the first 10's minus 0.3, mean embedding norm above 0.05,
+   edge endpoints' cosine above random pairs' + 0.2, probe micro-F1 above
+   1 / C + 0.2, the head bitwise unchanged), with host and device ms per
+   step, the idle share and one probe's host ms; ``utils/memory`` on the
+   card (the live total at least the graph's bytes, the largest block at
+   least its table's); card against CPU gradients of the graph-context loss
+   (an isolated seed among the groups; the head has none); kernels 1 and 2
+   timed at ``cora_unsup``'s frontier; ``cora`` 100 steps straight (a
+   snapshot every 25) against 50, a checkpoint and 50 resumed (losses and
+   parameters within ``RESUME_RTOL``), the CLI's ``--eval-only`` giving the
+   trained run's validation F1; the ``cora`` model trained on the subgraph
+   induced by the first 70% of the heavy-tailed stand-in and served on the
+   full graph's other 30% (table tier), micro-F1 above 1 / C + 0.55.
+13. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,8 +146,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -151,7 +170,9 @@ from graphsage_torch import (
     GraphSAGE,
     ServingEngine,
     TrainConfig,
+    build_graph,
     disjoint_union,
+    induced_subgraph,
     load_cora,
     run_preset,
 )
@@ -169,8 +190,13 @@ from graphsage_torch.ops.aggregate import gather
 from graphsage_torch.ops.bucketed_spmm import _Pass as BucketedPass
 from graphsage_torch.ops.bucketed_spmm import plan_bucketed_spmm
 from graphsage_torch.ops.sampling import sample_neighbors
+from graphsage_torch.models.unsupervised import context_groups, frontier_loss
+from graphsage_torch.ops.walks import negative_cdf
 from graphsage_torch.train.experiments import build_model, load_dataset, preset_config
+from graphsage_torch.train.experiments import main as train_main
 from graphsage_torch.train.trainer import Trainer
+from graphsage_torch.utils import memory
+from graphsage_torch.utils.checkpoint import restore_checkpoint
 from graphsage_torch.utils.metrics import micro_f1
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -561,6 +587,80 @@ def directed_csr(graph):
             torch.from_numpy(dst[keep].astype(np.int32)).to(dev))
 
 
+def slot_stats(idx, mask) -> dict:
+    """What a gather-mean over ``idx`` and ``mask`` must touch: its valid
+    slots, the rows with one, the valid ids flat with ``F.embedding_bag``'s
+    offsets, and the distinct ids among them."""
+    flat = idx[mask].long()
+    return dict(valid=int(mask.sum()), live=int(mask.any(1).sum()), flat=flat,
+                offsets=torch.cat([mask.new_zeros(1, dtype=torch.long),
+                                   mask.sum(1).cumsum(0)[:-1]]),
+                distinct=torch.unique(flat).numel())
+
+
+def gather_record(label, what, table, idx, mask, st) -> dict:
+    """Kernel 1 on ``table`` over one layer-0 frontier: device ms (kernel,
+    plain, ``F.embedding_bag``), the bound and ms per call."""
+    b, k = idx.shape
+    n, f = table.shape
+    lib = lambda: F.embedding_bag(st["flat"], table, st["offsets"], mode="mean")  # noqa: E731
+    max_err(lib(), gm_kernel.gather_mean_plain(table, idx, mask),
+            f"embedding_bag yardstick {label}")
+    bd, by = bound(st["distinct"] * f * 4 + b * k + st["valid"] * 4 + b * f * 4,
+                   st["valid"] * f + st["live"] * f)
+    kernel = lambda: gm_kernel.gather_mean(table, idx, mask)  # noqa: E731
+    return dict(
+        label=label,
+        shape=f"{what}: table [{n},{f}] f32, B={b}, k={k}, {st['valid']} valid "
+              f"slots, {st['live']} rows with one, {st['distinct']} distinct rows",
+        ms=device_ms(kernel, "gather_mean_kernel"),
+        plain_ms=device_ms(lambda: gm_kernel.gather_mean_plain(table, idx, mask)),
+        library_ms=device_ms(lib), bound_ms=bd, bound_by=by, call_ms=call_ms(kernel),
+    )
+
+
+def scatter_record(label, what, table, idx, mask, st) -> dict:
+    """Kernel 2, layer 0's backward on the same frontier: a cotangent ``[B,
+    F]`` into ``[N, F]``, zeros included. Library: ``torch.zeros`` and
+    ``index_add_`` of the precomputed per-slot rows ``g[b] / cnt[b]`` over
+    the valid ids alone (the division is left out of its time). The device
+    ms come by kernel name (the zero fill against the scatter)."""
+    b, k = idx.shape
+    n, f = table.shape
+    grad = torch.randn(b, f, generator=torch.Generator().manual_seed(4)).to(table.device)
+    cnt = mask.sum(1, keepdim=True).clamp(min=1).float()
+    rows = (grad / cnt).repeat_interleave(k, dim=0)[mask.reshape(-1)]
+    lib = lambda: torch.zeros(n, f, device=table.device).index_add_(0, st["flat"], rows)  # noqa: E731
+    max_err(lib(), sm_kernel.scatter_mean_plain(grad, idx, mask, n),
+            f"zeros + index_add_ yardstick {label}")
+    bd, by = bound(st["live"] * f * 4 + b * k + st["valid"] * 4 + n * f * 4,
+                   st["valid"] * f + st["live"] * f)
+    kernel = lambda: sm_kernel.scatter_mean(grad, idx, mask, n)  # noqa: E731
+    split = device_profile(kernel)
+    if not any("scatter_mean" in name for name in split):
+        raise AssertionError(f"no scatter_mean among the kernels run: {list(split)}")
+    split = {name.split("::")[-1].split("(")[0]: ms for name, ms in split.items()}
+    print(f"   scatter_mean {label}: device ms by kernel {split}")
+    return dict(
+        label=label,
+        shape=f"{what}: g [{b},{f}] f32 into [{n},{f}], k={k}, {st['valid']} valid "
+              f"slots, {st['live']} rows with one",
+        ms=sum(split.values()),
+        plain_ms=device_ms(lambda: sm_kernel.scatter_mean_plain(grad, idx, mask, n)),
+        library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
+        call_ms=call_ms(kernel), split=split,
+    )
+
+
+def print_records(records) -> None:
+    for name, recs in records.items():
+        for r in recs:
+            print(f"   {name} [{r['shape']}]: device ms: kernel {r['ms']:.4f}, "
+                  f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.4f} ({r['bound_by']}); per call "
+                  f"through the wrapper {r['call_ms']:.4f} ms")
+
+
 def time_kernels(models, graphs) -> dict:
     """Per kernel, one timing record per graph, on a sampled frontier of the
     preset's batch size.
@@ -573,30 +673,9 @@ def time_kernels(models, graphs) -> dict:
     for label, g in graphs.items():
         batch = PRESETS[PRESET_OF[label]].train.batch_size
         table, idx, mask = frontier_inputs(models[label], g, batch, seed=3)
-        b, k = idx.shape
-        n, f = table.shape
-        valid = int(mask.sum())
-        live = int(mask.any(1).sum())  # rows with a valid slot
-        flat = idx[mask].long()
-        offsets = torch.cat([mask.new_zeros(1, dtype=torch.long),
-                             mask.sum(1).cumsum(0)[:-1]])
-        lib = lambda: F.embedding_bag(flat, table, offsets, mode="mean")  # noqa: E731
-        max_err(lib(), gm_kernel.gather_mean_plain(table, idx, mask),
-                f"embedding_bag yardstick {label}")
-        distinct = torch.unique(flat).numel()
-        bd, by = bound(distinct * f * 4 + b * k + valid * 4 + b * f * 4,
-                       valid * f + live * f)
-        kernel = lambda: gm_kernel.gather_mean(table, idx, mask)  # noqa: E731
-        out["gather_mean"].append(dict(
-            label=label,
-            shape=f"{label} sampled layer 0: table [{n},{f}] f32, B={b}, k={k}, "
-                  f"{valid} valid slots, {live} rows with one, "
-                  f"{distinct} distinct rows",
-            ms=device_ms(kernel, "gather_mean_kernel"),
-            plain_ms=device_ms(lambda: gm_kernel.gather_mean_plain(table, idx, mask)),
-            library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
-            call_ms=call_ms(kernel),
-        ))
+        st = slot_stats(idx, mask)
+        out["gather_mean"].append(gather_record(
+            label, f"{label} sampled layer 0", table, idx, mask, st))
         # The dma kernel computes the same function on the same inputs.
         kernel = lambda: dma_kernel.gather_mean_dma(table, idx, mask)  # noqa: E731
         out["gather_mean_dma"].append(dict(
@@ -608,22 +687,12 @@ def time_kernels(models, graphs) -> dict:
         # Layer 0 aggregating first (project_first=False): the same frontier
         # over the raw features (F = 1433 or 500, single-element loads at 1433).
         raw = g.features.contiguous()
-        fr = raw.shape[1]
-        lib = lambda: F.embedding_bag(flat, raw, offsets, mode="mean")  # noqa: E731
-        bd, by = bound(distinct * fr * 4 + b * k + valid * 4 + b * fr * 4,
-                       valid * fr + live * fr)
-        kernel = lambda: gm_kernel.gather_mean(raw, idx, mask)  # noqa: E731
-        max_err(kernel(), gm_kernel.gather_mean_plain(raw, idx, mask),
+        max_err(gm_kernel.gather_mean(raw, idx, mask),
+                gm_kernel.gather_mean_plain(raw, idx, mask),
                 f"gather_mean mean-first {label}")
-        out["gather_mean"].append(dict(
-            label=f"{label} mean-first",
-            shape=f"{label} sampled layer 0, mean-first: features [{n},{fr}] f32, "
-                  f"B={b}, k={k}, {valid} valid slots",
-            ms=device_ms(kernel, "gather_mean_kernel"),
-            plain_ms=device_ms(lambda: gm_kernel.gather_mean_plain(raw, idx, mask)),
-            library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
-            call_ms=call_ms(kernel),
-        ))
+        out["gather_mean"].append(gather_record(
+            f"{label} mean-first", f"{label} sampled layer 0, mean-first features",
+            raw, idx, mask, st))
         kernel = lambda: dma_kernel.gather_mean_dma(raw, idx, mask)  # noqa: E731
         max_err(kernel(), gm_kernel.gather_mean_plain(raw, idx, mask),
                 f"gather_mean_dma mean-first {label}")
@@ -633,35 +702,8 @@ def time_kernels(models, graphs) -> dict:
             plain_ms=device_ms(lambda: dma_kernel.gather_mean_dma_plain(raw, idx, mask)),
             call_ms=call_ms(kernel),
         ))
-
-        # The scatter (layer 0's backward) on the same frontier: the
-        # cotangent [B, F] into [N, F], zeros included. Library: torch.zeros
-        # and index_add_ of the precomputed per-slot rows g[b] / cnt[b] over
-        # the valid ids alone (the division is left out of its time).
-        grad = torch.randn(b, f, generator=torch.Generator().manual_seed(4)).to(table.device)
-        cnt = mask.sum(1, keepdim=True).clamp(min=1).float()
-        rows = (grad / cnt).repeat_interleave(k, dim=0)[mask.reshape(-1)]
-        lib = lambda: torch.zeros(n, f, device=table.device).index_add_(0, flat, rows)  # noqa: E731
-        max_err(lib(), sm_kernel.scatter_mean_plain(grad, idx, mask, n),
-                f"zeros + index_add_ yardstick {label}")
-        bd, by = bound(live * f * 4 + b * k + valid * 4 + n * f * 4,
-                       valid * f + live * f)
-        kernel = lambda: sm_kernel.scatter_mean(grad, idx, mask, n)  # noqa: E731
-        # Device ms by kernel name: the zero fill against the scatter.
-        split = device_profile(kernel)
-        if not any("scatter_mean" in name for name in split):
-            raise AssertionError(f"no scatter_mean among the kernels run: {list(split)}")
-        split = {name.split("::")[-1].split("(")[0]: ms for name, ms in split.items()}
-        print(f"   scatter_mean {label}: device ms by kernel {split}")
-        out["scatter_mean"].append(dict(
-            label=label,
-            shape=f"{label} training layer-0 backward: g [{b},{f}] f32 into "
-                  f"[{n},{f}], k={k}, {valid} valid slots, {live} rows with one",
-            ms=sum(split.values()),
-            plain_ms=device_ms(lambda: sm_kernel.scatter_mean_plain(grad, idx, mask, n)),
-            library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
-            call_ms=call_ms(kernel), split=split,
-        ))
+        out["scatter_mean"].append(scatter_record(
+            label, f"{label} training layer-0 backward", table, idx, mask, st))
 
         rng = np.random.default_rng(11)
         x = torch.from_numpy(
@@ -715,12 +757,7 @@ def time_kernels(models, graphs) -> dict:
             library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
             call_ms=call_ms(kernel),
         ))
-    for name, recs in out.items():
-        for r in recs:
-            print(f"   {name} [{r['shape']}]: device ms: kernel {r['ms']:.4f}, "
-                  f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
-                  f"bound {r['bound_ms']:.4f} ({r['bound_by']}); per call "
-                  f"through the wrapper {r['call_ms']:.4f} ms")
+    print_records(out)
     return out
 
 
@@ -948,21 +985,30 @@ def check_learning(name, result, floor: float | None = None) -> dict:
     return stats
 
 
-def card_vs_cpu_grads(what, model, loss_fn, graph, *args, rtol=GRAD_RTOL) -> dict:
+def card_vs_cpu_grads(what, model, loss_fn, graph, *args, rtol=GRAD_RTOL,
+                      no_grad=()) -> dict:
     """Parameter gradients of ``loss_fn(model, graph, *args)`` on the card
     against a CPU copy of the model on the same inputs, each leaf within
     ``rtol`` of its own largest entry (a leaf with no gradient fails:
-    the check would have no power); returns the kernel launches of the
-    card's forward and backward."""
+    the check would have no power; the leaves named in ``no_grad`` must have
+    none, on both); returns the kernel launches of the card's forward and
+    backward."""
     model.zero_grad(set_to_none=True)
     reset_launches()
     loss_fn(model, graph, *args).backward()
     launches = read_launches()
-    card = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    card = {k: p.grad for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     cpu_model = copy.deepcopy(model).to("cpu")
     loss_fn(cpu_model, graph.to("cpu"), *(a.to("cpu") for a in args)).backward()
     for k, p in cpu_model.named_parameters():
+        if k in no_grad:
+            if card[k] is not None or p.grad is not None:
+                raise AssertionError(f"{what}: {k} has a gradient")
+            continue
+        if not (torch.isfinite(card[k]).all() and torch.isfinite(p.grad).all()):
+            raise AssertionError(f"{what}: grad {k} is not finite")
+        card[k] = card[k].cpu()
         scale = float(p.grad.abs().max())
         diff = float((card[k] - p.grad).abs().max())
         print(f"   {what}: grad {k} {tuple(p.shape)}: max |grad| {scale:.4g}, "
@@ -1826,6 +1872,298 @@ def samplers_full_batch_multilabel(pg, pubmed, pubmed_root, results, timings,
         ppi_runs(main_launches)
 
 
+# ------------------------------------- unsupervised, checkpoints, inductive
+# The bars of tests/test_unsupervised.py (the geometry test): the mean of
+# the last 10 losses below the first 10's minus 0.3, mean embedding norm
+# above 0.05, edge endpoints' cosine above random pairs' + 0.2, the probe's
+# validation micro-F1 above 1 / C + 0.2.
+UNSUP_BARS = dict(loss_drop=0.3, min_norm=0.05, cos_margin=0.2, probe_margin=0.2)
+# tests/test_inductive.py: unseen nodes' micro-F1 above 0.75 at 5 classes,
+# chance + 0.55. The stand-in trains at lr 0.1 (see PRESET_OF) for the
+# Pubmed preset's 200 steps.
+INDUCTIVE_MARGIN = 0.55
+INDUCTIVE_OVERRIDES = {"learning_rate": 0.1, "num_steps": 200}
+# A resumed run on the card against an uninterrupted one: kernel 2 sums
+# with atomics in an order that changes from run to run, so the two differ
+# by rounding, which the steps carry on (measured in PERF.md §6).
+RESUME_RTOL = 1e-4
+
+
+def sm_clock() -> str:
+    """The card's SM clock now, as ``nvidia-smi`` reads it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip()
+
+
+def unsup_groups(model, graph, seeds, q, seed):
+    """The graph-context groups of ``seeds`` and their sampled frontier, on
+    the graph's device."""
+    gen = torch.Generator(device=graph.device).manual_seed(seed)
+    cdf = torch.from_numpy(negative_cdf(graph.degrees.cpu().numpy())).to(graph.device)
+    groups, pair_mask = context_groups(gen, graph, seeds, cdf, walk_length=3,
+                                       num_negatives=q)
+    return model.sample(gen, graph, groups), pair_mask
+
+
+def train_cora_unsup(root, main_launches) -> dict:
+    """``run_preset("cora_unsup")`` at full width: every step launches
+    kernels 1 and 2 once (layer 0 projects first at 3072 group seeds), the
+    one evaluation kernel 3 once per layer (the probe's full-graph
+    embeddings); the bars; host and device ms per step; the probe."""
+    cfg = preset_config("cora_unsup")
+    steps, log = cfg.train.num_steps, []
+    reset_launches()
+    result = run_preset("cora_unsup", data_root=root, log=log.append)
+    launches = read_launches()
+    tr = result["trainer"]
+    model, graph = tr.model, tr.graph
+    groups = cfg.train.batch_size * (2 + cfg.train.num_negatives)
+    slots = layer0_slots(model, groups)
+    want = {k: 0 for k in KERNELS}
+    want.update(gather_mean=steps, spmm_mean=model.num_layers, scatter_mean=steps * int(
+        model.sampled_layer0_project_first(graph.num_nodes, slots)))
+    print(f"   cora_unsup: {steps} steps of {groups} group seeds ({slots} layer-0 "
+          f"slots), launches {launches}; {log[-2]}; {log[-1]}")
+    if launches != want or want["scatter_mean"] != steps:
+        raise AssertionError(f"cora_unsup: launches {launches}, want {want}")
+    for k, n in launches.items():
+        main_launches[k] += n
+    losses = np.asarray(result["losses"])
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        raise AssertionError(f"cora_unsup: losses {losses}")
+    with torch.no_grad():
+        emb = model.embed_full_graph(graph).cpu().numpy()
+    norms = np.linalg.norm(emb, axis=1)
+    z = emb / (norms[:, None] + 1e-8)
+    e = graph.num_edges
+    src, dst = graph.edge_src[:e].cpu().numpy(), graph.edge_dst[:e].cpu().numpy()
+    rng = np.random.default_rng(0)
+    ri, rj = rng.integers(0, graph.num_nodes, 4000), rng.integers(0, graph.num_nodes, 4000)
+    stats = dict(loss_first10=float(losses[:10].mean()), loss_last10=float(losses[-10:].mean()),
+                 mean_norm=float(norms.mean()), edge_cos=float((z[src] * z[dst]).sum(-1).mean()),
+                 random_cos=float((z[ri] * z[rj]).sum(-1).mean()),
+                 probe_val_micro_f1=result["val_micro_f1"], chance=1.0 / graph.num_classes)
+    head0 = build_model(cfg, graph).head
+    stats["head_unchanged"] = bool(model.head.grad is None and torch.equal(model.head, head0))
+    bars = UNSUP_BARS
+    held = dict(
+        loss=stats["loss_last10"] < stats["loss_first10"] - bars["loss_drop"],
+        norm=stats["mean_norm"] > bars["min_norm"],
+        cos=stats["edge_cos"] > stats["random_cos"] + bars["cos_margin"],
+        probe=stats["probe_val_micro_f1"] > stats["chance"] + bars["probe_margin"],
+        head=stats["head_unchanged"])
+    print(f"   cora_unsup: {stats}; bars {bars}: held {held}")
+    if not all(held.values()):
+        raise AssertionError(f"cora_unsup: bars missed: {held}")
+    reset_launches()
+    _, probe_ms = timed(lambda: tr.predict(tr.val_nodes))
+    probe_launches = read_launches()
+    if probe_launches["spmm_mean"] != model.num_layers or sum(probe_launches.values()) != \
+            model.num_layers:
+        raise AssertionError(f"cora_unsup probe: launches {probe_launches}")
+    host_ms = result["mean_step_time"] * 1e3
+    # Three profiles, each beside the SM clock: the device ms of this step
+    # differed 2x between two calls on the same code while every other
+    # step's agreed.
+    profiles = [(sm_clock(), *step_device_ms(tr)) for _ in range(3)]
+    dev_ms, top = float(np.median([p[1] for p in profiles])), profiles[-1][2]
+    stats.update(host_ms_per_step=host_ms, device_ms_per_step=dev_ms,
+                 device_idle_share=1.0 - dev_ms / host_ms, top_kernels=top,
+                 probe_host_ms=probe_ms, probe_launches=probe_launches)
+    print(f"   cora_unsup: host ms per step {host_ms:.3f}, device ms per step "
+          f"{dev_ms:.4f} (median of {[round(p[1], 4) for p in profiles]} at SM clocks "
+          f"{[p[0] for p in profiles]}), idle share {1.0 - dev_ms / host_ms:.3f}, top "
+          f"kernels {top}; the probe (one predict, 300 Adam steps): {probe_ms:.1f} "
+          f"host ms, launches {probe_launches}")
+    result.update(stats)
+    return result
+
+
+def check_memory(graph) -> None:
+    """``utils/memory`` on the card: the live total holds at least the
+    graph's arrays, the largest live block at least its feature table."""
+    stats = memory.live_device_bytes(device=graph.device)
+    largest = memory.max_live_buffer_bytes(device=graph.device)
+    print(f"   live device bytes {stats['per_device_bytes']}, largest live block "
+          f"{largest}; the cora_unsup graph holds {graph.nbytes}, its table "
+          f"{graph.features.nbytes}")
+    if stats["total_bytes"] < graph.nbytes or largest < graph.features.nbytes:
+        raise AssertionError("utils/memory reports less than the graph holds")
+
+
+def unsup_frontier_loss(model, graph, frontier, pair_mask):
+    return frontier_loss(model, graph, frontier, pair_mask,
+                         PRESETS["cora_unsup"].train.num_negatives)
+
+
+def check_unsup_gradients(graph) -> None:
+    """Card against CPU gradients of the graph-context loss of a fresh
+    ``cora_unsup`` model on one set of groups and their frontier, on Cora
+    with an isolated node appended and drawn as a seed (its group drops out
+    of the mean; every gradient stays finite). The head gets none."""
+    dev = graph.device
+    lone = build_graph(np.random.default_rng(8).random((1, graph.num_features)),
+                       np.zeros(1), np.zeros((0, 2), np.int64),
+                       num_classes=graph.num_classes, device=dev)
+    g = disjoint_union([graph, lone])
+    model = build_model(preset_config("cora_unsup"), g)
+    seeds = torch.arange(256, dtype=torch.int32, device=dev)
+    seeds[-1] = g.num_nodes - 1
+    frontier, pair_mask = unsup_groups(model, g, seeds, PRESETS["cora_unsup"].train.num_negatives,
+                                       seed=13)
+    if bool(pair_mask[-1]) or not bool(pair_mask[:-1].all()):
+        raise AssertionError(f"pair mask {pair_mask}: the isolated seed must drop out")
+    launches = card_vs_cpu_grads("cora_unsup graph-context loss", model, unsup_frontier_loss,
+                                 g, frontier, pair_mask, no_grad=("head",))
+    want = {k: int(k in ("gather_mean", "scatter_mean")) for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"cora_unsup: one step launched {launches}, want {want}")
+
+
+def time_unsup_frontier(trainer, timings) -> None:
+    """Kernels 1 and 2 at ``cora_unsup``'s layer-0 frontier (the projected
+    table [2708,128] f32; 256 seeds' 3072 group seeds, 30720 rows of 10
+    slots), in ``time_kernels``' form; appended to ``timings``."""
+    model, graph = trainer.model, trainer.graph
+    seeds = torch.from_numpy(next(trainer.batches())).to(graph.device)
+    fr, _ = unsup_groups(model, graph, seeds, trainer.cfg.num_negatives, seed=3)
+    n_out = fr.ids[1].numel()
+    idx = fr.ids[2].reshape(n_out, -1).contiguous()
+    mask = fr.masks[2].reshape(n_out, -1).contiguous()
+    with torch.no_grad():
+        table = (graph.features @ model.layers[0].weight).contiguous()
+    max_err(gm_kernel.gather_mean(table, idx, mask),
+            gm_kernel.gather_mean_plain(table, idx, mask), "gather_mean cora_unsup")
+    st = slot_stats(idx, mask)
+    recs = {"gather_mean": [gather_record("cora_unsup", "cora_unsup sampled layer 0",
+                                          table, idx, mask, st)],
+            "scatter_mean": [scatter_record("cora_unsup",
+                                            "cora_unsup training layer-0 backward",
+                                            table, idx, mask, st)]}
+    print_records(recs)
+    for name, r in recs.items():
+        timings[name] += r
+
+
+def checkpoint_resume(root, main_launches) -> None:
+    """``cora`` through ``run_preset``: 100 steps straight (a snapshot every
+    25), against 50 steps, a checkpoint, a fresh trainer resumed from it for
+    50 more; then the CLI's ``--eval-only`` from the straight run's
+    checkpoint."""
+    ck = os.path.join(REPO, "build", "chip_smoke", "checkpoints")
+    shutil.rmtree(ck, ignore_errors=True)
+    straight_ck, half_ck = os.path.join(ck, "straight"), os.path.join(ck, "half")
+    half = {"num_steps": 50}
+    reset_launches()
+    straight = run_preset("cora", root, log=None, checkpoint_path=straight_ck,
+                          checkpoint_every=25)
+    first = run_preset("cora", root, log=None, overrides=half, checkpoint_path=half_ck)
+    resumed = run_preset("cora", root, log=None, overrides=half, resume_path=half_ck)
+    launches = read_launches()
+    model = straight["trainer"].model
+    per_step = step_launches(model, straight["trainer"].graph.num_nodes,
+                             PRESETS["cora"].train.batch_size)
+    evals = eval_launches(model, PRESETS["cora"].train)
+    want = {k: 200 * per_step[k] + 3 * evals[k] for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"checkpoint and resume: launches {launches}, want {want}")
+    for k, n in launches.items():
+        main_launches[k] += n
+    tail, want_tail = np.asarray(resumed["losses"]), np.asarray(straight["losses"][50:])
+    loss_diff = float(np.max(np.abs(tail - want_tail) / np.abs(want_tail)))
+    same_head = first["losses"] == straight["losses"][:50]
+    param_diff = {}
+    with torch.no_grad():
+        for (name, p), q in zip(model.named_parameters(),
+                                resumed["trainer"].model.parameters()):
+            param_diff[name] = float((p - q).abs().max() / p.abs().max())
+    print(f"   cora, 100 steps straight against 50 + resume + 50: the first 50 "
+          f"losses equal: {same_head}; the last 50: largest relative difference "
+          f"{loss_diff:.3g}; final parameters, largest |difference| over the leaf's "
+          f"largest entry: {param_diff}; resumed trainer at step "
+          f"{resumed['trainer'].step_count}")
+    np.testing.assert_allclose(tail, want_tail, rtol=RESUME_RTOL,
+                               err_msg="resumed losses != uninterrupted losses")
+    if max(param_diff.values()) > RESUME_RTOL or resumed["trainer"].step_count != 100:
+        raise AssertionError(f"resumed parameters differ: {param_diff}")
+    files = sorted(os.listdir(ck))
+    state = restore_checkpoint(straight_ck, straight["trainer"].state_dict())
+    print(f"   checkpoint files {files}; the straight run's at step {int(state['step'])}")
+    if files != ["half.pt", "straight.pt"] or int(state["step"]) != 100:
+        raise AssertionError(f"checkpoint files {files}, step {int(state['step'])}")
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        train_main(["--preset", "cora", "--data-root", root, "--resume", straight_ck,
+                    "--eval-only"])
+    for k, n in read_launches().items():
+        main_launches[k] += n
+    lines = out.getvalue().splitlines()
+    val = next(float(ln.split(": ")[1]) for ln in lines if ln.startswith("Validation F1: "))
+    print(f"   --eval-only: {lines}; the trained run's validation F1 "
+          f"{straight['val_micro_f1']}")
+    if val != straight["val_micro_f1"] or not lines[-1].startswith("Test F1: "):
+        raise AssertionError("--eval-only does not reproduce the trained run's F1")
+
+
+def inductive(full, main_launches) -> None:
+    """The inductive protocol of ``tests/test_inductive.py`` at the
+    heavy-tailed Pubmed-sized stand-in: the ``cora`` preset's model trained
+    on the subgraph induced by the first 70% of the nodes, then served on
+    the full graph through the table tier (kernel 3 once per layer) for the
+    held-out 30%."""
+    n_train = int(0.7 * full.num_nodes)
+    sub = induced_subgraph(full, np.arange(n_train))
+    print(f"   induced subgraph of the first {n_train} nodes: {sub}")
+    result = train_preset("cora", None, main_launches, overrides=INDUCTIVE_OVERRIDES,
+                          graph=sub)
+    model = result["trainer"].model
+    unseen = np.arange(n_train, full.num_nodes)
+    def serve():
+        engine = ServingEngine(model, full)
+        return engine, engine.predict(unseen)
+
+    reset_launches()
+    (eng, preds), ms = timed(serve)
+    launches = read_launches()
+    want = {k: model.num_layers * int(k == "spmm_mean") for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"inductive serving: launches {launches}, want {want}")
+    main_launches["spmm_mean"] += launches["spmm_mean"]
+    truth = full.labels.cpu().numpy()
+    f1 = micro_f1(truth[unseen], preds)
+    seen = micro_f1(truth[:n_train], eng.predict(np.arange(n_train)))
+    bar = 1.0 / full.num_classes + INDUCTIVE_MARGIN
+    host_ms = result["mean_step_time"] * 1e3
+    dev_ms, _ = step_device_ms(result["trainer"])
+    print(f"   inductive: {len(unseen)} unseen nodes, micro-F1 {f1:.4f} (bar: above "
+          f"{bar:.4f}); seen nodes {seen:.4f}; engine and answers in {ms:.1f} host ms, "
+          f"launches {launches}; training: last loss {result['losses'][-1]:.4f}, host "
+          f"ms per step {host_ms:.3f}, device ms per step {dev_ms:.4f}, idle share "
+          f"{1.0 - dev_ms / host_ms:.3f}")
+    if not f1 > bar:
+        raise AssertionError(f"inductive: unseen micro-F1 {f1} below {bar}")
+
+
+def unsupervised_checkpoint_inductive(graphs, roots, results, timings,
+                                      main_launches) -> None:
+    """The phases of unsupervised training, checkpoints and resume, and
+    inductive serving."""
+    with phase("training cora_unsup"):
+        results["cora_unsup"] = train_cora_unsup(roots["cora"], main_launches)
+    with phase("utils/memory on the card"):
+        check_memory(results["cora_unsup"]["trainer"].graph)
+    with phase("cora_unsup gradients, card against CPU"):
+        check_unsup_gradients(graphs["cora"])
+    with phase("timings, kernels 1 and 2 at cora_unsup's frontier"):
+        time_unsup_frontier(results["cora_unsup"]["trainer"], timings)
+    with phase("checkpoint and resume, cora"):
+        checkpoint_resume(roots["cora"], main_launches)
+    with phase("inductive: pubmed heavy-tailed, 70% seen"):
+        inductive(graphs["pubmed heavy-tailed"], main_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1999,6 +2337,7 @@ def main() -> int:
                             batch_scales=(1, 2, 4, 8, 16))
     samplers_full_batch_multilabel(pg, graphs["pubmed"], roots["pubmed"], results,
                                    timings, main_launches)
+    unsupervised_checkpoint_inductive(graphs, roots, results, timings, main_launches)
 
     kernels = []
     for name, meta in KERNELS.items():

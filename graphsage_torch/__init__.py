@@ -13,8 +13,9 @@ Every entry point places its tensors on ``cuda`` unless the caller passes
   ops     — sampler, aggregators, Hopper kernels
   models  — GraphSAGE layers + supervised classifier
   serve   — table and sampled serving tiers
-  train   — configs, presets, the sampled and full-graph trainers, the CLI
-  utils   — metrics
+  train   — configs, presets, the sampled, full-graph and unsupervised
+            trainers, the CLI
+  utils   — metrics, checkpoints, logging, diagnostics, profiling, memory
 """
 
 from graphsage_torch._device import resolve_device
@@ -22,6 +23,7 @@ from graphsage_torch.data.graph import (
     Graph,
     build_graph,
     disjoint_union,
+    induced_subgraph,
     quantize_graph,
     with_cached_layer0,
 )
@@ -33,6 +35,7 @@ from graphsage_torch.train.config import ExperimentConfig, ModelConfig, PRESETS,
 from graphsage_torch.train.experiments import run_cora, run_preset, run_pubmed
 from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
+from graphsage_torch.train.unsupervised import UnsupervisedTrainer
 from graphsage_torch.convert import params_from_numpy
 
 __version__ = "0.1.0"
@@ -43,6 +46,7 @@ __all__ = [
     "build_graph",
     "quantize_graph",
     "with_cached_layer0",
+    "induced_subgraph",
     "disjoint_union",
     "QuantizedTable",
     "quantize_features",
@@ -57,6 +61,7 @@ __all__ = [
     "TrainConfig",
     "PRESETS",
     "Trainer",
+    "UnsupervisedTrainer",
     "FullGraphTrainer",
     "run_cora",
     "run_pubmed",

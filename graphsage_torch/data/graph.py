@@ -16,7 +16,8 @@ every array is identical from the same edges:
 :func:`with_cached_layer0` attaches the precomputed full-neighborhood feature
 means behind ``GraphSAGE(layer0="cached")``; :func:`quantize_graph` swaps the
 feature table for an int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable`;
-:func:`disjoint_union` puts several graphs side by side in one.
+:func:`disjoint_union` puts several graphs side by side in one;
+:func:`induced_subgraph` keeps the part of a graph on some of its nodes.
 
 Indices are int32 throughout, as in the JAX ``Graph``.
 """
@@ -319,6 +320,39 @@ def build_graph(
         # Per-row truncation drops (u,v) without dropping (v,u).
         symmetric=bool(undirected and max_degree is None),
     )
+
+
+def induced_subgraph(graph: Graph, nodes, device=None, **build_kwargs) -> Graph:
+    """The subgraph induced on ``nodes``, ids relabeled to ``0..len-1`` in
+    the order given: the inductive protocol's primitive (train on the
+    subgraph, then run the same model on the grown graph; the parameters do
+    not depend on the graph).
+
+    An edge is kept when both its ends are in ``nodes``. The graph's edge
+    list is already mirrored where it is symmetric, so it is rebuilt
+    directed (``build_kwargs`` forward to :func:`build_graph`), and a
+    symmetric graph's subgraph is symmetric again. Features go through
+    :func:`~graphsage_torch.ops.quantize.dense_host_view`: an int8 table is
+    dequantized and a bf16 one widened, and both come back f32 unless
+    ``feature_dtype`` says otherwise, as in the JAX package. The subgraph
+    lies on the graph's device unless ``device`` says otherwise.
+    """
+    nodes = np.asarray(nodes).reshape(-1)
+    feats = dense_host_view(graph.features)[nodes]
+    labels = graph.labels.cpu().numpy()[nodes]
+    e = graph.num_edges
+    src = graph.edge_src[:e].cpu().numpy().astype(np.int64)
+    dst = graph.edge_dst[:e].cpu().numpy().astype(np.int64)
+    inv = -np.ones(graph.num_nodes, np.int64)
+    inv[nodes] = np.arange(len(nodes))
+    keep = (inv[src] >= 0) & (inv[dst] >= 0)
+    edges = np.stack([inv[src[keep]], inv[dst[keep]]], axis=1)
+    build_kwargs.setdefault("undirected", False)
+    sub = build_graph(feats, labels, edges, num_classes=graph.num_classes,
+                      device=graph.device if device is None else device, **build_kwargs)
+    if graph.symmetric and build_kwargs.get("max_degree") is None:
+        sub = dataclasses.replace(sub, symmetric=True)
+    return sub
 
 
 def disjoint_union(graphs: Sequence[Graph], device=None, **build_kwargs) -> Graph:

@@ -6,7 +6,9 @@ counterpart of ``graphsage_tpu/models/graphsage.py``.
      ``"windowed"``). Frontiers are flat ``[B * prod(k)]`` tensors; no
      deduplication.
   2. ``forward`` — layer 0, then the upper layers fold inward: reshape to
-     ``[parents, k, d]``, aggregate, project, ReLU.
+     ``[parents, k, d]``, aggregate, project, ReLU (the last layer stays
+     linear under ``final_activation="linear"``, the unsupervised model's:
+     every path asks :meth:`GraphSAGE.layer_activation`).
   3. a linear classification head; ``loss`` is its mean softmax
      cross-entropy, the training objective (with ``multilabel``, the mean
      sigmoid BCE over multi-hot labels).
@@ -130,6 +132,7 @@ class GraphSAGE(nn.Module):
         sampling: str = "floyd",
         compute_dtype: torch.dtype | None = None,
         multilabel: bool = False,
+        final_activation: str = "relu",
         gather_impl: str = "auto",
         spmm_impl: str = "auto",
         project_first: bool | str = "auto",
@@ -163,6 +166,8 @@ class GraphSAGE(nn.Module):
                              f"{compute_dtype!r}")
         if sampling not in SAMPLING_METHODS:
             raise ValueError(f"unknown sampling method {sampling!r}")
+        if final_activation not in ("relu", "linear"):
+            raise ValueError(f"unknown final_activation {final_activation!r}")
         dev = resolve_device(device)
         self.in_dim = in_dim
         self.num_classes = num_classes
@@ -175,6 +180,7 @@ class GraphSAGE(nn.Module):
         self.layer0 = layer0
         self.sampling = sampling
         self.multilabel = multilabel
+        self.final_activation = final_activation
         self.compute_dtype = compute_dtype
         self.gather_impl = gather_impl
         self.spmm_impl = spmm_impl
@@ -196,16 +202,11 @@ class GraphSAGE(nn.Module):
         (``quantize_features`` is the graph's: ``run_preset`` applies it)."""
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
-        if cfg.final_activation != "relu":
-            raise NotImplementedError(
-                "final_activation='linear' is not ported yet (ROADMAP Queue 1 "
-                "item 11)"
-            )
         return cls(
             in_dim, num_classes, cfg.hidden_dims, cfg.fanouts,
             aggregator=cfg.aggregator, concat_self=cfg.concat_self,
             self_loop=cfg.self_loop, pool_dim=cfg.pool_dim, layer0=cfg.layer0,
-            sampling=cfg.sampling,
+            sampling=cfg.sampling, final_activation=cfg.final_activation,
             compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype], gather_impl=cfg.gather_impl,
             spmm_impl=cfg.spmm_impl, project_first=cfg.project_first, **kwargs,
         )
@@ -217,6 +218,14 @@ class GraphSAGE(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.head.device
+
+    def layer_activation(self, layer: int):
+        """Layer ``layer``'s output nonlinearity: ReLU, or ``None`` (linear)
+        on the last layer under ``final_activation="linear"``. Every forward
+        path asks here, so that the modes agree with each other."""
+        if self.final_activation == "linear" and layer == self.num_layers - 1:
+            return None
+        return torch.relu
 
     def use_project_first(self, layer: int, d_in: int) -> bool:
         """Whether full-graph layer ``layer`` aggregates after projecting.
@@ -319,12 +328,13 @@ class GraphSAGE(nn.Module):
         if self.aggregator != "mean":
             return apply_full_graph_maxpool_layer(
                 layer0, self._dense(features), self._segmax(graph),
-                self_loop=self.self_loop)
+                self_loop=self.self_loop, activation=self.layer_activation(0))
         pf = self.use_project_first(0, self.in_dim)
         if not (is_quantized(features) and pf):
             return apply_full_graph_mean_layer(
                 layer0, self._dense(features), self._spmm(graph),
                 self_loop=self.self_loop, project_first=pf,
+                activation=self.layer_activation(0),
             )
         # Project-first over an int8 table: the raw values against each
         # weight slice (no dense [N, F] transient), then the same SpMM.
@@ -339,7 +349,11 @@ class GraphSAGE(nn.Module):
             pre = (pre * c + hp.to(torch.float32)) / (c + 1.0)
         if self.concat_self:
             pre = pre + project_table(features, w_self)
-        return torch.relu(pre).to(h_dtype)
+        return self._activate(0, pre).to(h_dtype)
+
+    def _activate(self, layer: int, x: torch.Tensor) -> torch.Tensor:
+        act = self.layer_activation(layer)
+        return x if act is None else act(x)
 
     def _dense(self, features) -> torch.Tensor:
         """The feature table as dense rows in the compute dtype (an int8
@@ -398,7 +412,8 @@ class GraphSAGE(nn.Module):
             ids = frontier.ids[L - 1]
             agg = self._gather_rows(self.check_layer0_cache(graph), ids)
             self_h = self._gather_rows(features, ids) if self.concat_self else None
-            h = self.layers[0](self_h, None, None, precomputed_agg=agg, compute_dtype=cd)
+            h = self.layers[0](self_h, None, None, precomputed_agg=agg, compute_dtype=cd,
+                               activation=self.layer_activation(0))
         elif self.layer0 == "full":
             h = self._gather_rows(self.layer0_full_table(features, graph),
                                   frontier.ids[L - 1])
@@ -419,7 +434,8 @@ class GraphSAGE(nn.Module):
                 self_h, neigh, nm = h3[:, 0], h3[:, 1:], m3[:, 1:]
             else:
                 self_h, neigh, nm = None, h3, m3
-            h = self.layers[l](self_h, neigh, nm, compute_dtype=cd)
+            h = self.layers[l](self_h, neigh, nm, compute_dtype=cd,
+                               activation=self.layer_activation(l))
         return self._head(h, return_embeddings)
 
     def _head(self, h: torch.Tensor, return_embeddings: bool) -> torch.Tensor:
@@ -456,10 +472,11 @@ class GraphSAGE(nn.Module):
             pre = self._gather_mean(project(w_neigh), neigh_ids, neigh_mask)
             if self.concat_self:
                 pre = pre + self._gather_rows(project(w_self), self_ids)
-            return torch.relu(pre).to(w0.dtype)
+            return self._activate(0, pre).to(w0.dtype)
         self_h = self._gather_rows(features, self_ids) if self.concat_self else None
         return layer0(self_h, None, None, compute_dtype=cd,
-                      precomputed_agg=self._gather_mean(features, neigh_ids, neigh_mask))
+                      precomputed_agg=self._gather_mean(features, neigh_ids, neigh_mask),
+                      activation=self.layer_activation(0))
 
     def apply_sampled(
         self, generator: torch.Generator, graph: Graph, seeds: torch.Tensor
@@ -542,13 +559,16 @@ class GraphSAGE(nn.Module):
                     layer, h, spmm,
                     self_loop=self.self_loop,
                     project_first=self.use_project_first(l, h.shape[-1]),
+                    activation=self.layer_activation(l),
                 )
             elif self.aggregator == "maxpool":
                 h = apply_full_graph_maxpool_layer(
-                    layer, h, self._segmax(graph), self_loop=self.self_loop)
+                    layer, h, self._segmax(graph), self_loop=self.self_loop,
+                    activation=self.layer_activation(l))
             else:
                 h = layer(h if self.concat_self else None,
-                          *self._ell_sequences(graph, h))
+                          *self._ell_sequences(graph, h),
+                          activation=self.layer_activation(l))
         return self._head(h, return_embeddings)
 
     def _ell_sequences(self, graph: Graph, h: torch.Tensor):

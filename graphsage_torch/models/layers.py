@@ -34,6 +34,10 @@ from graphsage_torch.ops.aggregate import masked_max, masked_mean
 AGGREGATORS = ("mean", "maxpool", "lstm")
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def glorot_uniform(shape: tuple[int, int], generator: torch.Generator) -> torch.Tensor:
     """Xavier/glorot-uniform ``[fan_in, fan_out]`` on the CPU, from
     ``generator`` (the reference's ``init.xavier_uniform_``)."""
@@ -208,13 +212,16 @@ def apply_full_graph_mean_layer(
     activation=torch.relu,
 ) -> torch.Tensor:
     """One full-graph mean layer over every node, in ``h``'s dtype (the
-    weights are cast to it).
+    weights are cast to it). ``activation=None`` leaves the output linear
+    (the unsupervised model's last layer).
 
     With ``project_first`` the layer projects to ``d_out`` before the SpMM
     (exact: the mean is linear), so the SpMM moves ``d_out``-wide rows; the
     sums that follow it are f32. ``self_loop`` folds the node itself into the
     mean: ``(mean * cnt + self) / (cnt + 1)``.
     """
+    if activation is None:
+        activation = _identity
     d_in = h.shape[-1]
     w = layer.weight.to(h.dtype)
     if project_first:
@@ -246,7 +253,9 @@ def apply_full_graph_maxpool_layer(
 ) -> torch.Tensor:
     """One full-graph max-pooling layer over every node, in ``h``'s dtype:
     the pooling MLP once per node, then ``segmax`` (0 on rows without
-    neighbors)."""
+    neighbors); ``activation=None`` leaves the output linear."""
+    if activation is None:
+        activation = _identity
     pooled = pool(layer, h, h.dtype)
     agg = segmax(pooled).to(h.dtype)
     if self_loop:

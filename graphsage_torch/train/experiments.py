@@ -1,6 +1,7 @@
 """Reference-compatible experiment drivers: the counterpart of
-``graphsage_tpu/train/experiments.py`` for supervised training, sampled or
-full-graph.
+``graphsage_tpu/train/experiments.py`` on one device: supervised training,
+sampled or full-graph, unsupervised training (``objective="unsupervised"``,
+sampled), checkpoints and resume.
 
 ``run_cora()`` / ``run_pubmed()`` reproduce the observable surface of the
 reference's entry points (reference graphsage/model.py:65-106, 137-178):
@@ -13,6 +14,7 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -25,6 +27,10 @@ from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.train.config import PRESETS, ExperimentConfig
 from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
+from graphsage_torch.train.unsupervised import UnsupervisedTrainer
+from graphsage_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from graphsage_torch.utils.diagnostics import diagnose
+from graphsage_torch.utils.logging import MetricsLogger
 
 # Training modes of the JAX package that the port does not run yet, and the
 # ROADMAP Queue 1 item that brings each.
@@ -90,17 +96,27 @@ def run_preset(
     data_root: str | None = None,
     log: Callable[[str], None] | None = print,
     overrides: dict[str, Any] | None = None,
+    checkpoint_path: str | None = None,
     mode: str = "sampled",
+    resume_path: str | None = None,
+    eval_only: bool = False,
+    checkpoint_every: int = 0,
     device=None,
 ) -> dict[str, Any]:
     """Train one of the presets end to end: load its dataset, build its
     model and trainer, run. ``mode="sampled"`` trains on minibatches with
     neighbor sampling (the reference's scheme), ``mode="full-graph"``
     full-batch over complete neighborhoods (:class:`FullGraphTrainer`, the
-    model built with every fanout ``None``). The result holds the losses,
-    step times, validation F1 and the ``trainer`` (with the trained model).
-    ``quantize_features`` in the preset (or the overrides) quantizes the
-    loaded graph's feature table to int8 first."""
+    model built with every fanout ``None``); an ``objective="unsupervised"``
+    preset trains sampled with :class:`UnsupervisedTrainer`. The result
+    holds the losses, step times, validation F1 and the ``trainer`` (with
+    the trained model). ``quantize_features`` in the preset (or the
+    overrides) quantizes the loaded graph's feature table to int8 first.
+
+    ``resume_path`` restores a checkpoint into the new trainer and
+    continues from it; ``checkpoint_path`` receives the final state (and a
+    snapshot every ``checkpoint_every`` steps); ``eval_only`` evaluates the
+    restored state on the validation and test splits without training."""
     if mode in _NOT_PORTED_MODES:
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet (ROADMAP Queue 1 item "
@@ -115,14 +131,57 @@ def run_preset(
         graph = quantize_graph(graph)
         if log:
             log(f"feature table quantized to int8: {graph.features.nbytes} B resident")
-    if mode == "full-graph":
+    if config.train.objective == "unsupervised":
+        if mode != "sampled":
+            raise ValueError(
+                "objective='unsupervised' supports mode='sampled', the "
+                "node-sharded mode='sharded', and the everything-sharded "
+                f"mode='fully-sharded' (got mode={mode!r})"
+            )
+        trainer = UnsupervisedTrainer(build_model(config, graph), graph, config.train)
+    elif mode == "full-graph":
         fanouts = tuple(None for _ in config.model.fanouts)
         config = dataclasses.replace(
             config, model=dataclasses.replace(config.model, fanouts=fanouts))
         trainer = FullGraphTrainer(build_model(config, graph), graph, config.train)
     else:
         trainer = Trainer(build_model(config, graph), graph, config.train)
-    result = trainer.run(log=log)
+    initial_state = None
+    if resume_path:
+        initial_state = restore_checkpoint(resume_path, trainer.state_dict(),
+                                           map_location=trainer.device)
+        if log:
+            log(f"resumed from {resume_path} at step {int(initial_state['step'])}")
+    if eval_only:
+        if initial_state is None:
+            raise ValueError("eval_only requires resume_path (a trained state)")
+        if checkpoint_path:
+            raise ValueError(
+                "eval_only does not train — combining it with checkpoint_path "
+                "would silently write nothing; drop one of the two"
+            )
+        trainer.load_state_dict(initial_state)
+        val = trainer.evaluate(trainer.val_nodes)
+        test = trainer.evaluate(trainer.test_nodes)
+        if log:
+            log(f"Validation F1: {val['micro_f1']}")
+            log(f"Test F1: {test['micro_f1']}")
+        return {
+            "losses": [],
+            "val_micro_f1": val["micro_f1"],
+            "val_macro_f1": val["macro_f1"],
+            "test_micro_f1": test["micro_f1"],
+            "test_macro_f1": test["macro_f1"],
+            "mean_step_time": 0.0,
+            "trainer": trainer,
+        }
+    result = trainer.run(log=log, initial_state=initial_state,
+                         checkpoint_path=checkpoint_path,
+                         checkpoint_every=checkpoint_every)
+    if checkpoint_path:
+        written = save_checkpoint(checkpoint_path, trainer.state_dict())
+        if log:
+            log(f"checkpoint written: {written}")
     result["trainer"] = trainer
     return result
 
@@ -141,14 +200,7 @@ def run_pubmed(data_root: str | None = None, **kwargs) -> dict[str, Any]:
 # Flags of the JAX package's CLI that the port does not take yet: the
 # ROADMAP Queue 1 item that brings each, or why it has no counterpart.
 _NOT_PORTED_FLAGS = {
-    "checkpoint": 12,
-    "checkpoint_every": 12,
-    "resume": 12,
-    "eval_only": 12,
-    "log_jsonl": 12,
-    "diagnostics_dir": 12,
     "hub_cache_rows": 14,
-    "debug_nans": "the port has no NaN-checking mode yet",
     "compilation_cache": "the port compiles no XLA programs",
     "no_compilation_cache": "the port compiles no XLA programs",
 }
@@ -193,9 +245,30 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--quantize-features", action="store_true",
                         help="int8-quantize the frozen feature table at load "
                         "time (per-row scales)")
+    parser.add_argument("--checkpoint", default=None,
+                        help="write the final state here (.pt appended)")
+    parser.add_argument("--checkpoint-every", type=int, default=0,
+                        help="also snapshot --checkpoint every N steps "
+                        "(checkpoint-restart)")
+    parser.add_argument("--resume", default=None,
+                        help="restore this checkpoint and continue training")
+    parser.add_argument("--eval-only", action="store_true",
+                        help="evaluate a --resume checkpoint (validation and "
+                        "test F1; the reference computes its test split but "
+                        "never evaluates it, quirk Q6) without training")
+    parser.add_argument("--log-jsonl", default=None,
+                        help="append structured metrics records to this file")
+    parser.add_argument("--diagnostics-dir", default=None,
+                        help="collect fault and hang stack traces here during "
+                        "the run (faulthandler)")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="fail fast on NaN: autograd anomaly detection, "
+                        "and a FloatingPointError when a step's loss is not "
+                        "finite (checks less than the JAX package's "
+                        "jax_debug_nans, which checks every op's output)")
     for flag in _NOT_PORTED_FLAGS:
         opt = "--" + flag.replace("_", "-")
-        if flag in ("eval_only", "debug_nans", "no_compilation_cache"):
+        if flag == "no_compilation_cache":
             parser.add_argument(opt, action="store_true", help="not ported yet")
         else:
             parser.add_argument(opt, default=None, help="not ported yet")
@@ -219,5 +292,22 @@ def main(argv: Optional[list[str]] = None) -> None:
         overrides["quantize_features"] = True
     if args.quiet:
         overrides["log_every"] = 0
-    run_preset(args.preset, data_root=args.data_root, overrides=overrides or None,
-               mode=args.mode, device=args.device)
+
+    with contextlib.ExitStack() as scope:
+        if args.debug_nans:
+            scope.enter_context(torch.autograd.set_detect_anomaly(True))
+        if args.diagnostics_dir:
+            scope.enter_context(diagnose(stack_trace_dir=args.diagnostics_dir))
+        result = run_preset(
+            args.preset, data_root=args.data_root, overrides=overrides or None,
+            checkpoint_path=args.checkpoint, mode=args.mode,
+            resume_path=args.resume, eval_only=args.eval_only,
+            checkpoint_every=args.checkpoint_every, device=args.device,
+        )
+    if args.log_jsonl:
+        with MetricsLogger(args.log_jsonl, stdout=False, run_name=args.preset) as ml:
+            for i, loss in enumerate(result["losses"]):
+                ml.log("step", step=i, loss=loss)
+            ml.log("eval", val_micro_f1=result["val_micro_f1"],
+                   val_macro_f1=result["val_macro_f1"],
+                   mean_step_time=result["mean_step_time"])

@@ -11,14 +11,13 @@ backward; ``spmm_impl="bucketed_ell"`` runs the degree-bucketed PyTorch pass
 bucketed pass from TPU measurements; here ``"auto"`` stays kernel 3.
 
 The model holds its parameters, as with :class:`~graphsage_torch.train.
-trainer.Trainer`: there is no ``TrainState``. The halo mesh path comes with
-ROADMAP Queue 1 item 14, checkpoints with item 12.
+trainer.Trainer`, and the run loop, checkpoints and resume are its
+(:class:`~graphsage_torch.train.trainer.TrainLoop`; the state has no
+generator: nothing is sampled). The halo mesh path comes with ROADMAP Queue
+1 item 14.
 """
 
 from __future__ import annotations
-
-import time
-from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -27,11 +26,11 @@ from graphsage_torch.data.graph import Graph
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.bucketed_spmm import make_spmm_mean_bucketed, plan_bucketed_spmm
 from graphsage_torch.train.config import TrainConfig
-from graphsage_torch.train.trainer import make_optimizer, reference_splits
+from graphsage_torch.train.trainer import TrainLoop, make_optimizer, reference_splits
 from graphsage_torch.utils.metrics import macro_f1, micro_f1
 
 
-class FullGraphTrainer:
+class FullGraphTrainer(TrainLoop):
     """Transductive full-batch training of ``model`` on ``graph`` (both on
     the same device)."""
 
@@ -82,11 +81,11 @@ class FullGraphTrainer:
     def step(self) -> torch.Tensor:
         """One full-batch optimizer step; returns the loss as a 0-d tensor on
         the device (reading it waits for the step)."""
-        loss = self._loss()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        return self._update(self._loss())
+
+    def _steps(self):
+        while True:
+            yield self.step
 
     @torch.no_grad()
     def evaluate(self, nodes: np.ndarray) -> dict[str, float]:
@@ -98,42 +97,3 @@ class FullGraphTrainer:
             "micro_f1": micro_f1(truth, preds),
             "macro_f1": macro_f1(truth, preds, self.graph.num_classes),
         }
-
-    def run(
-        self,
-        log: Callable[[str], None] | None = print,
-        initial_state=None,
-        checkpoint_path: str | None = None,
-        checkpoint_every: int = 0,
-    ) -> dict[str, Any]:
-        """Train for ``num_steps`` full-batch steps; print and return what
-        :meth:`Trainer.run` does (``"{step} {loss}"`` lines, ``Validation
-        F1:``, ``Average batch time:``)."""
-        if initial_state is not None or checkpoint_path or checkpoint_every:
-            raise NotImplementedError(
-                "checkpoints and resuming are not ported yet (ROADMAP Queue 1 "
-                "item 12)"
-            )
-        cfg = self.cfg
-        losses: list[float] = []
-        times: list[float] = []
-        for step in range(cfg.num_steps):
-            t0 = time.perf_counter()
-            loss = float(self.step())
-            times.append(time.perf_counter() - t0)
-            losses.append(loss)
-            if log and cfg.log_every and step % cfg.log_every == 0:
-                log(f"{step} {loss}")
-        val = self.evaluate(self.val_nodes)
-        steady = times[1:] if len(times) > 1 else times
-        result = {
-            "losses": losses,
-            "val_micro_f1": val["micro_f1"],
-            "val_macro_f1": val["macro_f1"],
-            "mean_step_time": float(np.mean(steady)) if steady else 0.0,
-            "step_times": times,
-        }
-        if log:
-            log(f"Validation F1: {val['micro_f1']}")
-            log(f"Average batch time: {result['mean_step_time']}")
-        return result

@@ -11,6 +11,12 @@ construction when the graph has none (int8 for an int8 graph). There is no
 one step at a time, and ``TrainConfig.steps_per_dispatch`` has no meaning
 here.
 
+A trainer's state (:meth:`TrainLoop.state_dict`) is what a checkpoint holds:
+the parameters, the optimizer's state, the sampler's generator and the
+step. ``run(initial_state=...)`` resumes from one and continues the batch
+stream where it stopped; ``checkpoint_every`` writes one periodically
+(:mod:`graphsage_torch.utils.checkpoint`).
+
 Batching modes (``TrainConfig.batching``):
 
 * ``"epoch"``     — shuffled epochs over the train split (sane default).
@@ -27,9 +33,10 @@ stream differs from ``jax.random``'s.
 
 from __future__ import annotations
 
+import functools
 import random as _pyrandom
 import time
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -38,6 +45,7 @@ from graphsage_torch.data.graph import Graph, with_cached_layer0
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.quantize import is_quantized
 from graphsage_torch.train.config import TrainConfig
+from graphsage_torch.utils.checkpoint import save_checkpoint
 from graphsage_torch.utils.metrics import macro_f1, micro_f1
 
 
@@ -74,16 +82,173 @@ def reference_splits(
     )
 
 
-class Trainer:
+def _optimizer_slots(optimizer: torch.optim.Optimizer,
+                     p: torch.nn.Parameter) -> dict[str, torch.Tensor]:
+    """``p``'s optimizer state, or, before its first update, the state the
+    update would start from (Adam: step 0 and zero moments; momentum: a zero
+    buffer; plain SGD: none): the same entries either way, so that a fresh
+    trainer's state is a template for any checkpoint of its run. Starting
+    from the zeros is the same update as starting from nothing."""
+    state = {k: v for k, v in optimizer.state.get(p, {}).items()
+             if isinstance(v, torch.Tensor)}
+    if state:
+        return state
+    if isinstance(optimizer, torch.optim.Adam):
+        return {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
+    if optimizer.defaults.get("momentum"):
+        return {"momentum_buffer": torch.zeros_like(p)}
+    return {}
+
+
+class TrainLoop:
+    """What every trainer shares: its state (``state_dict``,
+    ``load_state_dict``), the optimizer update and the ``run`` loop.
+    Subclasses set ``model``, ``optimizer``, ``cfg``, ``val_nodes`` and,
+    when they sample, ``generator``; they define ``_steps`` and
+    ``evaluate``."""
+
+    generator: torch.Generator | None = None
+    step_count = 0  # optimizer steps taken (restored by load_state_dict)
+
+    # ------------------------------------------------------------------ state
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The trainer's state as a flat dict of tensors: the parameters
+        under the JAX ``SAGEParams`` field names (``params|layers|0|weight``,
+        ``params|head``), the optimizer's state per parameter
+        (``opt_state|<index>|<slot>``), the generator's state (``key``) and
+        the step. A fresh trainer's is the template of its checkpoints."""
+        out = {"params|" + name.replace(".", "|"): p.detach()
+               for name, p in self.model.named_parameters()}
+        for i, p in enumerate(self.model.parameters()):
+            for slot, t in _optimizer_slots(self.optimizer, p).items():
+                out[f"opt_state|{i}|{slot}"] = t
+        if self.generator is not None:
+            out["key"] = self.generator.get_state()
+        out["step"] = torch.tensor(self.step_count, dtype=torch.int64)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict[str, torch.Tensor]) -> None:
+        """Install ``state`` (as :meth:`state_dict` gives it, e.g. restored
+        from a checkpoint): each entry goes where this trainer keeps its
+        own. The optimizer's state restores by parameter order, so the
+        trainer must be built over the same model; the generator's state
+        replaces the seed it was constructed with."""
+        own = self.state_dict()
+        if set(state) != set(own):
+            raise KeyError(f"state entries differ from this trainer's: "
+                           f"{sorted(set(state) ^ set(own))[:5]}")
+        state = {k: v.to(own[k].device) for k, v in state.items()}
+        for name, p in self.model.named_parameters():
+            p.copy_(state["params|" + name.replace(".", "|")])
+        groups = self.optimizer.state_dict()["param_groups"]
+        slots = {i: {} for i in range(len(list(self.model.parameters())))}
+        for key, t in state.items():
+            if key.startswith("opt_state|"):
+                _, i, slot = key.split("|")
+                slots[int(i)][slot] = t.clone()
+        self.optimizer.load_state_dict({"state": slots, "param_groups": groups})
+        if self.generator is not None:
+            self.generator.set_state(state["key"])
+        self.step_count = int(state["step"])
+
+    # ------------------------------------------------------------------- step
+    def _update(self, loss: torch.Tensor) -> torch.Tensor:
+        """Backward and one optimizer update from ``loss``; returns it
+        detached. Under ``torch.autograd.set_detect_anomaly`` (the CLI's
+        ``--debug-nans``) a loss that is not finite raises
+        ``FloatingPointError`` first (reading it waits for the step)."""
+        if torch.is_anomaly_enabled() and not bool(torch.isfinite(loss)):
+            raise FloatingPointError(
+                f"loss is {float(loss.detach())} at step {self.step_count} (--debug-nans)")
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step_count += 1
+        return loss.detach()
+
+    def _steps(self) -> Iterator[Callable[[], torch.Tensor]]:
+        """One zero-argument step after another, from ``step_count`` on (a
+        sampled trainer's batch is drawn before its step's clock starts)."""
+        raise NotImplementedError
+
+    # -------------------------------------------------------------------- run
+    def run(
+        self,
+        log: Callable[[str], None] | None = print,
+        initial_state: dict[str, torch.Tensor] | None = None,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 0,
+    ) -> dict[str, Any]:
+        """Train for ``num_steps`` steps; return losses, step times and
+        validation F1.
+
+        Prints the reference's lines (model.py:100-106): ``"{step}
+        {loss}"`` every ``log_every`` steps, then ``Validation F1:`` and
+        ``Average batch time:`` (seconds on the host clock, each step ending
+        when its loss is read; the first step is left out of the mean).
+
+        ``initial_state`` (a restored checkpoint) is installed first; the
+        run continues from the trainer's step, so a resumed run takes the
+        batches an uninterrupted one would have, and ``num_steps`` counts
+        the additional steps. ``checkpoint_every > 0`` writes the state to
+        ``checkpoint_path`` whenever that many steps of this run complete.
+        """
+        if checkpoint_every > 0 and not checkpoint_path:
+            raise ValueError(
+                "checkpoint_every > 0 needs checkpoint_path — without it "
+                "no snapshot would ever be written"
+            )
+        if initial_state is not None:
+            self.load_state_dict(initial_state)
+        cfg = self.cfg
+        steps = self._steps()
+        losses: list[float] = []
+        times: list[float] = []
+        for done in range(cfg.num_steps):
+            step = next(steps)
+            t0 = time.perf_counter()
+            loss = float(step())
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            if log and cfg.log_every and done % cfg.log_every == 0:
+                log(f"{done} {loss}")
+            if checkpoint_every > 0 and (done + 1) % checkpoint_every == 0:
+                save_checkpoint(checkpoint_path, self.state_dict())
+
+        val = self.evaluate(self.val_nodes)
+        steady = times[1:] if len(times) > 1 else times
+        result = {
+            "losses": losses,
+            "val_micro_f1": val["micro_f1"],
+            "val_macro_f1": val["macro_f1"],
+            "mean_step_time": float(np.mean(steady)) if steady else 0.0,
+            "step_times": times,
+        }
+        if log:
+            log(f"Validation F1: {val['micro_f1']}")
+            log(f"Average batch time: {result['mean_step_time']}")
+        return result
+
+
+class Trainer(TrainLoop):
     """Sampled supervised training of ``model`` (which holds its parameters)
     on ``graph``; both must lie on the same device. Sampling draws from a
-    ``torch.Generator`` on that device, seeded from ``config.seed``."""
+    ``torch.Generator`` on that device, seeded from ``config.seed``.
+
+    An ``objective="unsupervised"`` config trains with
+    :class:`~graphsage_torch.train.unsupervised.UnsupervisedTrainer`, a
+    subclass; this class raises on one."""
+
+    objective = "supervised"
 
     def __init__(self, model: GraphSAGE, graph: Graph, config: TrainConfig):
-        if config.objective != "supervised":
-            raise NotImplementedError(
-                f"objective={config.objective!r} is not ported yet (ROADMAP "
-                "Queue 1 item 11)"
+        if config.objective != self.objective:
+            raise ValueError(
+                f"{type(self).__name__} trains objective={self.objective!r}, the "
+                f"config asks for {config.objective!r}: objective='unsupervised' "
+                "trains with UnsupervisedTrainer (run_preset dispatches to it)"
             )
         if model.device != graph.device:
             raise ValueError(
@@ -119,12 +284,13 @@ class Trainer:
         loss as a 0-d tensor on the device (reading it waits for the step)."""
         ids = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(self.device)
         frontier = self.model.sample(self.generator, self.graph, ids)
-        loss = self.model.loss(self.graph.features, frontier,
-                               self.graph.labels[ids.long()], graph=self.graph)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        return self._update(self.model.loss(
+            self.graph.features, frontier, self.graph.labels[ids.long()],
+            graph=self.graph))
+
+    def _steps(self):
+        for seeds in self.batches(start_step=self.step_count):
+            yield functools.partial(self.step, seeds)
 
     # ---------------------------------------------------------------- batches
     def batches(self, start_step: int = 0):
@@ -190,52 +356,3 @@ class Trainer:
             "micro_f1": micro_f1(truth, preds),
             "macro_f1": macro_f1(truth, preds, self.graph.num_classes),
         }
-
-    # -------------------------------------------------------------------- run
-    def run(
-        self,
-        log: Callable[[str], None] | None = print,
-        initial_state=None,
-        checkpoint_path: str | None = None,
-        checkpoint_every: int = 0,
-    ) -> dict[str, Any]:
-        """Train for ``num_steps`` batches; return losses, step times and
-        validation F1.
-
-        Prints the reference driver's lines (model.py:100-106): ``"{step}
-        {loss}"`` every ``log_every`` steps, then ``Validation F1:`` and
-        ``Average batch time:`` (seconds on the host clock, each step ending
-        when its loss is read; the first step is left out of the mean).
-        Checkpoints and resuming are not ported yet.
-        """
-        if initial_state is not None or checkpoint_path or checkpoint_every:
-            raise NotImplementedError(
-                "checkpoints and resuming are not ported yet (ROADMAP Queue 1 "
-                "item 12)"
-            )
-        cfg = self.cfg
-        batch_iter = self.batches()
-        losses: list[float] = []
-        times: list[float] = []
-        for step in range(cfg.num_steps):
-            seeds = next(batch_iter)
-            t0 = time.perf_counter()
-            loss = float(self.step(seeds))
-            times.append(time.perf_counter() - t0)
-            losses.append(loss)
-            if log and cfg.log_every and step % cfg.log_every == 0:
-                log(f"{step} {loss}")
-
-        val = self.evaluate(self.val_nodes)
-        steady = times[1:] if len(times) > 1 else times
-        result = {
-            "losses": losses,
-            "val_micro_f1": val["micro_f1"],
-            "val_macro_f1": val["macro_f1"],
-            "mean_step_time": float(np.mean(steady)) if steady else 0.0,
-            "step_times": times,
-        }
-        if log:
-            log(f"Validation F1: {val['micro_f1']}")
-            log(f"Average batch time: {result['mean_step_time']}")
-        return result

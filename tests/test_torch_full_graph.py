@@ -200,10 +200,21 @@ def test_not_ported_arguments_raise(graphs):
     with pytest.raises(NotImplementedError, match="item 14"):
         FullGraphTrainer(tm, tg, cfg, mesh=object())
     tr = FullGraphTrainer(tm, tg, cfg)
-    for kw in (dict(initial_state=object()), dict(checkpoint_path="ckpt"),
-               dict(checkpoint_every=2)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tr.run(log=None, **kw)
+    with pytest.raises(ValueError, match="needs checkpoint_path"):
+        tr.run(log=None, checkpoint_every=2)
+    # Resume: two steps straight equal one, the state carried over, one more.
+    kw = dict(test_size=40, val_size=30, log_every=0, optimizer="momentum",
+              learning_rate=0.1)
+    straight = FullGraphTrainer(_models("auto")[2], tg, TrainConfig(num_steps=2, **kw))
+    straight = straight.run(log=None)["losses"]
+    cfg1 = TrainConfig(num_steps=1, **kw)
+    first = FullGraphTrainer(_models("auto")[2], tg, cfg1)
+    head = first.run(log=None)["losses"]
+    state = first.state_dict()
+    assert int(state["step"]) == 1 and "key" not in state
+    second = FullGraphTrainer(_models("auto")[2], tg, cfg1)
+    tail = second.run(log=None, initial_state=state)["losses"]
+    assert head + tail == straight and second.step_count == 2
 
 
 def test_evaluate_equals_jax(graphs):

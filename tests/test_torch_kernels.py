@@ -684,3 +684,72 @@ def test_full_graph_step_on_the_card(cuda, spmm_impl):
     for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
         scale = float(q.grad.abs().max())
         assert scale > 0 and float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, name
+
+
+# ------------------------------------------------ unsupervised, checkpoints
+def test_unsupervised_step_on_the_card(cuda):
+    """A ``cora_unsup``-shaped step (the preset's model on a Cora-sized
+    table, 256 seeds' 3072 group seeds): kernels 1 and 2 launch once each,
+    the head gets no gradient, the others equal the CPU's within 1e-4 of
+    each leaf's largest entry."""
+    import copy
+
+    from graphsage_torch import PRESETS, GraphSAGE
+    from graphsage_torch.data.synthetic import synthetic_cora_graph
+    from graphsage_torch.models.unsupervised import context_groups, frontier_loss
+    from graphsage_torch.ops.walks import negative_cdf
+
+    g = synthetic_cora_graph(device=cuda)
+    cfg = PRESETS["cora_unsup"]
+    model = GraphSAGE.from_config(cfg.model, g.num_features, g.num_classes, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cdf = torch.from_numpy(negative_cdf(g.degrees.cpu().numpy())).to(cuda)
+    seeds = torch.arange(256, dtype=torch.int32, device=cuda)
+    q = cfg.train.num_negatives
+    groups, pair_mask = context_groups(gen, g, seeds, cdf, walk_length=3, num_negatives=q)
+    fr = model.sample(gen, g, groups)
+    assert fr.ids[2].numel() == 256 * (2 + q) * 100
+    counts = (gm.launches, sm.launches, sp.launches)
+    frontier_loss(model, g, fr, pair_mask, q).backward()
+    assert (gm.launches, sm.launches, sp.launches) == (counts[0] + 1, counts[1] + 1, counts[2])
+    cpu_model, gc = copy.deepcopy(model).to("cpu"), g.to("cpu")
+    cpu_model.zero_grad(set_to_none=True)
+    frontier_loss(cpu_model, gc, fr.to("cpu"), pair_mask.cpu(), q).backward()
+    assert model.head.grad is None and cpu_model.head.grad is None
+    for (name, p), c in zip(model.named_parameters(), cpu_model.parameters()):
+        if c.grad is None:
+            continue
+        scale = float(c.grad.abs().max())
+        assert scale > 0 and float((p.grad.cpu() - c.grad).abs().max()) <= 1e-4 * scale, name
+
+
+def test_resume_on_the_card(cuda, tmp_path):
+    """Six steps straight against three, a checkpoint restored onto the card,
+    three more: the same losses and parameters up to the scatter's atomic
+    order (1e-4 relative)."""
+    from graphsage_torch import GraphSAGE, Trainer, TrainConfig
+    from graphsage_torch.data.synthetic import synthetic_cora_graph
+    from graphsage_torch.utils.checkpoint import restore_checkpoint
+
+    g = synthetic_cora_graph(num_nodes=800, num_feats=300, num_edges=3000, device=cuda)
+
+    def trainer(steps):
+        model = GraphSAGE(300, g.num_classes, (128, 128), (10, 10), device=cuda,
+                          generator=torch.Generator().manual_seed(0))
+        return Trainer(model, g, TrainConfig(num_steps=steps, batch_size=128,
+                                             optimizer="adam", learning_rate=0.01,
+                                             test_size=100, val_size=100, log_every=0))
+
+    straight = trainer(6)
+    want = straight.run(log=None)["losses"]
+    first = trainer(3)
+    head = first.run(log=None, checkpoint_path=tmp_path / "ck", checkpoint_every=3)["losses"]
+    second = trainer(3)
+    state = restore_checkpoint(tmp_path / "ck", second.state_dict(), map_location=cuda)
+    assert state["params|head"].device.type == "cuda"
+    tail = second.run(log=None, initial_state=state)["losses"]
+    assert second.generator.device.type == "cuda" and second.step_count == 6
+    np.testing.assert_allclose(head + tail, want, rtol=1e-4)
+    for p, q in zip(straight.model.parameters(), second.model.parameters()):
+        p, q = p.detach(), q.detach()
+        assert float((p - q).abs().max()) <= 1e-4 * float(p.abs().max())

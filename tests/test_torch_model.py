@@ -208,8 +208,9 @@ def test_from_config_presets(name):
     assert m.hidden_dims == tuple(cfg.hidden_dims) and m.fanouts == tuple(cfg.fanouts)
     assert [tuple(layer.weight.shape) for layer in m.layers] == [(50, 128), (128, 128)]
     assert tuple(m.head.shape) == (128, 3) and m.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GraphSAGE.from_config(PRESETS["cora_unsup"].model, 50, 3, device="cpu")
+    unsup = GraphSAGE.from_config(PRESETS["cora_unsup"].model, 50, 3, device="cpu")
+    assert unsup.final_activation == "linear"
+    assert unsup.layer_activation(0) is torch.relu and unsup.layer_activation(1) is None
     for preset in ("powerlaw", "powerlaw_1m_layer0_cached", "reddit"):
         m = GraphSAGE.from_config(PRESETS[preset].model, 50, 3, device="cpu")
         assert m.compute_dtype == torch.bfloat16

@@ -222,11 +222,13 @@ def test_trainer_rejects_what_is_not_ported(graphs):
     _, _, tm = _models()
     with pytest.raises(ValueError, match="empty train split"):
         Trainer(tm, tg, TrainConfig(test_size=100, val_size=60))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # An unsupervised config trains with the subclass that minimises its
+    # loss (JAX's run_preset dispatches the same way).
+    with pytest.raises(ValueError, match="UnsupervisedTrainer"):
         Trainer(tm, tg, TrainConfig(objective="unsupervised"))
     tr = Trainer(tm, tg, TrainConfig(test_size=40, val_size=20))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tr.run(log=None, checkpoint_path="ckpt")
+    with pytest.raises(ValueError, match="checkpoint_every > 0 needs checkpoint_path"):
+        tr.run(log=None, checkpoint_every=2)
     with pytest.raises(ValueError):
         next(Trainer(tm, tg, TrainConfig(test_size=40, val_size=20,
                                          batching="nope")).batches())
@@ -250,9 +252,9 @@ def test_run_cora_quiet(synth_cora_root, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--checkpoint", "ckpt"], "Queue 1 item 12"),
-    (["--resume", "ckpt"], "Queue 1 item 12"),
-    (["--debug-nans"], "not ported"),
+    (["--hub-cache-rows", "8"], "Queue 1 item 14"),
+    (["--mode", "fully-sharded"], "Queue 1 item 14"),
+    (["--compilation-cache", "cache"], "not ported"),
     (["--mode", "sharded"], "Queue 1 item 14"),
 ])
 def test_cli_rejects_what_is_not_ported(argv, match, synth_cora_root):

@@ -137,8 +137,29 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    trained run's validation F1; the ``cora`` model trained on the subgraph
    induced by the first 70% of the heavy-tailed stand-in and served on the
    full graph's other 30% (table tier), micro-F1 above 1 / C + 0.55.
-13. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+13. parallel: a world of one over NCCL (``multihost.initialize`` on
+   127.0.0.1 and a free port); ``ShardedFeatureTrainer`` trains ``cora``,
+   ``pubmed`` and ``pubmed_layer0_cached`` at their presets for 40 steps
+   each, counters set to 0 just before and read just after (kernels 1 and 2
+   in their sum modes once per step, kernel 1's once more in the sampled
+   evaluation; the cached run reads its cache shard through kernel 1's sum
+   mode, scatters nothing, and builds the cache on the card with kernel 3
+   once, at construction), step for step
+   against the single-device ``Trainer`` from the same seed (``RESUME_RTOL``)
+   and over the learning bar, with host and device ms per step beside the
+   single-device step's, NCCL's device ms and ``memory_stats()``;
+   ``distributed_full_graph_logits`` (mean: kernel 3 once per layer over
+   the rank's edge block; maxpool) against ``forward_full_graph`` on the
+   heavy-tailed stand-in; ``ShardedTrainer`` on a ``{"data": 1, "model":
+   1}`` mesh against ``Trainer`` for 5 Pubmed steps. Then two ranks of this
+   script (``--two-rank``) share the card over gloo (NCCL refuses two ranks
+   on one device) and train ``cora`` node-sharded over S = 2, each rank
+   within ``RESUME_RTOL`` of the single-device run. The sum modes of kernels
+   1 and 2 are also checked (phase 4: f32 and bf16 tables, colliding
+   atomics, a second launch bitwise equal) and timed (phase 5) at each
+   frontier.
+14. a ``{"kernels": [...]}`` line (the sum modes as their own entries),
+   then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -150,6 +171,7 @@ import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -192,6 +214,15 @@ from graphsage_torch.ops.bucketed_spmm import plan_bucketed_spmm
 from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.models.unsupervised import context_groups, frontier_loss
 from graphsage_torch.ops.walks import negative_cdf
+from graphsage_torch.parallel import multihost
+from graphsage_torch.parallel.distributed import (
+    ShardedTrainer,
+    distributed_full_graph_logits,
+    edge_block,
+)
+from graphsage_torch.parallel.feature_store import ShardedFeatureTrainer
+from graphsage_torch.parallel.mesh import make_mesh
+from graphsage_torch.parallel.partition import partition_edges
 from graphsage_torch.train.experiments import build_model, load_dataset, preset_config
 from graphsage_torch.train.experiments import main as train_main
 from graphsage_torch.train.trainer import Trainer
@@ -252,6 +283,22 @@ KERNELS = {
         replaces="graphsage_tpu/ops/pallas_gather.py:39",
         module=dma_kernel,
     ),
+    # The sum modes (normalize=False) of kernels 1 and 2: the node-sharded
+    # feature store's owner side. Their launches are counted apart.
+    "gather_mean_sum": dict(
+        route="cuda",
+        source="graphsage_torch/csrc/gather_mean.cu",
+        replaces="graphsage_tpu/ops/pallas_onehot.py:45",
+        module=gm_kernel,
+        counter="sum_launches",
+    ),
+    "scatter_mean_sum": dict(
+        route="cuda",
+        source="graphsage_torch/csrc/scatter_mean.cu",
+        replaces="graphsage_tpu/ops/pallas_onehot.py:127",
+        module=sm_kernel,
+        counter="sum_launches",
+    ),
 }
 
 
@@ -265,11 +312,12 @@ def phase(name: str):
 
 def reset_launches() -> None:
     for k in KERNELS.values():
-        k["module"].launches = 0
+        setattr(k["module"], k.get("counter", "launches"), 0)
 
 
 def read_launches() -> dict:
-    return {name: k["module"].launches for name, k in KERNELS.items()}
+    return {name: getattr(k["module"], k.get("counter", "launches"))
+            for name, k in KERNELS.items()}
 
 
 def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -543,6 +591,8 @@ def check_kernels(graphs) -> dict:
             and (sm_kernel.launches, dma_kernel.launches) == before):
         raise AssertionError("an empty batch launched a kernel or gave a wrong shape")
 
+    check_sum_modes(shapes, dev, errs)
+
     # The SpMM backward: symmetric (the kernel again, unnormalised, on
     # g / deg) and directed (a plain transpose), each with a zero-degree row.
     cases = [(label, True, csr) for label, csr in csrs.items()]
@@ -572,6 +622,38 @@ def check_kernels(graphs) -> dict:
     return errs
 
 
+def check_sum_modes(shapes, dev, errs) -> None:
+    """The sum modes of kernels 1 and 2 (``normalize=False``, the sharded
+    store's owner side) against their plain versions at the training shapes,
+    f32 and bf16 tables, rows 7..15 of the scatter colliding on one id, a
+    second gather launch bitwise equal to the first."""
+    for i, (label, n, f, b) in enumerate(shapes):
+        x, idx, mask = gather_case(n, f, b, 10, seed=400 + i, dev=dev)
+        errs_here = []
+        for table in (x, x.to(torch.bfloat16)):
+            got = gm_kernel.gather_mean(table, idx, mask, normalize=False)
+            want = gm_kernel.gather_mean_plain(table.float(), idx, mask, False)
+            errs_here.append(max_err(got, want, f"gather_mean sum {label} {table.dtype}",
+                                     magnitude=gm_kernel.gather_mean_plain(
+                                         table.float().abs(), idx, mask, False)))
+            check_repeat(got, lambda: gm_kernel.gather_mean(table, idx, mask, normalize=False),
+                         f"gather_mean sum {label}")
+        errs["gather_mean_sum"] = max(errs["gather_mean_sum"], *errs_here)
+        if f != 128:
+            continue
+        idx[7:16], mask[7:16] = 3, True
+        g = torch.randn(b, f, generator=torch.Generator().manual_seed(i)).to(dev)
+        es = max_err(sm_kernel.scatter_mean(g, idx, mask, n, normalize=False),
+                     sm_kernel.scatter_mean_plain(g, idx, mask, n, normalize=False),
+                     f"scatter_mean sum {label}",
+                     magnitude=sm_kernel.scatter_mean_plain(g.abs(), idx, mask, n,
+                                                            normalize=False))
+        errs["scatter_mean_sum"] = max(errs["scatter_mean_sum"], es)
+        print(f"   sum modes {label} N={n} F={f} B={b} k=10: gather f32/bf16 "
+              f"max_abs_err={errs_here[0]:.3g}/{errs_here[1]:.3g}, scatter "
+              f"max_abs_err={es:.3g}")
+
+
 def directed_csr(graph):
     """A directed CSR from the graph's edges ``u -> v`` with ``u < v`` only,
     plus one zero-degree row appended."""
@@ -598,44 +680,49 @@ def slot_stats(idx, mask) -> dict:
                 distinct=torch.unique(flat).numel())
 
 
-def gather_record(label, what, table, idx, mask, st) -> dict:
-    """Kernel 1 on ``table`` over one layer-0 frontier: device ms (kernel,
-    plain, ``F.embedding_bag``), the bound and ms per call."""
+def gather_record(label, what, table, idx, mask, st, normalize=True) -> dict:
+    """Kernel 1 on ``table`` over one layer-0 frontier (its sum mode with
+    ``normalize=False``): device ms (kernel, plain, ``F.embedding_bag``), the
+    bound and ms per call."""
     b, k = idx.shape
     n, f = table.shape
-    lib = lambda: F.embedding_bag(st["flat"], table, st["offsets"], mode="mean")  # noqa: E731
-    max_err(lib(), gm_kernel.gather_mean_plain(table, idx, mask),
-            f"embedding_bag yardstick {label}")
+    mode = "mean" if normalize else "sum"
+    lib = lambda: F.embedding_bag(st["flat"], table, st["offsets"], mode=mode)  # noqa: E731
+    plain = lambda: gm_kernel.gather_mean_plain(table, idx, mask, normalize)  # noqa: E731
+    max_err(lib(), plain(), f"embedding_bag yardstick {label} ({mode})")
     bd, by = bound(st["distinct"] * f * 4 + b * k + st["valid"] * 4 + b * f * 4,
                    st["valid"] * f + st["live"] * f)
-    kernel = lambda: gm_kernel.gather_mean(table, idx, mask)  # noqa: E731
+    kernel = lambda: gm_kernel.gather_mean(table, idx, mask, normalize=normalize)  # noqa: E731
     return dict(
         label=label,
         shape=f"{what}: table [{n},{f}] f32, B={b}, k={k}, {st['valid']} valid "
-              f"slots, {st['live']} rows with one, {st['distinct']} distinct rows",
+              f"slots, {st['live']} rows with one, {st['distinct']} distinct rows"
+              f"{'' if normalize else ', sum mode'}",
         ms=device_ms(kernel, "gather_mean_kernel"),
-        plain_ms=device_ms(lambda: gm_kernel.gather_mean_plain(table, idx, mask)),
+        plain_ms=device_ms(plain),
         library_ms=device_ms(lib), bound_ms=bd, bound_by=by, call_ms=call_ms(kernel),
     )
 
 
-def scatter_record(label, what, table, idx, mask, st) -> dict:
+def scatter_record(label, what, table, idx, mask, st, normalize=True) -> dict:
     """Kernel 2, layer 0's backward on the same frontier: a cotangent ``[B,
-    F]`` into ``[N, F]``, zeros included. Library: ``torch.zeros`` and
-    ``index_add_`` of the precomputed per-slot rows ``g[b] / cnt[b]`` over
-    the valid ids alone (the division is left out of its time). The device
-    ms come by kernel name (the zero fill against the scatter)."""
+    F]`` into ``[N, F]``, zeros included (its sum mode with
+    ``normalize=False``: unit weights). Library: ``torch.zeros`` and
+    ``index_add_`` of the precomputed per-slot rows ``g[b] / cnt[b]`` (the
+    sum mode: ``g[b]``) over the valid ids alone (the division is left out
+    of its time). The device ms come by kernel name (the zero fill against
+    the scatter)."""
     b, k = idx.shape
     n, f = table.shape
     grad = torch.randn(b, f, generator=torch.Generator().manual_seed(4)).to(table.device)
-    cnt = mask.sum(1, keepdim=True).clamp(min=1).float()
+    cnt = mask.sum(1, keepdim=True).clamp(min=1).float() if normalize else 1.0
     rows = (grad / cnt).repeat_interleave(k, dim=0)[mask.reshape(-1)]
     lib = lambda: torch.zeros(n, f, device=table.device).index_add_(0, st["flat"], rows)  # noqa: E731
-    max_err(lib(), sm_kernel.scatter_mean_plain(grad, idx, mask, n),
+    max_err(lib(), sm_kernel.scatter_mean_plain(grad, idx, mask, n, normalize),
             f"zeros + index_add_ yardstick {label}")
     bd, by = bound(st["live"] * f * 4 + b * k + st["valid"] * 4 + n * f * 4,
                    st["valid"] * f + st["live"] * f)
-    kernel = lambda: sm_kernel.scatter_mean(grad, idx, mask, n)  # noqa: E731
+    kernel = lambda: sm_kernel.scatter_mean(grad, idx, mask, n, normalize)  # noqa: E731
     split = device_profile(kernel)
     if not any("scatter_mean" in name for name in split):
         raise AssertionError(f"no scatter_mean among the kernels run: {list(split)}")
@@ -644,9 +731,10 @@ def scatter_record(label, what, table, idx, mask, st) -> dict:
     return dict(
         label=label,
         shape=f"{what}: g [{b},{f}] f32 into [{n},{f}], k={k}, {st['valid']} valid "
-              f"slots, {st['live']} rows with one",
+              f"slots, {st['live']} rows with one{'' if normalize else ', sum mode'}",
         ms=sum(split.values()),
-        plain_ms=device_ms(lambda: sm_kernel.scatter_mean_plain(grad, idx, mask, n)),
+        plain_ms=device_ms(lambda: sm_kernel.scatter_mean_plain(grad, idx, mask, n,
+                                                                normalize)),
         library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
         call_ms=call_ms(kernel), split=split,
     )
@@ -704,6 +792,13 @@ def time_kernels(models, graphs) -> dict:
         ))
         out["scatter_mean"].append(scatter_record(
             label, f"{label} training layer-0 backward", table, idx, mask, st))
+        # The sum modes at the same frontier: a world of one's owner side of
+        # the node-sharded exchange serves exactly this batch's requests.
+        out["gather_mean_sum"].append(gather_record(
+            label, f"{label} sharded owner side", table, idx, mask, st, normalize=False))
+        out["scatter_mean_sum"].append(scatter_record(
+            label, f"{label} sharded owner side, backward", table, idx, mask, st,
+            normalize=False))
 
         rng = np.random.default_rng(11)
         x = torch.from_numpy(
@@ -2164,6 +2259,244 @@ def unsupervised_checkpoint_inductive(graphs, roots, results, timings,
         inductive(graphs["pubmed heavy-tailed"], main_launches)
 
 
+# The parallel phase: steps of each sharded run (its single-device twin runs
+# as many), and the ShardedTrainer's steps against the Trainer's.
+PARALLEL_STEPS = 40
+TP_STEPS = 5
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_step_launches(model, steps: int) -> dict:
+    """Launches of a node-sharded run of ``steps`` steps and one sampled
+    evaluation (a mean model without ``concat_self``): each step's owner
+    side runs kernel 1's sum mode forward (the neighbour mean of a sampled
+    layer 0 that projects first, or the cache rows of a cached one) and,
+    for the sampled layer 0, kernel 2's backward; the evaluation runs kernel
+    1's once. A cached run builds its cache on the card, kernel 3 once."""
+    want = {name: 0 for name in KERNELS}
+    want["gather_mean"] = want["gather_mean_sum"] = steps + 1
+    if model.layer0 == "cached":
+        want["spmm_mean"] = 1
+    else:
+        want["scatter_mean"] = want["scatter_mean_sum"] = steps
+    return want
+
+
+def sharded_run(name, root, main_launches) -> dict:
+    """``name``'s preset trained by ``ShardedFeatureTrainer`` in the world of
+    one (NCCL), counters set to 0 just before and read just after, against
+    the single-device ``Trainer`` from the same seed, step for step
+    (``RESUME_RTOL``: kernel 2's atomic order); the learning bar; host ms,
+    device ms, NCCL's device ms and the launches per step; memory_stats."""
+    cfg = preset_config(name, {"num_steps": PARALLEL_STEPS})
+    host = load_dataset(cfg.dataset, root, "cpu")
+    reset_launches()
+    sharded = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train,
+                                    make_mesh({"data": 1}))
+    result = sharded.run(log=None)
+    launches = read_launches()
+    want = sharded_step_launches(sharded.model, PARALLEL_STEPS)
+    if launches != want:
+        raise AssertionError(f"sharded {name}: launches {launches}, want {want}")
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    result["trainer"] = sharded
+    dev_graph = host.to("cuda")
+    single_trainer = Trainer(build_model(cfg, dev_graph), dev_graph, cfg.train)
+    single = single_trainer.run(log=None)
+    np.testing.assert_allclose(result["losses"], single["losses"], rtol=RESUME_RTOL,
+                               err_msg=f"sharded {name} != single-device {name}")
+    diff = np.max(np.abs(np.asarray(result["losses"]) - single["losses"])
+                  / np.abs(single["losses"]))
+    stats = check_learning(f"sharded {name}", result)
+    seeds = next(sharded.batches())
+    by_name = device_profile(lambda: sharded.step(seeds), iters=10)
+    single_ms, _ = step_device_ms(single_trainer)
+    # NCCL's kernels, and the copies a world of one's collectives may become.
+    nccl = {short_name(k): v for k, v in by_name.items()
+            if "nccl" in k.lower() or "memcpy" in k.lower()}
+    per_step = {k: v / PARALLEL_STEPS for k, v in launches.items() if v}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"   sharded {name}: {PARALLEL_STEPS} losses within {diff:.3g} (relative) of "
+          f"the single-device run's ({single['losses'][0]:.4f} -> "
+          f"{single['losses'][-1]:.4f}); per step: host ms "
+          f"{stats['host_ms_per_step']:.3f} (single {single['mean_step_time'] * 1e3:.3f}), "
+          f"device ms {sum(by_name.values()):.4f} (single {single_ms:.4f}), of it NCCL "
+          f"and copies {sum(nccl.values()):.4f} {nccl}; {len(by_name)} kernel names, top "
+          f"{[(short_name(k), round(v, 5)) for k, v in top]}; launches per step (with the "
+          f"evaluation's) {per_step}")
+    print(f"   sharded {name} memory_stats: {sharded.memory_stats()}")
+    return dict(stats, nccl_ms=sum(nccl.values()), single_device_ms=single_ms,
+                launches=launches)
+
+
+TWO_RANK_STEPS = 20
+
+
+def two_rank_rank(rank: int, port: int, root: str, out: str) -> None:
+    """One of two ranks sharing the card over gloo (NCCL refuses two ranks
+    on one device): ``cora`` trained node-sharded over S = 2 for
+    ``TWO_RANK_STEPS`` steps; rank 0 also runs the single-device Trainer.
+    Writes its losses and launch counts to ``out`` as JSON."""
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         rank=rank, world_size=2)
+    multihost.initialize()
+    if multihost.device() != torch.device("cuda", 0):
+        raise AssertionError(f"rank {rank} bound {multihost.device()}, want cuda:0")
+    cfg = preset_config("cora", {"num_steps": TWO_RANK_STEPS})
+    host = load_dataset("cora", root, "cpu")
+    reset_launches()
+    tr = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train,
+                               make_mesh({"data": 2}))
+    res = tr.run(log=None)
+    rec = dict(losses=res["losses"], val=res["val_micro_f1"], launches=read_launches(),
+               shard_rows=int(tr.features.shard.shape[0]),
+               mean_step_ms=res["mean_step_time"] * 1e3)
+    if rank == 0:
+        g = host.to("cuda")
+        rec["single_losses"] = Trainer(build_model(cfg, g), g, cfg.train).run(
+            log=None)["losses"]
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+    torch.distributed.destroy_process_group()
+
+
+def two_ranks_on_one_card(root: str) -> None:
+    """The 2-rank exchange with CUDA tensors: two processes on the one card
+    over gloo, held step for step against the single-device run."""
+    port = free_port()
+    os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
+    outs = [os.path.join(REPO, "build", "chip_smoke", f"two_rank_{r}.json") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--two-rank",
+                               str(r), str(port), root, outs[r]], cwd=REPO)
+             for r in (0, 1)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if rcs != [0, 0]:
+        raise AssertionError(f"two ranks on one card: exit codes {rcs}")
+    recs = []
+    for out in outs:
+        with open(out) as fh:
+            recs.append(json.load(fh))
+    want = recs[0]["single_losses"]
+    for r, rec in enumerate(recs):
+        np.testing.assert_allclose(rec["losses"], want, rtol=RESUME_RTOL,
+                                   err_msg=f"rank {r} != the single-device run")
+        if not (rec["launches"]["gather_mean_sum"] == TWO_RANK_STEPS + 1
+                and rec["launches"]["scatter_mean_sum"] == TWO_RANK_STEPS):
+            raise AssertionError(f"rank {r}: launches {rec['launches']}")
+    diff = np.max(np.abs(np.asarray(recs[0]["losses"]) - want) / np.abs(want))
+    print(f"   two ranks on one card over gloo: cora at S = 2, {TWO_RANK_STEPS} losses "
+          f"within {diff:.3g} (relative) of the single-device run's; rows per rank "
+          f"{[r['shard_rows'] for r in recs]}; host ms per step "
+          f"{[round(r['mean_step_ms'], 3) for r in recs]}; val micro-F1 "
+          f"{[r['val'] for r in recs]}; launches per rank {recs[0]['launches']}")
+
+
+def time_edge_blocks(label, g, timings) -> None:
+    """Kernel 3 unnormalised over one rank's edge block (the sharded SpMM's
+    partial sums) at F=128: block 0 of S = 1 (the whole graph) and of S = 2,
+    beside its plain version and ``torch.sparse.mm`` over the block's rows;
+    the bound reads X once, the block's indptr and ids, and writes its
+    rows."""
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (g.num_nodes, 128), dtype=np.float32)).to(g.device)
+    n, f = x.shape
+    for shards in (1, 2):
+        blk = edge_block(partition_edges(g, shards), 0, g.device)
+        rows, e = blk.indptr.numel() - 1, blk.edge_dst.numel()
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            a = torch.sparse_csr_tensor(blk.indptr.long(), blk.edge_dst.long(),
+                                        torch.ones(e, device=g.device), size=(rows, n))
+        kernel = lambda: spmm_kernel.spmm_block_sum(x, blk.indptr, blk.edge_dst)  # noqa: E731
+        plain = lambda: spmm_kernel.spmm_mean_plain(x, blk.indptr, blk.edge_dst, False)  # noqa: E731
+        lib = lambda: torch.sparse.mm(a, x)  # noqa: E731
+        max_err(kernel(), plain(), f"spmm_block_sum {label} block 0 of {shards}",
+                magnitude=spmm_kernel.spmm_mean_plain(x.abs(), blk.indptr, blk.edge_dst,
+                                                      False))
+        max_err(lib(), plain(), f"sparse.mm yardstick, {label} block 0 of {shards}",
+                magnitude=spmm_kernel.spmm_mean_plain(x.abs(), blk.indptr, blk.edge_dst,
+                                                      False))
+        bd, by = bound(n * f * 4 + rows * f * 4 + (rows + 1) * 4 + e * 4, e * f)
+        rec = dict(label=f"{label} edge block 0 of {shards}",
+                   shape=f"{label} edge block 0 of {shards}: X [{n},{f}] f32, rows "
+                         f"{blk.row0}..{blk.row0 + rows - 1}, E={e}, unnormalised",
+                   ms=device_ms(kernel, "spmm_mean_kernel"), plain_ms=device_ms(plain),
+                   library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
+                   call_ms=call_ms(kernel))
+        timings["spmm_mean"].append(rec)
+        print_records({"spmm_mean": [rec]})
+
+
+def parallel(graphs, roots, results, timings, main_launches) -> None:
+    """The parallel phase: a world of one over NCCL on the card."""
+    import torch.distributed as dist
+
+    with phase("parallel: a world of one over NCCL"):
+        info = multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+        print(f"   {info}, backend {dist.get_backend()}, device {multihost.device()}")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+    for name in ("cora", "pubmed", "pubmed_layer0_cached"):
+        with phase(f"parallel: ShardedFeatureTrainer, {name}"):
+            results[f"sharded {name}"] = sharded_run(name, roots[PRESETS[name].dataset],
+                                                     main_launches)
+    with phase("parallel: distributed_full_graph_logits, pubmed heavy-tailed"):
+        g = graphs["pubmed heavy-tailed"]
+        mesh = make_mesh({"graph": 1})
+        for preset in ("pubmed", "cora_pool"):
+            model = GraphSAGE.from_config(PRESETS[preset].model, g.num_features,
+                                          g.num_classes,
+                                          generator=torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                want = model.forward_full_graph(g)
+                reset_launches()
+                got = distributed_full_graph_logits(model, g, mesh)
+                launches = read_launches()
+            e = max_err(got, want, f"distributed_full_graph_logits {model.aggregator}")
+            expect = model.num_layers if model.aggregator == "mean" else 0
+            if launches["spmm_mean"] != expect:
+                raise AssertionError(f"{model.aggregator}: launches {launches}")
+            for kernel, count in launches.items():
+                main_launches[kernel] += count
+            print(f"   {model.aggregator}: logits {tuple(got.shape)} == forward_full_graph "
+                  f"(max_abs_err {e:.3g}); launches {launches}")
+        time_edge_blocks("pubmed heavy-tailed", g, timings)
+    with phase("parallel: ShardedTrainer on {data: 1, model: 1}, pubmed"):
+        cfg = preset_config("pubmed")
+        g = load_dataset("pubmed", roots["pubmed"])
+        reset_launches()
+        tp = ShardedTrainer(build_model(cfg, g), g, cfg.train,
+                            make_mesh({"data": 1, "model": 1}))
+        it = tp.batches()
+        got = [float(tp.step(next(it))) for _ in range(TP_STEPS)]
+        launches = read_launches()
+        for kernel, count in launches.items():
+            main_launches[kernel] += count
+        single = Trainer(build_model(cfg, g), g, cfg.train)
+        it = single.batches()
+        want = [float(single.step(next(it))) for _ in range(TP_STEPS)]
+        np.testing.assert_allclose(got, want, rtol=RESUME_RTOL,
+                                   err_msg="ShardedTrainer != Trainer")
+        if (launches["gather_mean"], launches["scatter_mean"]) != (TP_STEPS, TP_STEPS):
+            raise AssertionError(f"ShardedTrainer launches {launches}")
+        print(f"   {TP_STEPS} steps {np.round(got, 6).tolist()} within {RESUME_RTOL} of the "
+              f"Trainer's; launches {launches}")
+    dist.destroy_process_group()
+    with phase("parallel: two ranks on one card over gloo, cora"):
+        two_ranks_on_one_card(roots["cora"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2338,6 +2671,7 @@ def main() -> int:
     samplers_full_batch_multilabel(pg, graphs["pubmed"], roots["pubmed"], results,
                                    timings, main_launches)
     unsupervised_checkpoint_inductive(graphs, roots, results, timings, main_launches)
+    parallel(graphs, roots, results, timings, main_launches)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2359,6 +2693,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--two-rank"]:  # a rank of the two-rank phase
+        two_rank_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     try:
         sys.exit(main())
     except Exception:  # a failed phase: report it and exit without an ok line

@@ -15,6 +15,8 @@ Every entry point places its tensors on ``cuda`` unless the caller passes
   serve   — table and sampled serving tiers
   train   — configs, presets, the sampled, full-graph and unsupervised
             trainers, the CLI
+  parallel — the process group, meshes, edge partitioning, the DP+TP and
+            node-sharded trainers (``torch.distributed``)
   utils   — metrics, checkpoints, logging, diagnostics, profiling, memory
 """
 
@@ -37,6 +39,9 @@ from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
 from graphsage_torch.train.unsupervised import UnsupervisedTrainer
 from graphsage_torch.convert import params_from_numpy
+from graphsage_torch.parallel.distributed import ShardedTrainer
+from graphsage_torch.parallel.feature_store import ShardedFeatureTrainer
+from graphsage_torch.parallel.mesh import make_mesh
 
 __version__ = "0.1.0"
 
@@ -63,6 +68,9 @@ __all__ = [
     "Trainer",
     "UnsupervisedTrainer",
     "FullGraphTrainer",
+    "ShardedTrainer",
+    "ShardedFeatureTrainer",
+    "make_mesh",
     "run_cora",
     "run_pubmed",
     "run_preset",

@@ -6,6 +6,11 @@
 //
 //   out[b, :] = sum_j mask[b, j] * X[idx[b, j], :] / max(sum_j mask[b, j], 1)
 //
+// or, with normalize = 0 (the sum mode), the same sums undivided: the owner
+// side of the node-sharded feature store's exchange
+// (graphsage_torch/parallel/feature_store.py), whose requester divides by
+// its full valid count after the cross-rank reduction.
+//
 // X is f32 or bf16 [N, F]; idx int32 [B, k]; mask bool [B, k]; out f32 [B, F],
 // accumulated in f32. Rows with no valid slot are 0 (quirks Q4, Q8). An int8
 // table (graphsage_tpu/ops/quantize.py:gather_mean_dequant, which JAX leaves
@@ -72,7 +77,8 @@ template <typename T, int VEC, bool kOneRow>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 gather_mean_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const int32_t* __restrict__ idx, const uint8_t* __restrict__ mask,
-                   float* __restrict__ out, int B, int k, int F, int rows_per_warp) {
+                   float* __restrict__ out, int B, int k, int F, int rows_per_warp,
+                   int normalize) {
   using V = rows::Vec<T, VEC>;
   constexpr bool kScaled = std::is_same_v<T, int8_t>;
   const int lane = threadIdx.x % kWarp;
@@ -111,7 +117,7 @@ gather_mean_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     // Write row cur (all its slots are summed) and move to the next.
     auto flush = [&]() {
       if (active) {
-        const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
+        const float denom = normalize ? static_cast<float>(cnt > 1 ? cnt : 1) : 1.f;
         float v[VEC];
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
@@ -152,7 +158,7 @@ gather_mean_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
 template <typename T, int VEC>
 int launch(const void* x, const void* scale, const void* idx, const void* mask,
-           void* out, int B, int k, int F, void* stream) {
+           void* out, int B, int k, int F, int normalize, void* stream) {
   // Enough warps to fill the card first (about 8192), then up to 32 / k
   // rows per warp.
   const int rows_per_warp =
@@ -165,7 +171,7 @@ int launch(const void* x, const void* scale, const void* idx, const void* mask,
   kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
       static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(out), B, k, F, rows_per_warp);
+      static_cast<float*>(out), B, k, F, rows_per_warp, normalize);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,7 +186,8 @@ bool aligned(const void* p, size_t bytes) {
 // not 16-byte loads on 16 of them.
 template <typename T>
 int launch_widest(const void* x, const void* scale, const void* idx,
-                  const void* mask, void* out, int B, int k, int F, void* stream) {
+                  const void* mask, void* out, int B, int k, int F, int normalize,
+                  void* stream) {
   constexpr int kMax = 16 / static_cast<int>(sizeof(T));
   int vec = 0;
   for (int v = kMax; v >= 1; v /= 2) {
@@ -190,37 +197,38 @@ int launch_widest(const void* x, const void* scale, const void* idx,
   }
   switch (vec) {
     case 16:
-      if constexpr (kMax >= 16) return launch<T, 16>(x, scale, idx, mask, out, B, k, F, stream);
+      if constexpr (kMax >= 16) return launch<T, 16>(x, scale, idx, mask, out, B, k, F, normalize, stream);
       break;
     case 8:
-      if constexpr (kMax >= 8) return launch<T, 8>(x, scale, idx, mask, out, B, k, F, stream);
+      if constexpr (kMax >= 8) return launch<T, 8>(x, scale, idx, mask, out, B, k, F, normalize, stream);
       break;
     case 4:
-      return launch<T, 4>(x, scale, idx, mask, out, B, k, F, stream);
+      return launch<T, 4>(x, scale, idx, mask, out, B, k, F, normalize, stream);
     case 2:
-      return launch<T, 2>(x, scale, idx, mask, out, B, k, F, stream);
+      return launch<T, 2>(x, scale, idx, mask, out, B, k, F, normalize, stream);
   }
-  return launch<T, 1>(x, scale, idx, mask, out, B, k, F, stream);
+  return launch<T, 1>(x, scale, idx, mask, out, B, k, F, normalize, stream);
 }
 
 }  // namespace
 
 // scale: nullptr for the f32 and bf16 tables; an int8 table's per-row
 // scales (gather_mean_dequant: row id's elements times scale[id]).
+// normalize: 1 for the mean, 0 for the sum mode.
 extern "C" int gsage_gather_mean_f32(const void* x, const void* scale, const void* idx,
                                      const void* mask, void* out, int B, int k, int F,
-                                     void* stream) {
-  return launch_widest<float>(x, scale, idx, mask, out, B, k, F, stream);
+                                     int normalize, void* stream) {
+  return launch_widest<float>(x, scale, idx, mask, out, B, k, F, normalize, stream);
 }
 
 extern "C" int gsage_gather_mean_bf16(const void* x, const void* scale, const void* idx,
                                       const void* mask, void* out, int B, int k, int F,
-                                      void* stream) {
-  return launch_widest<__nv_bfloat16>(x, scale, idx, mask, out, B, k, F, stream);
+                                      int normalize, void* stream) {
+  return launch_widest<__nv_bfloat16>(x, scale, idx, mask, out, B, k, F, normalize, stream);
 }
 
 extern "C" int gsage_gather_mean_int8(const void* q, const void* scale, const void* idx,
                                       const void* mask, void* out, int B, int k, int F,
-                                      void* stream) {
-  return launch_widest<int8_t>(q, scale, idx, mask, out, B, k, F, stream);
+                                      int normalize, void* stream) {
+  return launch_widest<int8_t>(q, scale, idx, mask, out, B, k, F, normalize, stream);
 }

@@ -6,6 +6,12 @@
 //
 //   dX[idx[b, j], :] += g[b, :] / max(sum_j mask[b, j], 1)   for each valid (b, j)
 //
+// or, with normalize = 0 (the sum mode), g taken as already divided and
+// added once for each valid slot (unit weights): the owner side of the
+// node-sharded feature store's backward
+// (graphsage_torch/parallel/feature_store.py), where the requester divided by
+// its own valid count before the cotangent rows were gathered.
+//
 // g f32 [B, F]; idx int32 [B, k]; mask bool [B, k]; dX f32 [N, F], written
 // whole by the entry point (zeros first, then the sums), so the caller
 // allocates it uninitialised. Repeated ids sum. Ids in masked slots are never
@@ -93,7 +99,7 @@ __device__ __forceinline__ void scatter_row(const float* __restrict__ g,
                                             const int32_t* __restrict__ idx,
                                             const uint8_t* __restrict__ mask,
                                             float* __restrict__ dx, long long b, int k, int F,
-                                            int lane) {
+                                            int normalize, int lane) {
   const int32_t* r_idx = idx + b * k;
   const uint8_t* r_mask = mask + b * k;
   const bool short_row = k <= kWarp;  // uniform: one ballot holds every slot
@@ -112,7 +118,7 @@ __device__ __forceinline__ void scatter_row(const float* __restrict__ g,
     }
   }
   if (cnt == 0) return;  // uniform: nothing to add
-  const float denom = static_cast<float>(cnt);
+  const float denom = normalize ? static_cast<float>(cnt) : 1.f;
   for (int c0 = 0; c0 < F; c0 += kWarp * VEC) {
     const int col = c0 + lane * VEC;
     const bool active = col < F;  // F % VEC == 0, so the whole vector fits
@@ -156,15 +162,15 @@ template <int VEC>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 scatter_mean_kernel(const float* __restrict__ g, const int32_t* __restrict__ idx,
                     const uint8_t* __restrict__ mask, float* __restrict__ dx, int B, int k,
-                    int F) {
+                    int F, int normalize) {
   const long long b = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (b < B) scatter_row<VEC>(g, idx, mask, dx, b, k, F, threadIdx.x % kWarp);
+  if (b < B) scatter_row<VEC>(g, idx, mask, dx, b, k, F, normalize, threadIdx.x % kWarp);
 }
 
 // dX must be 16-byte aligned (the wrapper allocates it).
 template <int VEC>
 int launch(const void* g, const void* idx, const void* mask, void* dx, int N, int B, int k,
-           int F, cudaStream_t stream) {
+           int F, int normalize, cudaStream_t stream) {
   const size_t n = static_cast<size_t>(N) * F;
   // About four 16-byte stores per thread.
   zero_kernel<<<static_cast<int>(std::max<size_t>(1, (n / 4 + 1023) / 1024)), 256, 0,
@@ -175,7 +181,7 @@ int launch(const void* g, const void* idx, const void* mask, void* dx, int N, in
                              0, stream>>>(static_cast<const float*>(g),
                                           static_cast<const int32_t*>(idx),
                                           static_cast<const uint8_t*>(mask),
-                                          static_cast<float*>(dx), B, k, F);
+                                          static_cast<float*>(dx), B, k, F, normalize);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -186,11 +192,13 @@ bool aligned(const void* p, size_t bytes) {
 }  // namespace
 
 // 16-byte pieces where F and both row bases allow them, else single floats.
+// normalize: 1 for the mean's backward, 0 for the sum mode.
 extern "C" int gsage_scatter_mean_f32(const void* g, const void* idx, const void* mask,
-                                      void* dx, int N, int B, int k, int F, void* stream) {
+                                      void* dx, int N, int B, int k, int F, int normalize,
+                                      void* stream) {
   if (!aligned(dx, 16)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (F % 4 == 0 && aligned(g, 16))
-    return launch<4>(g, idx, mask, dx, N, B, k, F, s);
-  return launch<1>(g, idx, mask, dx, N, B, k, F, s);
+    return launch<4>(g, idx, mask, dx, N, B, k, F, normalize, s);
+  return launch<1>(g, idx, mask, dx, N, B, k, F, normalize, s);
 }

@@ -239,22 +239,30 @@ class GraphSAGE(nn.Module):
             return d_in > self.hidden_dims[layer]
         return bool(self.project_first)
 
-    def sampled_layer0_project_first(self, num_nodes: int, slots: int) -> bool:
+    def sampled_layer0_project_first(self, num_nodes: int, slots: int,
+                                     exchanged_rows: int = 0) -> bool:
         """Whether the sampled layer 0 projects the whole ``num_nodes``-row
         table before gathering ``slots`` neighbour rows. ``"auto"`` does
         when the layer shrinks its width (``d_in > d_out``) and
 
-            slots * (d_in - d_out) >= LAYER0_ORDER_KAPPA * num_nodes * d_in:
+            (slots + exchanged_rows) * (d_in - d_out)
+                >= LAYER0_ORDER_KAPPA * num_nodes * d_in:
 
         projecting first pays a fixed pass over the table (the product and
         its dW read all N rows of ``d_in``, and the backward scatters into
         the ``[N, d_out]`` table); aggregating first gathers ``d_in - d_out``
         more columns for each slot. ``LAYER0_ORDER_KAPPA`` is the ratio of
-        the two costs per column, measured on the H100 (``PERF.md`` §5)."""
+        the two costs per column, measured on the H100 (``PERF.md`` §5).
+        A node-sharded step counts its rank's shard rows and slots, and
+        ``exchanged_rows``: the layer's rows that cross to other ranks, each
+        ``d_in - d_out`` columns wider when aggregating first, counted as
+        gathered slots (a lower bound on their cost; 0 in a world of one,
+        where the rule is the single device's)."""
         d_in, d_out = self.in_dim, self.hidden_dims[0]
         return self.use_project_first(0, d_in) and (
             self.project_first != "auto"
-            or slots * (d_in - d_out) >= LAYER0_ORDER_KAPPA * num_nodes * d_in)
+            or (slots + exchanged_rows) * (d_in - d_out)
+            >= LAYER0_ORDER_KAPPA * num_nodes * d_in)
 
     # -------------------------------------------------------------- sample
     def sample(
@@ -401,26 +409,48 @@ class GraphSAGE(nn.Module):
         return_embeddings: bool = False,
         *,
         graph: Graph | None = None,
+        gather_fn=None,
+        gather_mean_fn=None,
+        layer0_table=None,
+        layer0_out: torch.Tensor | None = None,
+        exchange_ranks: int = 1,
     ) -> torch.Tensor:
         """Logits ``[B, num_classes]`` for the frontier's seed batch (or the
         pre-head representations with ``return_embeddings``). ``graph``
         supplies the adjacency (``layer0="full"``) or the cache
-        (``layer0="cached"``); the sampled mode ignores it."""
+        (``layer0="cached"``); the sampled mode ignores it.
+
+        The sharded trainers (:mod:`graphsage_torch.parallel`) inject their
+        own lookups, as the JAX model's ``gather_fn``/``gather_mean_fn`` do:
+        ``gather_fn(table, ids)`` (rows) and ``gather_mean_fn(table, idx,
+        mask)`` (the fused masked mean) replace the local ones, so that
+        ``features`` may be this rank's node-range shard, and
+        ``layer0_table`` replaces the graph's cache (``"cached"``).
+        ``exchange_ranks`` is the number of ranks those lookups exchange
+        rows over, which the sampled mean layer 0's order rule counts
+        (:meth:`sampled_layer0_project_first`). ``layer0_out`` is layer 0's
+        output at hop ``L - 1``, computed by the caller (the
+        tensor-parallel layer 0): only the upper layers and the head run."""
         L, cd = self.num_layers, self.compute_dtype
+        rows = gather_fn or self._gather_rows
         start = 1
-        if self.layer0 == "cached":
+        if layer0_out is not None:
+            h = layer0_out
+        elif self.layer0 == "cached":
             ids = frontier.ids[L - 1]
-            agg = self._gather_rows(self.check_layer0_cache(graph), ids)
-            self_h = self._gather_rows(features, ids) if self.concat_self else None
+            cache = layer0_table if layer0_table is not None else self.check_layer0_cache(graph)
+            agg = rows(cache, ids)
+            self_h = rows(features, ids) if self.concat_self else None
             h = self.layers[0](self_h, None, None, precomputed_agg=agg, compute_dtype=cd,
                                activation=self.layer_activation(0))
         elif self.layer0 == "full":
-            h = self._gather_rows(self.layer0_full_table(features, graph),
-                                  frontier.ids[L - 1])
+            h = rows(self.layer0_full_table(features, graph), frontier.ids[L - 1])
         elif self.aggregator == "mean":
-            h = self._sampled_mean_layer0(features, frontier)
+            h = self._sampled_mean_layer0(features, frontier, rows,
+                                          gather_mean_fn or self._gather_mean,
+                                          exchange_ranks)
         else:  # maxpool and lstm read the deepest hop's raw rows
-            h = self._gather_rows(features, frontier.ids[L])
+            h = rows(features, frontier.ids[L])
             if cd is not None:
                 h = h.to(cd)
             start = 0
@@ -445,9 +475,13 @@ class GraphSAGE(nn.Module):
             return h.to(torch.float32)
         return (h @ self.head.to(h.dtype)).to(torch.float32)
 
-    def _sampled_mean_layer0(self, features, frontier: Frontier) -> torch.Tensor:
+    def _sampled_mean_layer0(self, features, frontier: Frontier, rows, gather_mean_fn,
+                             exchange_ranks: int) -> torch.Tensor:
         """Layer 0 of the sampled mean model: the fused gather-mean over the
-        deepest hop, projecting first or aggregating first."""
+        deepest hop, projecting first or aggregating first. Over
+        ``exchange_ranks`` ranks each lookup's output rows cross ``S - 1``
+        links forward, and again backward under autograd (the ring
+        reduce-scatter and all-gather of the node-sharded exchange)."""
         L, cd = self.num_layers, self.compute_dtype
         n_out = frontier.ids[L - 1].shape[0]
         k_cols = frontier.ids[L].shape[0] // n_out
@@ -458,7 +492,10 @@ class GraphSAGE(nn.Module):
         neigh_ids, neigh_mask = ids2.contiguous(), m2.contiguous()
         layer0 = self.layers[0]
         self_ids = frontier.ids[L - 1]
-        if self.sampled_layer0_project_first(features.shape[0], neigh_ids.numel()):
+        lookups = 2 if self.concat_self else 1
+        passes = 2 if torch.is_grad_enabled() else 1
+        exchanged = passes * lookups * (exchange_ranks - 1) * n_out
+        if self.sampled_layer0_project_first(features.shape[0], neigh_ids.numel(), exchanged):
             # Project the whole table to d_out once, then gather-mean narrow
             # rows (exact: the mean is linear); an int8 table is contracted
             # raw and scaled after.
@@ -469,13 +506,13 @@ class GraphSAGE(nn.Module):
             else:
                 feats = features.to(w0.dtype)
                 project = lambda w: feats @ w  # noqa: E731
-            pre = self._gather_mean(project(w_neigh), neigh_ids, neigh_mask)
+            pre = gather_mean_fn(project(w_neigh), neigh_ids, neigh_mask)
             if self.concat_self:
-                pre = pre + self._gather_rows(project(w_self), self_ids)
+                pre = pre + rows(project(w_self), self_ids)
             return self._activate(0, pre).to(w0.dtype)
-        self_h = self._gather_rows(features, self_ids) if self.concat_self else None
+        self_h = rows(features, self_ids) if self.concat_self else None
         return layer0(self_h, None, None, compute_dtype=cd,
-                      precomputed_agg=self._gather_mean(features, neigh_ids, neigh_mask),
+                      precomputed_agg=gather_mean_fn(features, neigh_ids, neigh_mask),
                       activation=self.layer_activation(0))
 
     def apply_sampled(
@@ -496,13 +533,14 @@ class GraphSAGE(nn.Module):
     # ----------------------------------------------------------------- loss
     def loss(
         self, features: torch.Tensor, frontier: Frontier, labels: torch.Tensor,
-        *, graph: Graph | None = None,
+        *, graph: Graph | None = None, **injected,
     ) -> torch.Tensor:
         """Mean softmax cross-entropy of the frontier's seeds against their
         integer ``labels`` (reference model.py:35-37), or mean sigmoid BCE
-        over multi-hot labels under ``multilabel=True``."""
+        over multi-hot labels under ``multilabel=True``. ``injected`` are
+        :meth:`forward`'s lookups of the sharded trainers."""
         return self.classification_loss(
-            self(features, frontier, graph=graph), labels).mean()
+            self(features, frontier, graph=graph, **injected), labels).mean()
 
     def classification_loss(
         self, logits: torch.Tensor, labels: torch.Tensor
@@ -525,6 +563,7 @@ class GraphSAGE(nn.Module):
     # --------------------------------------------------------- full graph
     def forward_full_graph(
         self, graph: Graph, return_embeddings: bool = False, spmm_override=None,
+        segmax_override=None,
     ) -> torch.Tensor:
         """Deterministic logits for every node, using complete neighborhoods
         (the reference with ``num_sample=None``, quirk Q7). The LSTM reads
@@ -534,8 +573,12 @@ class GraphSAGE(nn.Module):
 
         ``spmm_override`` (``x -> (neighbor mean, valid count)``) replaces
         the mean aggregator's SpMM, as the full-graph trainer's bucketed
-        pass does; maxpool ignores it and lstm rejects it."""
-        if self.aggregator == "lstm" and spmm_override is not None:
+        pass does, and ``segmax_override`` (``pooled -> guarded per-node
+        max``) maxpool's segment max, as the edge-partitioned path
+        (:func:`graphsage_torch.parallel.distributed.distributed_full_graph_logits`)
+        does; lstm rejects both."""
+        if self.aggregator == "lstm" and (spmm_override is not None
+                                          or segmax_override is not None):
             raise ValueError(
                 "the edge-partitioned/halo full-graph paths support mean and "
                 "maxpool only — an LSTM over neighbor sequences is not a "
@@ -553,6 +596,7 @@ class GraphSAGE(nn.Module):
         if self.compute_dtype is not None:
             h = h.to(self.compute_dtype)
         spmm = self._spmm(graph) if spmm_override is None else spmm_override
+        segmax = self._segmax(graph) if segmax_override is None else segmax_override
         for l, layer in enumerate(self.layers):
             if self.aggregator == "mean":
                 h = apply_full_graph_mean_layer(
@@ -563,7 +607,7 @@ class GraphSAGE(nn.Module):
                 )
             elif self.aggregator == "maxpool":
                 h = apply_full_graph_maxpool_layer(
-                    layer, h, self._segmax(graph), self_loop=self.self_loop,
+                    layer, h, segmax, self_loop=self.self_loop,
                     activation=self.layer_activation(l))
             else:
                 h = layer(h if self.concat_self else None,

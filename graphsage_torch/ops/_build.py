@@ -33,12 +33,12 @@ LIB_NAME = "libgraphsage_torch_kernels.so"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argument types (pointers and the stream as c_void_p, sizes as c_int)
 SIGNATURES = {
-    "gsage_gather_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "gsage_gather_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "gsage_gather_mean_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gsage_gather_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gsage_gather_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gsage_gather_mean_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gsage_spmm_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsage_spmm_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gsage_scatter_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gsage_scatter_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsage_gather_mean_dma_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsage_gather_mean_dma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -119,4 +119,4 @@ def gather_mean_dma(
         fwd = _launch
     else:
         raise ValueError(f"no gather_mean_dma for device {features.device}")
-    return GatherMean.apply(features, idx, mask, fwd)
+    return GatherMean.apply(features, idx, mask, fwd, True)

@@ -5,6 +5,10 @@ the port of ``graphsage_tpu/ops/pallas_onehot.py:_kernel``.
 
     out[b] = sum_j mask[b, j] * features[idx[b, j]] / max(sum_j mask[b, j], 1)
 
+``normalize=False`` is the sum mode: the same sums undivided (the owner side
+of the node-sharded feature store's exchange); its backward is the
+scatter-mean's sum mode, unit weights per valid slot.
+
 A CUDA tensor goes to the kernel (or an exception); a CPU tensor goes to the
 plain PyTorch version :func:`gather_mean_plain`, which also serves as the
 reference the kernel is held against on the card. Ids in masked slots are
@@ -26,6 +30,7 @@ int8 table is frozen.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -34,18 +39,22 @@ from graphsage_torch.ops import _build
 from graphsage_torch.ops.scatter_mean import scatter_mean
 
 # Kernel launches since the last reset (a run sets it to 0 and reads it back
-# to show that its path went through the kernel).
+# to show that its path went through the kernel), and those of them in the
+# sum mode (``normalize=False``).
 launches = 0
+sum_launches = 0
 
 
 def gather_mean_plain(
-    features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor
+    features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+    normalize: bool = True,
 ) -> torch.Tensor:
-    """The plain PyTorch version: gather ``[B, k, F]``, masked mean in f32."""
+    """The plain PyTorch version: gather ``[B, k, F]``, masked mean (or,
+    without ``normalize``, sum) in f32."""
     safe = torch.where(mask, idx, torch.zeros_like(idx)).long()
     w = mask.to(torch.float32)[..., None]
     total = (features[safe].to(torch.float32) * w).sum(dim=-2)
-    return total / w.sum(dim=-2).clamp(min=1.0)
+    return total / w.sum(dim=-2).clamp(min=1.0) if normalize else total
 
 
 # The C entry point for each table dtype (an int8 table also passes its
@@ -80,8 +89,8 @@ def _check(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
 
 
 def _launch(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
-            scale: torch.Tensor | None = None) -> torch.Tensor:
-    global launches
+            scale: torch.Tensor | None = None, normalize: bool = True) -> torch.Tensor:
+    global launches, sum_launches
     b, k = idx.shape
     f = features.shape[1]
     out = torch.empty((b, f), dtype=torch.float32, device=features.device)
@@ -91,30 +100,35 @@ def _launch(features: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     stream = torch.cuda.current_stream(features.device).cuda_stream
     with torch.cuda.device(features.device):
         err = fn(features.data_ptr(), None if scale is None else scale.data_ptr(),
-                 idx.data_ptr(), mask.data_ptr(), out.data_ptr(), b, k, f, stream)
+                 idx.data_ptr(), mask.data_ptr(), out.data_ptr(), b, k, f, int(normalize),
+                 stream)
     _build.check(err, "gather_mean kernel")
     launches += 1
+    sum_launches += not normalize
     return out
 
 
 class GatherMean(torch.autograd.Function):
-    """``apply(features, idx, mask, fwd)`` runs ``fwd(features, idx, mask)``
-    (a kernel wrapper or a plain version); the backward scatters the
-    cotangent with :func:`scatter_mean` and casts it to the table's dtype."""
+    """``apply(features, idx, mask, fwd, normalize)`` runs ``fwd(features,
+    idx, mask)`` (a kernel wrapper or a plain version, of the mean or of the
+    sum as ``normalize`` says); the backward scatters the cotangent with
+    :func:`scatter_mean` in the same mode and casts it to the table's
+    dtype."""
 
     @staticmethod
-    def forward(ctx, features, idx, mask, fwd):
+    def forward(ctx, features, idx, mask, fwd, normalize=True):
         ctx.save_for_backward(idx, mask)
-        ctx.num_rows, ctx.dtype = features.shape[0], features.dtype
+        ctx.num_rows, ctx.dtype, ctx.normalize = features.shape[0], features.dtype, normalize
         return fwd(features, idx, mask)
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return None, None, None, None, None
         idx, mask = ctx.saved_tensors
-        dx = scatter_mean(grad.to(torch.float32).contiguous(), idx, mask, ctx.num_rows)
-        return dx.to(ctx.dtype), None, None, None
+        dx = scatter_mean(grad.to(torch.float32).contiguous(), idx, mask, ctx.num_rows,
+                          normalize=ctx.normalize)
+        return dx.to(ctx.dtype), None, None, None, None
 
 
 def _as_bf16(fwd: Callable) -> Callable:
@@ -126,8 +140,10 @@ def gather_mean(
     idx: torch.Tensor,
     mask: torch.Tensor,
     bf16: bool = False,
+    normalize: bool = True,
 ) -> torch.Tensor:
-    """Masked gather-mean ``[B, F]`` f32 (see module docstring).
+    """Masked gather-mean ``[B, F]`` f32 (see module docstring), or the sum
+    mode's masked sum with ``normalize=False``.
 
     ``bf16=True`` rounds the table to bfloat16 first, as the TPU kernel's
     flag does; a bfloat16 table is read as it is. Sums are f32 either way,
@@ -135,14 +151,14 @@ def gather_mean(
     """
     _check(features, idx, mask)
     if features.device.type == "cpu":
-        fwd = gather_mean_plain
+        fwd = functools.partial(gather_mean_plain, normalize=normalize)
     elif features.device.type == "cuda":
-        fwd = _launch
+        fwd = functools.partial(_launch, normalize=normalize)
     else:
         raise ValueError(f"no gather_mean for device {features.device}")
     if bf16 and features.dtype != torch.bfloat16:
         fwd = _as_bf16(fwd)
-    return GatherMean.apply(features, idx, mask, fwd)
+    return GatherMean.apply(features, idx, mask, fwd, normalize)
 
 
 def gather_mean_int8_plain(

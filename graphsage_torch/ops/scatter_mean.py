@@ -7,6 +7,10 @@ f32, the feature cotangent of :func:`graphsage_torch.ops.gather_mean.gather_mean
 
     dX[idx[b, j]] += g[b] / max(sum_j mask[b, j], 1)   for each valid (b, j)
 
+``normalize=False`` is the sum mode: ``g`` is taken as already divided, so
+each valid slot adds ``g[b]`` with unit weight (the owner side of the
+node-sharded feature store's backward).
+
 Repeated ids sum. A CUDA tensor goes to the kernel (or an exception); a CPU
 tensor goes to the plain PyTorch version :func:`scatter_mean_plain`, which
 also serves as the reference the kernel is held against on the card. Ids in
@@ -26,18 +30,24 @@ import torch
 from graphsage_torch.ops import _build
 
 # Kernel launches since the last reset (a run sets it to 0 and reads it back
-# to show that its path went through the kernel).
+# to show that its path went through the kernel), and those of them in the
+# sum mode (``normalize=False``).
 launches = 0
+sum_launches = 0
 
 
 def scatter_mean_plain(
-    g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, num_rows: int
+    g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, num_rows: int,
+    normalize: bool = True,
 ) -> torch.Tensor:
-    """The plain PyTorch version: per-slot rows ``g[b] / cnt[b]`` for the
-    valid slots, ``index_add_`` into zeros, in f32."""
+    """The plain PyTorch version: per-slot rows ``g[b] / cnt[b]`` (``g[b]``
+    without ``normalize``) for the valid slots, ``index_add_`` into zeros,
+    in f32."""
     k = idx.shape[1]
-    cnt = mask.sum(dim=1, keepdim=True).clamp(min=1).to(torch.float32)
-    per_slot = (g.to(torch.float32) / cnt).repeat_interleave(k, dim=0)
+    g = g.to(torch.float32)
+    if normalize:
+        g = g / mask.sum(dim=1, keepdim=True).clamp(min=1).to(torch.float32)
+    per_slot = g.repeat_interleave(k, dim=0)
     valid = mask.reshape(-1)
     return torch.zeros(
         (num_rows, g.shape[1]), dtype=torch.float32, device=g.device
@@ -67,8 +77,8 @@ def _check(g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> None:
 
 
 def _launch(g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
-            num_rows: int) -> torch.Tensor:
-    global launches
+            num_rows: int, normalize: bool = True) -> torch.Tensor:
+    global launches, sum_launches
     b, k = idx.shape
     f = g.shape[1]
     if b == 0 or f == 0 or k == 0:  # nothing to scatter
@@ -78,20 +88,23 @@ def _launch(g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     with torch.cuda.device(g.device):
         err = _build.library().gsage_scatter_mean_f32(
             g.data_ptr(), idx.data_ptr(), mask.data_ptr(), dx.data_ptr(),
-            num_rows, b, k, f, stream,
+            num_rows, b, k, f, int(normalize), stream,
         )
     _build.check(err, "scatter_mean kernel")
     launches += 1
+    sum_launches += not normalize
     return dx
 
 
 def scatter_mean(
-    g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, num_rows: int
+    g: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, num_rows: int,
+    normalize: bool = True,
 ) -> torch.Tensor:
-    """Masked scatter-mean ``[num_rows, F]`` f32 (see module docstring)."""
+    """Masked scatter-mean ``[num_rows, F]`` f32 (see module docstring), or
+    its sum mode with ``normalize=False``."""
     _check(g, idx, mask)
     if g.device.type == "cpu":
-        return scatter_mean_plain(g, idx, mask, num_rows)
+        return scatter_mean_plain(g, idx, mask, num_rows, normalize)
     if g.device.type != "cuda":
         raise ValueError(f"no scatter_mean for device {g.device}")
-    return _launch(g, idx, mask, num_rows)
+    return _launch(g, idx, mask, num_rows, normalize)

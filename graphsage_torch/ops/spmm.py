@@ -60,15 +60,18 @@ def spmm_mean_plain(
 
 
 def spmm_transpose_plain(
-    g: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor
+    g: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor,
+    num_rows: int | None = None,
 ) -> torch.Tensor:
     """``A^T g`` for the CSR adjacency ``A``: ``out[edge_dst[e]] += g[v]`` for
-    each edge ``e`` of row ``v``, f32 (the directed backward)."""
+    each edge ``e`` of row ``v``, f32 (the directed backward, and an edge
+    block's). ``num_rows`` is the output's (the table's) row count, by
+    default ``A``'s."""
     n = indptr.numel() - 1
     deg = (indptr[1:] - indptr[:-1]).long()
     e = int(indptr[-1])
     src = torch.repeat_interleave(torch.arange(n, device=g.device), deg)
-    return torch.zeros((n, g.shape[1]), dtype=torch.float32,
+    return torch.zeros((n if num_rows is None else num_rows, g.shape[1]), dtype=torch.float32,
                        device=g.device).index_add_(0, edge_dst[:e].long(),
                                                    g.to(torch.float32)[src])
 
@@ -77,10 +80,11 @@ def spmm_transpose_plain(
 _ENTRIES = {torch.float32: "gsage_spmm_mean_f32", torch.bfloat16: "gsage_spmm_mean_bf16"}
 
 
-def _check(features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor) -> None:
+def _check(features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor,
+           square: bool = True) -> None:
     if features.dim() != 2:
         raise ValueError(f"features must be [N, F], got {tuple(features.shape)}")
-    if indptr.dim() != 1 or indptr.numel() != features.shape[0] + 1:
+    if indptr.dim() != 1 or (square and indptr.numel() != features.shape[0] + 1):
         raise ValueError(
             f"indptr must be [N+1] = [{features.shape[0] + 1}], got "
             f"{tuple(indptr.shape)}"
@@ -121,7 +125,7 @@ def chunking(num_items: int) -> tuple[int, int]:
 
 def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
     global launches
-    n, f = features.shape
+    n, f = indptr.numel() - 1, features.shape[1]
     out = torch.empty((n, f), dtype=features.dtype, device=features.device)
     if n == 0 or f == 0:
         return out
@@ -196,3 +200,21 @@ def spmm_mean(
     else:
         raise ValueError(f"no spmm_mean for device {features.device}")
     return _SpmmMean.apply(features, indptr, edge_dst, normalize, symmetric, fwd)
+
+
+def spmm_block_sum(
+    features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor
+) -> torch.Tensor:
+    """The unnormalised CSR sum over an edge block's rows, ``[R, F]`` in the
+    features' dtype: ``out[r] = sum_{e in [indptr[r], indptr[r+1])}
+    features[edge_dst[e]]`` for the ``R = indptr.numel() - 1`` rows that
+    ``indptr`` covers, which may be fewer than the table's. Kernel 3 with
+    ``normalize=False`` on the card, its plain version on the CPU; no
+    autograd (the edge-partitioned path,
+    :mod:`graphsage_torch.parallel.distributed`, has its own backward)."""
+    _check(features, indptr, edge_dst, square=False)
+    if features.device.type == "cpu":
+        return spmm_mean_plain(features, indptr, edge_dst, normalize=False)
+    if features.device.type != "cuda":
+        raise ValueError(f"no spmm_mean for device {features.device}")
+    return _launch(features, indptr, edge_dst, False)

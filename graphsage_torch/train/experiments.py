@@ -28,13 +28,13 @@ from graphsage_torch.train.config import PRESETS, ExperimentConfig
 from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
 from graphsage_torch.train.unsupervised import UnsupervisedTrainer
-from graphsage_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from graphsage_torch.utils.checkpoint import restore_checkpoint
 from graphsage_torch.utils.diagnostics import diagnose
 from graphsage_torch.utils.logging import MetricsLogger
 
 # Training modes of the JAX package that the port does not run yet, and the
 # ROADMAP Queue 1 item that brings each.
-_NOT_PORTED_MODES = {"sharded": 14, "fully-sharded": 14}
+_NOT_PORTED_MODES = {"fully-sharded": "14c"}
 
 
 # The synthetic power-law datasets: JAX's sizes (its train/experiments.py),
@@ -64,13 +64,13 @@ def load_dataset(name: str, data_root: str | None = None, device=None) -> Graph:
     raise ValueError(f"unknown dataset {name!r}")
 
 
-def build_model(config: ExperimentConfig, graph: Graph) -> GraphSAGE:
-    """The preset's model on the graph's device, initialised from
-    ``config.train.seed``."""
+def build_model(config: ExperimentConfig, graph: Graph, device=None) -> GraphSAGE:
+    """The preset's model on ``device`` (default: the graph's), initialised
+    from ``config.train.seed``."""
     return GraphSAGE.from_config(
         config.model, graph.num_features, graph.num_classes,
         generator=torch.Generator().manual_seed(config.train.seed),
-        device=graph.device,
+        device=graph.device if device is None else device,
     )
 
 
@@ -107,7 +107,12 @@ def run_preset(
     model and trainer, run. ``mode="sampled"`` trains on minibatches with
     neighbor sampling (the reference's scheme), ``mode="full-graph"``
     full-batch over complete neighborhoods (:class:`FullGraphTrainer`, the
-    model built with every fanout ``None``); an ``objective="unsupervised"``
+    model built with every fanout ``None``), ``mode="sharded"`` sampled
+    over every rank of the process group with the feature table
+    node-sharded (:class:`~graphsage_torch.parallel.feature_store.
+    ShardedFeatureTrainer`; a plain process is a world of one, ``torchrun
+    --nproc-per-node=S`` gives S ranks, and only rank 0 logs and writes
+    checkpoints); an ``objective="unsupervised"``
     preset trains sampled with :class:`UnsupervisedTrainer`. The result
     holds the losses, step times, validation F1 and the ``trainer`` (with
     the trained model). ``quantize_features`` in the preset (or the
@@ -120,18 +125,37 @@ def run_preset(
     if mode in _NOT_PORTED_MODES:
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet (ROADMAP Queue 1 item "
-            f"{_NOT_PORTED_MODES[mode]}); the port trains mode='sampled' and "
-            "'full-graph'"
+            f"{_NOT_PORTED_MODES[mode]}); the port trains mode='sampled', "
+            "'full-graph' and 'sharded'"
         )
-    if mode not in ("sampled", "full-graph"):
+    if mode not in ("sampled", "full-graph", "sharded"):
         raise ValueError(f"unknown mode {mode!r}")
     config = preset_config(name, overrides)
+    model_device = None
+    if mode == "sharded":
+        from graphsage_torch.parallel import multihost
+
+        info = multihost.initialize(device=device)
+        s = info["process_count"]
+        if config.train.batch_size % s:
+            raise ValueError(
+                f"batch_size {config.train.batch_size} is not divisible by "
+                f"the {s} visible devices; pass --batch-size"
+            )
+        if not multihost.is_primary():
+            log = None
+        # The graph stays on the host: each rank's shard is cut from it.
+        model_device, device = multihost.device(), "cpu"
     graph = load_dataset(config.dataset, data_root, device)
     if config.model.quantize_features:
         graph = quantize_graph(graph)
         if log:
             log(f"feature table quantized to int8: {graph.features.nbytes} B resident")
     if config.train.objective == "unsupervised":
+        if mode == "sharded":
+            raise NotImplementedError(
+                "objective='unsupervised' with mode='sharded' is not ported yet "
+                "(ROADMAP Queue 1 item 14c)")
         if mode != "sampled":
             raise ValueError(
                 "objective='unsupervised' supports mode='sampled', the "
@@ -144,6 +168,18 @@ def run_preset(
         config = dataclasses.replace(
             config, model=dataclasses.replace(config.model, fanouts=fanouts))
         trainer = FullGraphTrainer(build_model(config, graph), graph, config.train)
+    elif mode == "sharded":
+        from graphsage_torch.parallel.feature_store import ShardedFeatureTrainer
+        from graphsage_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh({"data": s})
+        trainer = ShardedFeatureTrainer(build_model(config, graph, model_device), graph,
+                                        config.train, mesh)
+        if log:
+            stats = trainer.memory_stats()
+            log(f"{mode} over {s} device(s): "
+                f"{stats['feature_bytes_per_chip']} feature B/chip "
+                f"(replicated would be {stats['feature_bytes_replicated']})")
     else:
         trainer = Trainer(build_model(config, graph), graph, config.train)
     initial_state = None
@@ -179,7 +215,7 @@ def run_preset(
                          checkpoint_path=checkpoint_path,
                          checkpoint_every=checkpoint_every)
     if checkpoint_path:
-        written = save_checkpoint(checkpoint_path, trainer.state_dict())
+        written = trainer.write_checkpoint(checkpoint_path)
         if log:
             log(f"checkpoint written: {written}")
     result["trainer"] = trainer
@@ -200,7 +236,7 @@ def run_pubmed(data_root: str | None = None, **kwargs) -> dict[str, Any]:
 # Flags of the JAX package's CLI that the port does not take yet: the
 # ROADMAP Queue 1 item that brings each, or why it has no counterpart.
 _NOT_PORTED_FLAGS = {
-    "hub_cache_rows": 14,
+    "hub_cache_rows": "14b",
     "compilation_cache": "the port compiles no XLA programs",
     "no_compilation_cache": "the port compiles no XLA programs",
 }
@@ -277,7 +313,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     for flag, why in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag) not in (None, False):
             reason = (f"not ported yet (ROADMAP Queue 1 item {why})"
-                      if isinstance(why, int) else f"not ported: {why}")
+                      if why[0].isdigit() else f"not ported: {why}")
             raise NotImplementedError(f"--{flag.replace('_', '-')} is {reason}")
 
     overrides: dict[str, Any] = {}
@@ -304,6 +340,10 @@ def main(argv: Optional[list[str]] = None) -> None:
             resume_path=args.resume, eval_only=args.eval_only,
             checkpoint_every=args.checkpoint_every, device=args.device,
         )
+    if args.mode == "sharded":
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     if args.log_jsonl:
         with MetricsLogger(args.log_jsonl, stdout=False, run_name=args.preset) as ml:
             for i, loss in enumerate(result["losses"]):

@@ -14,7 +14,7 @@ The model holds its parameters, as with :class:`~graphsage_torch.train.
 trainer.Trainer`, and the run loop, checkpoints and resume are its
 (:class:`~graphsage_torch.train.trainer.TrainLoop`; the state has no
 generator: nothing is sampled). The halo mesh path comes with ROADMAP Queue
-1 item 14.
+1 item 14d.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class FullGraphTrainer(TrainLoop):
         if mesh is not None:
             raise NotImplementedError(
                 "FullGraphTrainer(mesh=...), the halo-exchange path, is not "
-                "ported yet (ROADMAP Queue 1 item 14)"
+                "ported yet (ROADMAP Queue 1 item 14d)"
             )
         if model.device != graph.device:
             raise ValueError(

@@ -164,9 +164,20 @@ class TrainLoop:
                 f"loss is {float(loss.detach())} at step {self.step_count} (--debug-nans)")
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self._reduce_gradients()
         self.optimizer.step()
         self.step_count += 1
         return loss.detach()
+
+    def _reduce_gradients(self) -> None:
+        """Combine the parameters' gradients across ranks before the update:
+        nothing on one device; the sharded trainers average them."""
+
+    def write_checkpoint(self, path: str) -> str | None:
+        """Write :meth:`state_dict` to ``path``; returns the file written
+        (``None`` on a sharded trainer's ranks other than the first, which
+        write nothing)."""
+        return save_checkpoint(path, self.state_dict())
 
     def _steps(self) -> Iterator[Callable[[], torch.Tensor]]:
         """One zero-argument step after another, from ``step_count`` on (a
@@ -215,7 +226,7 @@ class TrainLoop:
             if log and cfg.log_every and done % cfg.log_every == 0:
                 log(f"{done} {loss}")
             if checkpoint_every > 0 and (done + 1) % checkpoint_every == 0:
-                save_checkpoint(checkpoint_path, self.state_dict())
+                self.write_checkpoint(checkpoint_path)
 
         val = self.evaluate(self.val_nodes)
         steady = times[1:] if len(times) > 1 else times
@@ -250,17 +261,11 @@ class Trainer(TrainLoop):
                 f"config asks for {config.objective!r}: objective='unsupervised' "
                 "trains with UnsupervisedTrainer (run_preset dispatches to it)"
             )
+        graph = self._prepare_graph(model, graph)
         if model.device != graph.device:
             raise ValueError(
                 f"the model lies on {model.device} and the graph on {graph.device}"
             )
-        if model.layer0 == "cached":
-            if graph.layer0_cache is None:
-                # An int8 graph keeps an int8 cache: a dense one would be
-                # four times the table that quantize_graph shrank.
-                graph = with_cached_layer0(graph, self_loop=model.self_loop,
-                                           quantize=is_quantized(graph.features))
-            model.check_layer0_cache(graph)
         self.model = model
         self.graph = graph
         self.cfg = config
@@ -277,6 +282,19 @@ class Trainer(TrainLoop):
                 f"consume them all"
             )
         self._labels = graph.labels.cpu().numpy()
+
+    def _prepare_graph(self, model: GraphSAGE, graph: Graph) -> Graph:
+        """The graph this trainer samples from: ``graph``, with its layer-0
+        cache built when a ``layer0="cached"`` model needs one (int8 for an
+        int8 graph) and checked against the model's flavor."""
+        if model.layer0 == "cached":
+            if graph.layer0_cache is None:
+                # An int8 graph keeps an int8 cache: a dense one would be
+                # four times the table that quantize_graph shrank.
+                graph = with_cached_layer0(graph, self_loop=model.self_loop,
+                                           quantize=is_quantized(graph.features))
+            model.check_layer0_cache(graph)
+        return graph
 
     # ------------------------------------------------------------------- step
     def step(self, seeds: np.ndarray) -> torch.Tensor:

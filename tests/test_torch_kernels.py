@@ -142,6 +142,55 @@ def test_scatter_mean_kernel_unaligned_cotangent(cuda):
                                sm.scatter_mean_plain(g, idx, mask, 64), **TOL)
 
 
+# The sum modes (normalize=False): the owner side of the node-sharded
+# feature store's exchange (parallel/feature_store.py) at its shapes: an
+# owner serves S * B_loc requests, most of them for rows it does not own.
+SUM_SHAPES = [
+    (91, 45, 21, 6),          # F not a multiple of 4
+    (1360, 128, 5120, 10),    # Cora's shard at S = 2 (project-first rows)
+    (19717, 128, 25600, 10),  # Pubmed at S = 1
+    (120, 64, 33, 40),        # more than 32 slots per row
+    (400, 1433, 64, 1),       # row lookups: one slot per request
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,f,b,k", SUM_SHAPES)
+def test_gather_sum_mode_matches_plain(cuda, dtype, n, f, b, k):
+    x, idx, mask = _gather_case(n, f, b, k, seed=n + k + 3, dev=cuda, dtype=dtype)
+    before = gm.launches
+    got = gm.gather_mean(x, idx, mask, normalize=False)
+    torch.cuda.synchronize()
+    assert gm.launches == before + 1 and got.dtype == torch.float32
+    want = gm.gather_mean_plain(x, idx, mask, normalize=False)
+    torch.testing.assert_close(got, want, **TOL)
+    # A second launch sums in the same order.
+    assert torch.equal(got, gm.gather_mean(x, idx, mask, normalize=False))
+
+
+@pytest.mark.parametrize("n,f,b,k", SUM_SHAPES)
+def test_scatter_sum_mode_matches_plain(cuda, n, f, b, k):
+    _, idx, mask = _gather_case(n, f, b, k, seed=n + k + 4, dev=cuda)
+    g = torch.randn(b, f, generator=torch.Generator().manual_seed(k)).to(cuda)
+    before = sm.launches
+    got = sm.scatter_mean(g, idx, mask, n, normalize=False)
+    torch.cuda.synchronize()
+    assert sm.launches == before + 1
+    torch.testing.assert_close(got, sm.scatter_mean_plain(g, idx, mask, n, normalize=False),
+                               **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sum_mode_gradient_is_the_scatter_sum(cuda, dtype):
+    x, idx, mask = _gather_case(2708, 128, 2560, 10, seed=11, dev=cuda, dtype=dtype)
+    g = torch.randn(2560, 128, generator=torch.Generator().manual_seed(2)).to(cuda)
+    x_kern = x.clone().requires_grad_(True)
+    gm.gather_mean(x_kern, idx, mask, normalize=False).backward(g)
+    want = sm.scatter_mean_plain(g, idx, mask, 2708, normalize=False)
+    tol = TOL if dtype == torch.float32 else BF16_GRAD_TOL
+    torch.testing.assert_close(x_kern.grad.float(), want.to(dtype).float(), **tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,f,b,k", [(91, 45, 21, 6), (2708, 128, 2560, 10),
                                      (400, 1433, 64, 10)])

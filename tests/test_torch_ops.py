@@ -13,6 +13,7 @@ import torch
 
 import graphsage_torch.ops.gather_dma as gd
 import graphsage_torch.ops.gather_mean as gm
+import graphsage_torch.ops.scatter_mean as sm
 import graphsage_torch.ops.spmm as sp
 from graphsage_tpu.data.graph import build_graph as jax_build_graph
 from graphsage_tpu.ops.aggregate import gather_mean as jax_gather_mean
@@ -64,6 +65,31 @@ def test_gather_mean_plain_matches_pallas_kernel(case, bf16):
     assert gm.launches == before and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     np.testing.assert_array_equal(got[3].numpy(), 0.0)
+
+
+def test_sum_modes_plain_match_jax_sums(case):
+    """``normalize=False``: kernel 1's plain version is JAX's masked mean
+    times the valid count (the sum), kernel 2's adds each valid slot's
+    cotangent row with unit weight; through the wrapper the sum mode's
+    gradient is the scatter's sum mode."""
+    feats, idx, mask = case
+    cnt = np.maximum(mask.sum(axis=1, keepdims=True), 1).astype(np.float32)
+    mean = np.asarray(jax_masked_mean(jnp.asarray(feats)[jnp.asarray(idx)], jnp.asarray(mask)))
+    x, i, m = _t(feats, idx, mask)
+    got = gm.gather_mean_plain(x, i, m, normalize=False)
+    np.testing.assert_allclose(got.numpy(), mean * cnt, **TOL)
+    g = np.random.default_rng(1).normal(size=(21, 45)).astype(np.float32)
+    want = np.zeros_like(feats)
+    for b, j in zip(*np.nonzero(mask)):
+        want[idx[b, j]] += g[b]
+    np.testing.assert_allclose(
+        sm.scatter_mean_plain(torch.from_numpy(g), i, m, 91, normalize=False).numpy(), want,
+        **TOL)
+    xg = x.clone().requires_grad_(True)
+    before = (gm.launches, sm.launches)
+    gm.gather_mean(xg, i, m, normalize=False).backward(torch.from_numpy(g))
+    assert (gm.launches, sm.launches) == before
+    np.testing.assert_allclose(xg.grad.numpy(), want, **TOL)
 
 
 def test_gather_mean_plain_ignores_ids_in_masked_slots(case):

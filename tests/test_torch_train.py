@@ -255,7 +255,7 @@ def test_run_cora_quiet(synth_cora_root, capsys):
     (["--hub-cache-rows", "8"], "Queue 1 item 14"),
     (["--mode", "fully-sharded"], "Queue 1 item 14"),
     (["--compilation-cache", "cache"], "not ported"),
-    (["--mode", "sharded"], "Queue 1 item 14"),
+    (["--mode", "sharded", "--layer0", "full"], "Queue 1 item 14"),
 ])
 def test_cli_rejects_what_is_not_ported(argv, match, synth_cora_root):
     with pytest.raises(NotImplementedError, match=match):

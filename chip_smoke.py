@@ -158,8 +158,36 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    1 and 2 are also checked (phase 4: f32 and bf16 tables, colliding
    atomics, a second launch bitwise equal) and timed (phase 5) at each
    frontier.
-14. a ``{"kernels": [...]}`` line (the sum modes as their own entries),
-   then the last line ``{"ok": true, "device": {...}}``.
+14. the compact exchange, the hub cache, the fully sharded trainers, in the
+   world of one over NCCL (after phase 13's node-sharded runs): kernels 1 and
+   2 (mean modes) at the compact answer-buffer shapes of ``cora`` and
+   ``pubmed`` against their plain versions (kernel 1 also against the direct
+   gather-mean) and timed; ``ShardedFeatureTrainer(gather_mode="compact")``
+   at ``cora`` and ``pubmed`` (40 steps: kernel 1's mean mode over the
+   answer buffer once per step and evaluation, kernel 2's mean mode into the
+   buffer's gradient and its sum mode into the shard's once per step) within
+   ``RESUME_RTOL`` of the single-device run, with the largest relative gaps
+   to it and to the dense run, host and device ms, the collectives' share,
+   launches by mode and ``sharded_comm_stats``; the retry ladder (``cora`` at
+   ``capacity_slack=0.25``: two warnings a step, then applied, losses equal
+   the compact run's; its host and device ms); the hub cache
+   (``pubmed_layer0_cached`` on the stand-in with and without 256 hub rows,
+   losses within ``HUB_RTOL``, ``hub_request_fraction``);
+   ``FullyShardedTrainer`` at ``cora``, ``pubmed`` and
+   ``pubmed_layer0_cached`` (5 steps at covering fanouts equal to the
+   node-sharded run's, 40 at the preset's over the learning bar,
+   ``memory_stats``); ``cora_unsup`` (150 steps) under
+   ``UnsupervisedShardedTrainer`` (compact) and
+   ``UnsupervisedFullyShardedTrainer`` against the bars of ``PERF.md`` §2;
+   the CLI once (``--mode fully-sharded --steps 20``, which ends the process
+   group). The two-rank phase (13) runs ``FullyShardedTrainer`` first (each
+   rank's measured allocator blocks of its graph arrays below the whole
+   arrays', its largest live block below the whole table's), then the dense
+   and compact ``ShardedFeatureTrainer`` (within ``RESUME_RTOL`` of one
+   device), at ``cora``, 20 steps each.
+15. a ``{"kernels": [...]}`` line (the sum modes, and the compact
+   answer-buffer mean modes, as their own entries), then the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -220,12 +248,24 @@ from graphsage_torch.parallel.distributed import (
     distributed_full_graph_logits,
     edge_block,
 )
-from graphsage_torch.parallel.feature_store import ShardedFeatureTrainer
+from graphsage_torch.parallel.feature_store import (
+    FullyShardedTrainer,
+    ShardedFeatureTrainer,
+    hub_request_fraction,
+    request_capacity,
+    route_buckets,
+    shard_features,
+    sharded_comm_stats,
+)
 from graphsage_torch.parallel.mesh import make_mesh
 from graphsage_torch.parallel.partition import partition_edges
 from graphsage_torch.train.experiments import build_model, load_dataset, preset_config
 from graphsage_torch.train.experiments import main as train_main
 from graphsage_torch.train.trainer import Trainer
+from graphsage_torch.train.unsupervised import (
+    UnsupervisedFullyShardedTrainer,
+    UnsupervisedShardedTrainer,
+)
 from graphsage_torch.utils import memory
 from graphsage_torch.utils.checkpoint import restore_checkpoint
 from graphsage_torch.utils.metrics import micro_f1
@@ -2332,17 +2372,391 @@ def sharded_run(name, root, main_launches) -> dict:
           f"evaluation's) {per_step}")
     print(f"   sharded {name} memory_stats: {sharded.memory_stats()}")
     return dict(stats, nccl_ms=sum(nccl.values()), single_device_ms=single_ms,
-                launches=launches)
+                launches=launches, losses=result["losses"], single_losses=single["losses"],
+                single_host_ms=single["mean_step_time"] * 1e3)
+
+
+COMPACT_STEPS = 40
+LADDER_SLACK = 0.25
+LADDER_STEPS = 3
+COVER_STEPS = 5
+FULLY_STEPS = 40
+HUB_ROWS = 256
+HUB_RTOL = 1e-6
+# Kernels 1 and 2 in their mean modes over the compact exchange's answer
+# buffer: their launches on the compact path are counted apart.
+COMPACT_KERNELS = {"gather_mean_compact": "gather_mean", "scatter_mean_compact": "scatter_mean"}
+
+
+def mean_mode(launches: dict) -> dict:
+    """Kernel 1's and 2's mean-mode launches in ``launches`` (every launch
+    of theirs less those of their sum modes)."""
+    return {"gather_mean_compact": launches["gather_mean"] - launches["gather_mean_sum"],
+            "scatter_mean_compact": launches["scatter_mean"] - launches["scatter_mean_sum"]}
+
+
+def compact_step_launches(model, shard_rows: int, batch: int, steps: int, evals: int) -> dict:
+    """Launches of ``steps`` compact steps and ``evals`` sampled
+    evaluations of a sampled mean model in a world of one: kernel 1's mean
+    mode over the answer buffer once per forward; when layer 0 projects
+    first, kernel 2's mean mode into the buffer's gradient and its sum mode
+    into the shard's once per step (a frozen table has no backward)."""
+    want = {name: 0 for name in KERNELS}
+    pf = model.sampled_layer0_project_first(shard_rows, layer0_slots(model, batch))
+    want["gather_mean"] = steps + evals
+    want["scatter_mean"] = 2 * steps * pf
+    want["scatter_mean_sum"] = steps * pf
+    return want
+
+
+def relative_gap(got, want) -> float:
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(want)) / np.abs(want)))
+
+
+def collective_ms(by_name: dict) -> float:
+    """Device ms of the collectives in a profile: NCCL's kernels, and the
+    copies a world of one's collectives become."""
+    return sum(v for k, v in by_name.items() if "nccl" in k.lower() or "memcpy" in k.lower())
+
+
+def compact_run(name, root, dense, main_launches, compact_launches) -> dict:
+    """``name``'s preset through ``ShardedFeatureTrainer(gather_mode=
+    "compact")`` in the world of one, counters set to 0 just before and read
+    just after, against the dense and single-device runs from the same seed
+    (``dense``, :func:`sharded_run`'s record): the losses' largest relative
+    gap, the learning bar, host and device ms, the collectives' share of
+    the device time, launches by mode and ``sharded_comm_stats``."""
+    cfg = preset_config(name, {"num_steps": COMPACT_STEPS})
+    host = load_dataset(cfg.dataset, root, "cpu")
+    reset_launches()
+    tr = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train,
+                               make_mesh({"data": 1}), gather_mode="compact")
+    result = tr.run(log=None)
+    launches = read_launches()
+    want = compact_step_launches(tr.model, tr.features.rows_per_shard, cfg.train.batch_size,
+                                 COMPACT_STEPS, 1)
+    if launches != want:
+        raise AssertionError(f"compact {name}: launches {launches}, want {want}")
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    for kernel, count in mean_mode(launches).items():
+        compact_launches[kernel] += count
+    np.testing.assert_allclose(result["losses"], dense["single_losses"], rtol=RESUME_RTOL,
+                               err_msg=f"compact {name} != single-device {name}")
+    result["trainer"] = tr
+    stats = check_learning(f"compact {name}", result)
+    seeds = next(tr.batches())
+    by_name = device_profile(lambda: tr.step(seeds), iters=10)
+    coll = collective_ms(by_name)
+    dev = sum(by_name.values())
+    batch = cfg.train.batch_size
+    comm = {s: sharded_comm_stats(tr.model, batch, s, slack=tr.capacity_slack)
+            for s in (1, 8)}
+    print(f"   compact {name}: {COMPACT_STEPS} losses within "
+          f"{relative_gap(result['losses'], dense['single_losses']):.3g} of the single-device "
+          f"run's and {relative_gap(result['losses'], dense['losses']):.3g} of the dense "
+          f"run's (relative); per step: host ms {stats['host_ms_per_step']:.3f} (dense "
+          f"{dense['host_ms_per_step']:.3f}, single {dense['single_host_ms']:.3f}), device "
+          f"ms {dev:.4f} (dense {dense['device_ms_per_step']:.4f}, single "
+          f"{dense['single_device_ms']:.4f}), of it the collectives {coll:.4f} "
+          f"({coll / dev:.1%}); launches by mode: mean {mean_mode(launches)}, sum "
+          f"{ {k: launches[k] for k in ('gather_mean_sum', 'scatter_mean_sum')} }")
+    for s, st in comm.items():
+        print(f"   compact {name} sharded_comm_stats at S = {s}: {st}")
+    return dict(stats, losses=result["losses"], device_ms=dev, collective_ms=coll,
+                launches=launches, trainer=tr)
+
+
+def ladder(root, compact) -> None:
+    """``cora`` compact at ``capacity_slack=0.25``: in a world of one every
+    request goes to rank 0, so slacks 0.25 and 0.5 overflow (capacity 6400
+    and 12800 against 25600 requests) and 1.0 fits. Each step warns twice,
+    then applies; its losses equal the compact run's. The ladder's cost:
+    host and device ms of its step against the compact step's."""
+    cfg = preset_config("cora", {"num_steps": LADDER_STEPS})
+    host = load_dataset("cora", root, "cpu")
+    tr = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train,
+                               make_mesh({"data": 1}), gather_mode="compact",
+                               capacity_slack=LADDER_SLACK)
+    it = tr.batches()
+    losses, times = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(LADDER_STEPS):
+            seeds = next(it)
+            t0 = time.perf_counter()
+            losses.append(float(tr.step(seeds)))
+            times.append((time.perf_counter() - t0) * 1e3)
+    said = [str(w.message) for w in caught if "capacity" in str(w.message)]
+    if len(said) != 2 * LADDER_STEPS or tr.step_count != LADDER_STEPS:
+        raise AssertionError(f"ladder: {len(said)} warnings, {tr.step_count} steps: {said}")
+    np.testing.assert_allclose(losses, compact["losses"][:LADDER_STEPS], rtol=RESUME_RTOL,
+                               err_msg="ladder losses != the compact run's")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dev = sum(device_profile(lambda: tr.step(seeds), iters=5).values())
+    print(f"   ladder: {LADDER_STEPS} steps at slack {LADDER_SLACK}, each warned twice "
+          f"({said[0][:60]}...; {said[1][:60]}...) then applied; losses "
+          f"{np.round(losses, 6).tolist()} within {relative_gap(losses, compact['losses'][:LADDER_STEPS]):.3g} "
+          f"of the compact run's; a ladder step: host ms {np.round(times, 3).tolist()} "
+          f"(the compact step {compact['host_ms_per_step']:.3f}), device ms {dev:.4f} "
+          f"(compact {compact['device_ms']:.4f})")
+
+
+def hub_runs(graph, main_launches) -> None:
+    """``pubmed_layer0_cached`` (pure mean: the cache rows through the
+    compact row gather) on the heavy-tailed stand-in at lr 0.1, compact,
+    with and without ``hub_cache_rows=256``: the losses agree within
+    ``HUB_RTOL``; kernel 3 builds each run's cache once and nothing else
+    launches."""
+    host = graph.to("cpu")
+    cfg = preset_config("pubmed_layer0_cached", {"num_steps": COMPACT_STEPS,
+                                                 "learning_rate": 0.1})
+    runs = {}
+    for rows in (0, HUB_ROWS):
+        reset_launches()
+        tr = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train,
+                                   make_mesh({"data": 1}), gather_mode="compact",
+                                   hub_cache_rows=rows)
+        result = tr.run(log=None)
+        launches = read_launches()
+        if launches != {**{k: 0 for k in KERNELS}, "spmm_mean": 1}:
+            raise AssertionError(f"hub {rows}: launches {launches}")
+        for kernel, count in launches.items():
+            main_launches[kernel] += count
+        seeds = next(tr.batches())
+        dev = sum(device_profile(lambda: tr.step(seeds), iters=10).values())
+        runs[rows] = dict(losses=result["losses"], host_ms=result["mean_step_time"] * 1e3,
+                          device_ms=dev, val=result["val_micro_f1"],
+                          hub_bytes=tr.memory_stats()["hub_cache_bytes_per_chip"])
+    np.testing.assert_allclose(runs[HUB_ROWS]["losses"], runs[0]["losses"], rtol=HUB_RTOL,
+                               err_msg="hub-cache losses != the routed run's")
+    frac = hub_request_fraction(host.degrees, HUB_ROWS)
+    print(f"   hub cache, pubmed_layer0_cached on the stand-in (max degree "
+          f"{int(host.degrees.max())}): hub_request_fraction({HUB_ROWS}) = {frac:.4f}; "
+          f"{COMPACT_STEPS} losses within {relative_gap(runs[HUB_ROWS]['losses'], runs[0]['losses']):.3g} "
+          f"(relative) of the run without it ({runs[0]['losses'][0]:.4f} -> "
+          f"{runs[0]['losses'][-1]:.4f}); per step host ms {runs[0]['host_ms']:.3f} without, "
+          f"{runs[HUB_ROWS]['host_ms']:.3f} with; device ms {runs[0]['device_ms']:.4f} "
+          f"without, {runs[HUB_ROWS]['device_ms']:.4f} with; hub bytes "
+          f"{runs[HUB_ROWS]['hub_bytes']}; val micro-F1 {runs[0]['val']:.4f}, "
+          f"{runs[HUB_ROWS]['val']:.4f}")
+
+
+def fully_sharded_run(name, root, main_launches, compact_launches) -> dict:
+    """``FullyShardedTrainer`` in the world of one: ``COVER_STEPS`` steps at
+    covering fanouts equal to ``ShardedFeatureTrainer``'s (``RESUME_RTOL``),
+    then ``FULLY_STEPS`` steps at the preset's fanouts, counters set to 0
+    just before and read just after, over the learning bar; its
+    ``memory_stats``."""
+    host = load_dataset(PRESETS[name].dataset, root, "cpu")
+    cover = int(host.neighbors.shape[1])  # the ELL width: no draw at all
+    mesh = make_mesh({"data": 1})
+    cov = preset_config(name, {"num_steps": COVER_STEPS,
+                               "fanouts": (cover,) * len(PRESETS[name].model.fanouts)})
+    got = {}
+    for cls in (FullyShardedTrainer, ShardedFeatureTrainer):
+        tr = cls(build_model(cov, host, "cuda"), host, cov.train, mesh)
+        it = tr.batches()
+        got[cls.__name__] = [float(tr.step(next(it))) for _ in range(COVER_STEPS)]
+    np.testing.assert_allclose(got["FullyShardedTrainer"], got["ShardedFeatureTrainer"],
+                               rtol=RESUME_RTOL,
+                               err_msg=f"fully sharded {name} != node-sharded at covering fanouts")
+    cfg = preset_config(name, {"num_steps": FULLY_STEPS})
+    reset_launches()
+    tr = FullyShardedTrainer(build_model(cfg, host, "cuda"), host, cfg.train, mesh)
+    result = tr.run(log=None)
+    launches = read_launches()
+    if tr.model.layer0 == "cached":
+        want = {**{k: 0 for k in KERNELS}, "spmm_mean": 1}
+    else:
+        want = compact_step_launches(tr.model, tr.features.rows_per_shard,
+                                     cfg.train.batch_size, FULLY_STEPS, 1)
+    if launches != want:
+        raise AssertionError(f"fully sharded {name}: launches {launches}, want {want}")
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    for kernel, count in mean_mode(launches).items():
+        compact_launches[kernel] += count
+    result["trainer"] = tr
+    stats = check_learning(f"fully sharded {name}", result)
+    seeds = next(tr.batches())
+    by_name = device_profile(lambda: tr.step(seeds), iters=10)
+    dev, coll = sum(by_name.values()), collective_ms(by_name)
+    print(f"   fully sharded {name}: covering fanout {cover}, {COVER_STEPS} losses within "
+          f"{relative_gap(got['FullyShardedTrainer'], got['ShardedFeatureTrainer']):.3g} of "
+          f"the node-sharded run's; preset fanouts: device ms {dev:.4f}, of it the "
+          f"collectives {coll:.4f} ({coll / dev:.1%}); launches {launches}")
+    print(f"   fully sharded {name} memory_stats: {tr.memory_stats()}")
+    print(f"   fully sharded {name} sharded_comm_stats at S = 8: "
+          f"{sharded_comm_stats(tr.model, cfg.train.batch_size, 8, fully_sharded=True)}")
+    return dict(stats, device_ms=dev, collective_ms=coll, launches=launches)
+
+
+def unsupervised_sharded(root, main_launches, compact_launches) -> None:
+    """``cora_unsup`` (150 steps) under ``UnsupervisedShardedTrainer``
+    (compact) and ``UnsupervisedFullyShardedTrainer`` in the world of one,
+    counters set to 0 just before and read just after: the loss drop and
+    the probe's micro-F1 against the bars of ``PERF.md`` §2 (last-10 mean
+    below first-10 minus 0.3; probe above chance + 0.2), host and device
+    ms per step."""
+    cfg = preset_config("cora_unsup")
+    host = load_dataset("cora", root, "cpu")
+    steps = cfg.train.num_steps
+    groups = cfg.train.batch_size * (2 + cfg.train.num_negatives)
+    for cls, kw in ((UnsupervisedShardedTrainer, dict(gather_mode="compact")),
+                    (UnsupervisedFullyShardedTrainer, {})):
+        label = cls.__name__
+        reset_launches()
+        tr = cls(build_model(cfg, host, "cuda"), host, cfg.train, make_mesh({"data": 1}), **kw)
+        result = tr.run(log=None)
+        launches = read_launches()
+        full_probe = cls is UnsupervisedShardedTrainer
+        want = compact_step_launches(tr.model, tr.features.rows_per_shard, groups, steps,
+                                     0 if full_probe else 1)
+        want["spmm_mean"] = tr.model.num_layers if full_probe else 0
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want {want}")
+        for kernel, count in launches.items():
+            main_launches[kernel] += count
+        for kernel, count in mean_mode(launches).items():
+            compact_launches[kernel] += count
+        losses = np.asarray(result["losses"])
+        drop = float(losses[:10].mean() - losses[-10:].mean())
+        chance = 1.0 / host.num_classes
+        held = dict(loss=drop > UNSUP_BARS["loss_drop"],
+                    probe=result["val_micro_f1"] > chance + UNSUP_BARS["probe_margin"],
+                    finite=bool(np.isfinite(losses).all()))
+        host_ms = result["mean_step_time"] * 1e3
+        dev, top = step_device_ms(tr)
+        print(f"   {label} cora_unsup: loss first-10 {losses[:10].mean():.4f} -> last-10 "
+              f"{losses[-10:].mean():.4f} (drop {drop:.4f}, bar {UNSUP_BARS['loss_drop']}); "
+              f"probe val micro-F1 {result['val_micro_f1']:.4f} (bar above "
+              f"{chance + UNSUP_BARS['probe_margin']:.4f}); held {held}; host ms per step "
+              f"{host_ms:.3f}, device ms {dev:.4f}, idle share {1 - dev / host_ms:.3f}, top "
+              f"{top}; launches {launches}")
+        if not all(held.values()):
+            raise AssertionError(f"{label}: bars missed: {held}")
+
+
+def compact_buffer_kernels(models, graphs, timings, errs) -> None:
+    """Kernels 1 and 2 (mean modes) at the compact answer-buffer shapes of
+    a world of one: the preset batch's deepest hop routed by
+    ``route_buckets`` into ``[cap, 128]`` (cap = 1.5x the requests), read at
+    ``take``; each against its plain version (``TOL``) and kernel 1 against
+    the direct gather-mean; timed as phase 5 times them."""
+    for label in ("cora", "pubmed"):
+        g = graphs[label]
+        batch = PRESETS[PRESET_OF[label]].train.batch_size
+        table, idx, mask = frontier_inputs(models[label], g, batch, seed=3)
+        b, k = idx.shape
+        shard = shard_features(table, 1, 0).shard
+        cap = request_capacity(idx.numel(), 1, 1.5)
+        req, take, violated = route_buckets(idx.reshape(-1), 1, shard.shape[0], cap,
+                                            mask.reshape(-1))
+        if bool(violated):
+            raise AssertionError(f"compact buffer {label}: the route overflowed")
+        # The owner's answers: its rows at the routed ids, row 0 for the
+        # masked and unused slots (sent as -1).
+        buffer = shard.index_select(0, req.reshape(-1).clamp(min=0).long()).contiguous()
+        slots = take.to(torch.int32).view(b, k).contiguous()
+        got = gm_kernel.gather_mean(buffer, slots, mask)
+        e = max_err(got, gm_kernel.gather_mean_plain(buffer, slots, mask),
+                    f"gather_mean compact buffer {label}")
+        max_err(got, gm_kernel.gather_mean(table, idx, mask),
+                f"gather_mean compact buffer {label} against the direct gather")
+        check_repeat(got, lambda: gm_kernel.gather_mean(buffer, slots, mask),
+                     f"gather_mean compact buffer {label}")
+        errs["gather_mean_compact"] = max(errs["gather_mean_compact"], e)
+        grad = torch.randn(b, table.shape[1], generator=torch.Generator().manual_seed(5)).to(
+            g.device)
+        rows = buffer.shape[0]
+        es = max_err(sm_kernel.scatter_mean(grad, slots, mask, rows),
+                     sm_kernel.scatter_mean_plain(grad, slots, mask, rows),
+                     f"scatter_mean compact buffer {label}")
+        errs["scatter_mean_compact"] = max(errs["scatter_mean_compact"], es)
+        print(f"   compact buffer {label}: [{rows},{table.shape[1]}] f32, B={b}, k={k}: "
+              f"gather max_abs_err={e:.3g}, scatter max_abs_err={es:.3g}")
+        st = slot_stats(slots, mask)
+        timings["gather_mean_compact"].append(gather_record(
+            label, f"{label} compact answer buffer", buffer, slots, mask, st))
+        timings["scatter_mean_compact"].append(scatter_record(
+            label, f"{label} compact answer buffer, backward", buffer, slots, mask, st))
+    print_records({k: timings[k] for k in COMPACT_KERNELS})
+
+
+def compact_and_fully_sharded(graphs, roots, results, timings, errs, main_launches,
+                              compact_launches) -> None:
+    """This slice's phases in the world of one over NCCL (see the module
+    docstring, phase 14)."""
+    with phase("compact: answer-buffer kernels"):
+        models = {label: GraphSAGE.from_config(
+            PRESETS[PRESET_OF[label]].model, graphs[label].num_features,
+            graphs[label].num_classes, generator=torch.Generator().manual_seed(0))
+            for label in ("cora", "pubmed")}
+        timings.update({k: [] for k in COMPACT_KERNELS})
+        errs.update({k: 0.0 for k in COMPACT_KERNELS})
+        compact_buffer_kernels(models, graphs, timings, errs)
+    for name in ("cora", "pubmed"):
+        with phase(f"compact: ShardedFeatureTrainer(gather_mode='compact'), {name}"):
+            results[f"compact {name}"] = compact_run(name, roots[name],
+                                                     results[f"sharded {name}"],
+                                                     main_launches, compact_launches)
+    with phase("compact: the retry ladder, cora"):
+        ladder(roots["cora"], results["compact cora"])
+    with phase("compact: the hub cache, pubmed_layer0_cached heavy-tailed"):
+        hub_runs(graphs["pubmed heavy-tailed"], main_launches)
+    for name in ("cora", "pubmed", "pubmed_layer0_cached"):
+        with phase(f"fully sharded: {name}"):
+            results[f"fully sharded {name}"] = fully_sharded_run(
+                name, roots[PRESETS[name].dataset], main_launches, compact_launches)
+    with phase("unsupervised: the sharded trainers, cora_unsup"):
+        unsupervised_sharded(roots["cora"], main_launches, compact_launches)
 
 
 TWO_RANK_STEPS = 20
 
 
+def block_bytes(t: torch.Tensor) -> int:
+    """The size of the caching allocator's live block that holds ``t``
+    (measured: ``torch.cuda.memory_snapshot``; a block rounds its request
+    up)."""
+    ptr = t.data_ptr()
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if addr <= ptr < addr + blk["size"] and blk["state"] == "active_allocated":
+                return int(blk["size"])
+            addr += blk["size"]
+    raise AssertionError(f"no live block holds the tensor at {ptr:#x}")
+
+
+def fully_sharded_memory(tr, host) -> dict:
+    """A fully sharded rank's device memory right after construction: the
+    measured block of each graph array it holds (the feature shard and the
+    adjacency shard's four arrays) beside the whole array's bytes, and the
+    largest live block (before the first product allocates the cuBLAS
+    workspace)."""
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    adj = tr.adjacency
+    pairs = {"features": (tr.features.shard, host.features),
+             "ell": (adj.ell, host.neighbors), "degrees": (adj.degrees, host.degrees),
+             "indptr": (adj.indptr, host.indptr), "edge_dst": (adj.edge_dst, host.edge_dst)}
+    torch.cuda.synchronize()
+    live = memory.live_device_bytes(device=tr.device)
+    return dict(blocks={k: block_bytes(mine) for k, (mine, _) in pairs.items()},
+                whole={k: nbytes(whole) for k, (_, whole) in pairs.items()},
+                largest=live["largest_buffer_bytes"], total=live["total_bytes"])
+
+
 def two_rank_rank(rank: int, port: int, root: str, out: str) -> None:
     """One of two ranks sharing the card over gloo (NCCL refuses two ranks
-    on one device): ``cora`` trained node-sharded over S = 2 for
-    ``TWO_RANK_STEPS`` steps; rank 0 also runs the single-device Trainer.
-    Writes its losses and launch counts to ``out`` as JSON."""
+    on one device), ``cora`` at S = 2 for ``TWO_RANK_STEPS`` steps each:
+    first ``FullyShardedTrainer`` (the rank's measured device memory read
+    right after it, before any run places a whole table), then the dense
+    and the compact ``ShardedFeatureTrainer``; rank 0 also runs the
+    single-device Trainer. Writes its losses, launch counts and memory to
+    ``out`` as JSON."""
     os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
     torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                          rank=rank, world_size=2)
@@ -2351,13 +2765,24 @@ def two_rank_rank(rank: int, port: int, root: str, out: str) -> None:
         raise AssertionError(f"rank {rank} bound {multihost.device()}, want cuda:0")
     cfg = preset_config("cora", {"num_steps": TWO_RANK_STEPS})
     host = load_dataset("cora", root, "cpu")
+    mesh = make_mesh({"data": 2})
+    rec = {}
     reset_launches()
-    tr = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train,
-                               make_mesh({"data": 2}))
-    res = tr.run(log=None)
-    rec = dict(losses=res["losses"], val=res["val_micro_f1"], launches=read_launches(),
-               shard_rows=int(tr.features.shard.shape[0]),
-               mean_step_ms=res["mean_step_time"] * 1e3)
+    fully = FullyShardedTrainer(build_model(cfg, host, "cuda"), host, cfg.train, mesh)
+    built = fully_sharded_memory(fully, host)
+    res = fully.run(log=None)
+    rec["fully"] = dict(losses=res["losses"], val=res["val_micro_f1"], launches=read_launches(),
+                        mean_step_ms=res["mean_step_time"] * 1e3,
+                        memory_stats=fully.memory_stats(), built=built)
+    del fully, res
+    for mode in ("dense", "compact"):
+        reset_launches()
+        tr = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train, mesh,
+                                   gather_mode=mode)
+        res = tr.run(log=None)
+        rec[mode] = dict(losses=res["losses"], val=res["val_micro_f1"],
+                         launches=read_launches(), shard_rows=int(tr.features.shard.shape[0]),
+                         mean_step_ms=res["mean_step_time"] * 1e3)
     if rank == 0:
         g = host.to("cuda")
         rec["single_losses"] = Trainer(build_model(cfg, g), g, cfg.train).run(
@@ -2368,8 +2793,11 @@ def two_rank_rank(rank: int, port: int, root: str, out: str) -> None:
 
 
 def two_ranks_on_one_card(root: str) -> None:
-    """The 2-rank exchange with CUDA tensors: two processes on the one card
-    over gloo, held step for step against the single-device run."""
+    """The 2-rank exchanges with CUDA tensors: two processes on the one card
+    over gloo. The dense and compact runs held step for step against the
+    single-device run; the fully sharded run must learn, and each rank's
+    largest live block must be below the whole feature table's and the
+    whole adjacency's bytes."""
     port = free_port()
     os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
     outs = [os.path.join(REPO, "build", "chip_smoke", f"two_rank_{r}.json") for r in (0, 1)]
@@ -2388,18 +2816,48 @@ def two_ranks_on_one_card(root: str) -> None:
         with open(out) as fh:
             recs.append(json.load(fh))
     want = recs[0]["single_losses"]
+    steps = TWO_RANK_STEPS
     for r, rec in enumerate(recs):
-        np.testing.assert_allclose(rec["losses"], want, rtol=RESUME_RTOL,
-                                   err_msg=f"rank {r} != the single-device run")
-        if not (rec["launches"]["gather_mean_sum"] == TWO_RANK_STEPS + 1
-                and rec["launches"]["scatter_mean_sum"] == TWO_RANK_STEPS):
-            raise AssertionError(f"rank {r}: launches {rec['launches']}")
-    diff = np.max(np.abs(np.asarray(recs[0]["losses"]) - want) / np.abs(want))
-    print(f"   two ranks on one card over gloo: cora at S = 2, {TWO_RANK_STEPS} losses "
-          f"within {diff:.3g} (relative) of the single-device run's; rows per rank "
-          f"{[r['shard_rows'] for r in recs]}; host ms per step "
-          f"{[round(r['mean_step_ms'], 3) for r in recs]}; val micro-F1 "
-          f"{[r['val'] for r in recs]}; launches per rank {recs[0]['launches']}")
+        for mode in ("dense", "compact"):
+            np.testing.assert_allclose(rec[mode]["losses"], want, rtol=RESUME_RTOL,
+                                       err_msg=f"rank {r} {mode} != the single-device run")
+        dense, compact = rec["dense"]["launches"], rec["compact"]["launches"]
+        if not (dense["gather_mean_sum"] == steps + 1 and dense["scatter_mean_sum"] == steps):
+            raise AssertionError(f"rank {r} dense: launches {dense}")
+        if not (compact["gather_mean"] == steps + 1 and compact["gather_mean_sum"] == 0
+                and compact["scatter_mean"] == 2 * steps
+                and compact["scatter_mean_sum"] == steps):
+            raise AssertionError(f"rank {r} compact: launches {compact}")
+        fully = rec["fully"]
+        losses = np.asarray(fully["losses"])
+        if not (np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0]):
+            raise AssertionError(f"rank {r} fully sharded did not train: {losses}")
+        built = fully["built"]
+        whole_adj = sum(v for k, v in built["whole"].items() if k != "features")
+        held_adj = sum(v for k, v in built["blocks"].items() if k != "features")
+        if not (all(built["blocks"][k] < built["whole"][k] for k in built["whole"])
+                and held_adj < whole_adj and built["largest"] < built["whole"]["features"]):
+            raise AssertionError(f"rank {r} fully sharded holds a whole array: {built}")
+    gap = {mode: float(np.max(np.abs(np.asarray(recs[0][mode]["losses"]) - want)
+                              / np.abs(want))) for mode in ("dense", "compact")}
+    fully = recs[0]["fully"]
+    print(f"   two ranks on one card over gloo: cora at S = 2, {steps} steps; dense and "
+          f"compact losses within {gap} (relative) of the single-device run's; rows per "
+          f"rank {[r['dense']['shard_rows'] for r in recs]}; host ms per step dense "
+          f"{[round(r['dense']['mean_step_ms'], 3) for r in recs]}, compact "
+          f"{[round(r['compact']['mean_step_ms'], 3) for r in recs]}, fully sharded "
+          f"{[round(r['fully']['mean_step_ms'], 3) for r in recs]}; val micro-F1 dense "
+          f"{[r['dense']['val'] for r in recs]}, compact {[r['compact']['val'] for r in recs]}, "
+          f"fully sharded {[r['fully']['val'] for r in recs]}; launches per rank dense "
+          f"{recs[0]['dense']['launches']}, compact {recs[0]['compact']['launches']}, fully "
+          f"sharded {fully['launches']}")
+    print(f"   fully sharded at S = 2: loss {fully['losses'][0]:.4f} -> "
+          f"{fully['losses'][-1]:.4f}; after construction, measured blocks per rank "
+          f"{[r['fully']['built']['blocks'] for r in recs]} against the whole arrays' "
+          f"{fully['built']['whole']} bytes, largest live block "
+          f"{[r['fully']['built']['largest'] for r in recs]}, live total "
+          f"{[r['fully']['built']['total'] for r in recs]}; after the run rank 0's "
+          f"memory_stats {fully['memory_stats']}")
 
 
 def time_edge_blocks(label, g, timings) -> None:
@@ -2438,8 +2896,27 @@ def time_edge_blocks(label, g, timings) -> None:
         print_records({"spmm_mean": [rec]})
 
 
-def parallel(graphs, roots, results, timings, main_launches) -> None:
-    """The parallel phase: a world of one over NCCL on the card."""
+def cli_fully_sharded(root) -> None:
+    """The CLI once: ``--mode fully-sharded --steps 20`` at ``cora`` in the
+    world of one; it prints its memory line, the loss lines, ``Validation
+    F1`` and ``Average batch time``, and ends the process group."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_main(["--preset", "cora", "--data-root", root, "--mode", "fully-sharded",
+                    "--steps", "20"])
+    lines = out.getvalue().splitlines()
+    losses = [float(ln.split()[1]) for ln in lines[1:-2]]
+    if not (lines[0].startswith("fully-sharded over 1 device(s): ")
+            and lines[-2].startswith("Validation F1: ")
+            and lines[-1].startswith("Average batch time: ") and np.isfinite(losses).all()):
+        raise AssertionError(f"CLI --mode fully-sharded printed {lines}")
+    print(f"   CLI --mode fully-sharded --steps 20, cora: {lines[0]}; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} ({len(losses)} lines); {lines[-2]}; {lines[-1]}")
+
+
+def parallel(graphs, roots, results, timings, errs, main_launches, compact_launches) -> None:
+    """The parallel phase: a world of one over NCCL on the card, then two
+    ranks sharing it over gloo."""
     import torch.distributed as dist
 
     with phase("parallel: a world of one over NCCL"):
@@ -2492,7 +2969,12 @@ def parallel(graphs, roots, results, timings, main_launches) -> None:
             raise AssertionError(f"ShardedTrainer launches {launches}")
         print(f"   {TP_STEPS} steps {np.round(got, 6).tolist()} within {RESUME_RTOL} of the "
               f"Trainer's; launches {launches}")
-    dist.destroy_process_group()
+    compact_and_fully_sharded(graphs, roots, results, timings, errs, main_launches,
+                              compact_launches)
+    with phase("parallel: the CLI, --mode fully-sharded"):
+        cli_fully_sharded(roots["cora"])  # ends the process group
+    if dist.is_initialized():
+        raise AssertionError("the CLI left the process group formed")
     with phase("parallel: two ranks on one card over gloo, cora"):
         two_ranks_on_one_card(roots["cora"])
 
@@ -2671,20 +3153,24 @@ def main() -> int:
     samplers_full_batch_multilabel(pg, graphs["pubmed"], roots["pubmed"], results,
                                    timings, main_launches)
     unsupervised_checkpoint_inductive(graphs, roots, results, timings, main_launches)
-    parallel(graphs, roots, results, timings, main_launches)
+    compact_launches = {name: 0 for name in COMPACT_KERNELS}
+    parallel(graphs, roots, results, timings, errs, main_launches, compact_launches)
 
     kernels = []
-    for name, meta in KERNELS.items():
+    entries = [(name, meta, main_launches[name]) for name, meta in KERNELS.items()]
+    entries += [(name, KERNELS[base], compact_launches[name])
+                for name, base in COMPACT_KERNELS.items()]
+    for name, meta, launches in entries:
         recs = timings[name]
         head = next(r for r in recs if r["label"] == "pubmed")
         kernels.append(dict(
             name=name, route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"], launches=main_launches[name],
+            replaces=meta["replaces"], launches=launches,
             max_abs_err=errs[name], ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shapes=recs,
         ))
-        if main_launches[name] == 0:
+        if launches == 0:
             raise AssertionError(f"{name} was not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,8 @@ Every entry point places its tensors on ``cuda`` unless the caller passes
   serve   — table and sampled serving tiers
   train   — configs, presets, the sampled, full-graph and unsupervised
             trainers, the CLI
-  parallel — the process group, meshes, edge partitioning, the DP+TP and
-            node-sharded trainers (``torch.distributed``)
+  parallel — the process group, meshes, edge partitioning, the DP+TP,
+            node-sharded and fully sharded trainers (``torch.distributed``)
   utils   — metrics, checkpoints, logging, diagnostics, profiling, memory
 """
 
@@ -37,10 +37,20 @@ from graphsage_torch.train.config import ExperimentConfig, ModelConfig, PRESETS,
 from graphsage_torch.train.experiments import run_cora, run_preset, run_pubmed
 from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
-from graphsage_torch.train.unsupervised import UnsupervisedTrainer
+from graphsage_torch.train.unsupervised import (
+    UnsupervisedFullyShardedTrainer,
+    UnsupervisedShardedTrainer,
+    UnsupervisedTrainer,
+)
 from graphsage_torch.convert import params_from_numpy
 from graphsage_torch.parallel.distributed import ShardedTrainer
-from graphsage_torch.parallel.feature_store import ShardedFeatureTrainer
+from graphsage_torch.parallel.feature_store import (
+    FullyShardedTrainer,
+    ShardedFeatureTrainer,
+    build_hub_cache,
+    hub_request_fraction,
+    sharded_comm_stats,
+)
 from graphsage_torch.parallel.mesh import make_mesh
 
 __version__ = "0.1.0"
@@ -67,9 +77,15 @@ __all__ = [
     "PRESETS",
     "Trainer",
     "UnsupervisedTrainer",
+    "UnsupervisedShardedTrainer",
+    "UnsupervisedFullyShardedTrainer",
     "FullGraphTrainer",
     "ShardedTrainer",
     "ShardedFeatureTrainer",
+    "build_hub_cache",
+    "hub_request_fraction",
+    "FullyShardedTrainer",
+    "sharded_comm_stats",
     "make_mesh",
     "run_cora",
     "run_pubmed",

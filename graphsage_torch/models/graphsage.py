@@ -371,10 +371,13 @@ class GraphSAGE(nn.Module):
         return features if self.compute_dtype is None else features.to(self.compute_dtype)
 
     @staticmethod
-    def _gather_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    def _gather_rows(table, ids: torch.Tensor, mask: torch.Tensor | None = None
+                     ) -> torch.Tensor:
         """Row lookup, dispatched on the table's type: a dense table computed
         inside a quantized forward (the layer-0 table, the projected
-        self-table) is gathered as it is."""
+        self-table) is gathered as it is. ``mask`` is the slots' validity,
+        which only an injected lookup reads (the compact exchange routes
+        masked slots apart)."""
         return gather_dequant(table, ids) if is_quantized(table) else gather(table, ids)
 
     def _gather_mean(self, table, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -422,7 +425,7 @@ class GraphSAGE(nn.Module):
 
         The sharded trainers (:mod:`graphsage_torch.parallel`) inject their
         own lookups, as the JAX model's ``gather_fn``/``gather_mean_fn`` do:
-        ``gather_fn(table, ids)`` (rows) and ``gather_mean_fn(table, idx,
+        ``gather_fn(table, ids, mask)`` (rows) and ``gather_mean_fn(table, idx,
         mask)`` (the fused masked mean) replace the local ones, so that
         ``features`` may be this rank's node-range shard, and
         ``layer0_table`` replaces the graph's cache (``"cached"``).
@@ -439,18 +442,20 @@ class GraphSAGE(nn.Module):
         elif self.layer0 == "cached":
             ids = frontier.ids[L - 1]
             cache = layer0_table if layer0_table is not None else self.check_layer0_cache(graph)
-            agg = rows(cache, ids)
-            self_h = rows(features, ids) if self.concat_self else None
+            mask = frontier.masks[L - 1]
+            agg = rows(cache, ids, mask)
+            self_h = rows(features, ids, mask) if self.concat_self else None
             h = self.layers[0](self_h, None, None, precomputed_agg=agg, compute_dtype=cd,
                                activation=self.layer_activation(0))
         elif self.layer0 == "full":
-            h = rows(self.layer0_full_table(features, graph), frontier.ids[L - 1])
+            h = rows(self.layer0_full_table(features, graph), frontier.ids[L - 1],
+                     frontier.masks[L - 1])
         elif self.aggregator == "mean":
             h = self._sampled_mean_layer0(features, frontier, rows,
                                           gather_mean_fn or self._gather_mean,
                                           exchange_ranks)
         else:  # maxpool and lstm read the deepest hop's raw rows
-            h = rows(features, frontier.ids[L])
+            h = rows(features, frontier.ids[L], frontier.masks[L])
             if cd is not None:
                 h = h.to(cd)
             start = 0
@@ -508,9 +513,10 @@ class GraphSAGE(nn.Module):
                 project = lambda w: feats @ w  # noqa: E731
             pre = gather_mean_fn(project(w_neigh), neigh_ids, neigh_mask)
             if self.concat_self:
-                pre = pre + rows(project(w_self), self_ids)
+                pre = pre + rows(project(w_self), self_ids, frontier.masks[L - 1])
             return self._activate(0, pre).to(w0.dtype)
-        self_h = rows(features, self_ids) if self.concat_self else None
+        self_h = (rows(features, self_ids, frontier.masks[L - 1]) if self.concat_self
+                  else None)
         return layer0(self_h, None, None, compute_dtype=cd,
                       precomputed_agg=gather_mean_fn(features, neigh_ids, neigh_mask),
                       activation=self.layer_activation(0))

@@ -8,6 +8,9 @@ the CPU).
   partition      — contiguous CSR edge blocks
   distributed    — edge-partitioned full-graph aggregation and the DP+TP
                    ``ShardedTrainer``
-  feature_store  — the node-sharded feature table, its cross-rank gather and
-                   ``ShardedFeatureTrainer`` (``--mode sharded``)
+  feature_store  — the node-sharded feature table, its dense and compact
+                   cross-rank gathers, the hub cache, ``ShardedFeatureTrainer``
+                   (``--mode sharded``), the sharded adjacency with its
+                   distributed sampler and ``FullyShardedTrainer``
+                   (``--mode fully-sharded``)
 """

@@ -1,16 +1,17 @@
-"""The node-sharded feature store, its dense part: the counterpart of
+"""The node-sharded feature store: the counterpart of
 ``graphsage_tpu/parallel/feature_store.py`` (``NodeShardedFeatures``,
-``shard_features``, ``sharded_row_gather``, ``make_sharded_gather_fns(mode=
-"dense")`` and ``ShardedFeatureTrainer``).
+``shard_features``, the dense and compact cross-rank gathers, the hub cache,
+``ShardedFeatureTrainer``, the sharded adjacency with its distributed
+sampler, and ``FullyShardedTrainer``).
 
 The ``[N, F]`` table is split on the node dimension: rank ``s`` of the axis
 owns rows ``[s * Np, (s + 1) * Np)`` with ``Np = round_up(ceil(N / S), 8)``;
 padding rows are zero and ownership is ``id // Np``. Only a rank's own rows
 reach its device: the shard is cut from a host copy of the table.
 
-The exchange (:class:`_OwnerExchange`) computes what JAX's dense exchange
-computes, the requested rows' masked sums, without shipping a zero row for
-every request a rank does not own:
+**The dense exchange** (:class:`_OwnerExchange`) computes what JAX's dense
+exchange computes, the requested rows' masked sums, without shipping a zero
+row for every request a rank does not own:
 
 * every rank's requests (id, or -1 for a masked slot: 4 bytes a slot) are
   all-gathered;
@@ -21,20 +22,49 @@ every request a rank does not own:
 
 The backward all-gathers the requesters' ``g / count`` and each owner adds
 them into its ``[Np, F]`` gradient with Hopper kernel 2 in its sum mode.
-A row lookup is the same exchange with one slot per request. With
-project-first each owner projects its own shard first, so the exchanged
-rows are ``d``-wide; the sampled mean layer 0 picks its order by the
-single device's rule over the rank's shard and slots, with the rows the
-exchange moves counted (``GraphSAGE.sampled_layer0_project_first``).
+
+**The compact exchange** routes each request to its owner in buckets of a
+fixed ``capacity`` per rank pair (:func:`route_buckets`: a counting rank up to
+``_RANK_SORT_MIN_SHARDS`` shards, a stable sort above; masked slots spread
+round-robin to ``(i % S) * Np`` and take bucket room, sent as -1): one
+all-to-all ships
+the ids out, each owner answers with its rows (an ``index_select``), a second
+all-to-all ships them back into the requester's answer buffer ``[S * cap (+
+H), F]``, and the requester reads it at ``take`` (each request's bucket
+slot): Hopper kernel 1 (mean mode) for a masked mean, an ``index_select`` for
+rows. The backward is kernel 2 (mean mode) into the buffer's gradient, the
+reverse all-to-all, and kernel 2's sum mode (one slot per answered row) into
+the owner's ``[Np, F]`` gradient; a frozen table skips it. A bucket that
+overflows its capacity clips rows: the trainers check every call site first
+(:meth:`ShardedFeatureTrainer._local_sites_violated`), apply nothing on an
+overflow and redo the step on the same frontier at doubled slack.
+
+**The hub cache** (:func:`build_hub_cache`) replicates the ``H``
+highest-degree rows of a frozen table on every rank; hub requests enter the
+route as masked slots and read the answer buffer's last ``H`` rows, so one
+kernel-1 call (or one ``index_select``) serves routed and hub slots.
+
+**Fully sharded training** shards the adjacency too (:func:`shard_adjacency`)
+and samples each hop at the owners (:func:`sharded_sample_neighbors`, routed
+like the compact gather). Each rank draws from its own generator,
+:func:`owner_generator` (seeded from the seed, the step and the rank, as
+JAX's draws are keyed by ``fold_in(step key, axis_index)``): the streams
+differ from JAX's, and from the single device's, wherever sampling is random.
+
+With project-first each owner projects its own shard first, so the exchanged
+rows are ``d``-wide; the sampled mean layer 0 picks its order by the single
+device's rule over the rank's shard and slots, with the rows the exchange
+moves counted (``GraphSAGE.sampled_layer0_project_first``).
 
 Not ported yet, each raising with the ROADMAP Queue 1 sub-item that brings
-it: the compact exchange and the hub cache (14b), ``layer0="full"`` and
-int8 tables (14e), and a prebuilt loader ``feature_store`` (item 15).
+it: ``layer0="full"`` and int8 tables (14e), and a prebuilt loader
+``feature_store`` (item 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -42,9 +72,11 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from graphsage_torch.data.graph import Graph, with_cached_layer0
-from graphsage_torch.models.graphsage import GraphSAGE
+from graphsage_torch.models.graphsage import Frontier, GraphSAGE
+from graphsage_torch.ops.aggregate import gather
 from graphsage_torch.ops.gather_mean import gather_mean
 from graphsage_torch.ops.quantize import is_quantized
+from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.ops.scatter_mean import scatter_mean
 from graphsage_torch.parallel import collectives
 from graphsage_torch.parallel.distributed import ShardedLoop, slice_frontier
@@ -54,6 +86,10 @@ from graphsage_torch.train.trainer import Trainer
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _rows_per_shard(num_nodes: int, num_shards: int) -> int:
+    return _round_up(max(-(-num_nodes // num_shards), 1), 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +124,7 @@ def shard_features(features: torch.Tensor, num_shards: int, index: int,
             "an int8 node-sharded table is not ported yet (ROADMAP Queue 1 item 14e)")
     host = features.detach().cpu()
     n, f = host.shape
-    rows = _round_up(max(-(-n // num_shards), 1), 8)
+    rows = _rows_per_shard(n, num_shards)
     lo, hi = min(index * rows, n), min((index + 1) * rows, n)
     shard = torch.zeros((rows, f), dtype=host.dtype)
     shard[:hi - lo] = host[lo:hi]
@@ -96,6 +132,10 @@ def shard_features(features: torch.Tensor, num_shards: int, index: int,
         shard=shard.to(features.device if device is None else device),
         num_shards=num_shards, rows_per_shard=rows, num_nodes=n)
 
+
+# --------------------------------------------------------------------------
+# The dense exchange
+# --------------------------------------------------------------------------
 
 class _OwnerExchange(torch.autograd.Function):
     """``apply(table, idx [B, k], mask [B, k], group, normalize)``: the masked
@@ -149,23 +189,327 @@ def sharded_row_gather(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
     return rows.to(table_local.dtype).reshape(*ids.shape, table_local.shape[-1])
 
 
-def make_sharded_gather_fns(mesh: DeviceMesh, axis: str, mode: str = "dense"):
+# --------------------------------------------------------------------------
+# The compact exchange
+# --------------------------------------------------------------------------
+
+# Counting-rank bucketing pays O(q·S) work and a 4·q·S-byte transient; the
+# stable sort pays O(q log q). Both give the same buckets; JAX switches at
+# 32 shards.
+_RANK_SORT_MIN_SHARDS = 32
+
+
+def request_capacity(q_local: int, num_shards: int, slack: float = 1.5) -> int:
+    """Static per-pair request capacity for the compact exchange."""
+    base = -(-q_local // num_shards)
+    return _round_up(max(int(base * slack), 8), 8)
+
+
+def _spread_owners(flat_ids: torch.Tensor, valid: torch.Tensor | None, num_shards: int,
+                   rows_per_shard: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(ids, owner)``: invalid slots moved to ``(i % S) * Np`` (round-robin
+    over the owners, so padding cannot pile onto rank 0), and each id's
+    owner ``id // Np`` (int64)."""
+    if valid is not None:
+        spread = (torch.arange(flat_ids.shape[0], dtype=torch.int32,
+                               device=flat_ids.device) % num_shards) * rows_per_shard
+        flat_ids = torch.where(valid.reshape(-1), flat_ids, spread)
+    return flat_ids, (flat_ids // rows_per_shard).long()
+
+
+def route_buckets(flat_ids: torch.Tensor, num_shards: int, rows_per_shard: int,
+                  capacity: int, valid: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bucket requests ``flat_ids [q]`` (int32 global ids) by owner, with no
+    collective: ``(req [S, capacity] int32, take [q] int64, violated)``.
+    ``req[d]`` holds, in request order, the ids this rank asks rank ``d``
+    for; request ``i`` sits at flat slot ``take[i] = owner * capacity +
+    rank_within_owner``. ``violated`` (0-d bool) is set when a bucket
+    overflowed: its extra requests were clipped to the last slot. JAX's
+    ``_route_requests`` without its all-to-all, but for one thing: a masked
+    slot (routed to its spread owner) and an unused one hold -1 where JAX's
+    hold the spread id and 0. The owner answers them with its first row,
+    the spread id's, and leaves them out of the backward, where JAX's add
+    their zero cotangents onto that row."""
+    s = num_shards
+    flat, owner = _spread_owners(flat_ids.to(torch.int32), valid, s, rows_per_shard)
+    q = flat.shape[0]
+    dev = flat.device
+    if s <= _RANK_SORT_MIN_SHARDS:
+        onehot = owner[:, None] == torch.arange(s, device=dev)[None, :]
+        within = torch.cumsum(onehot.to(torch.int32), dim=0, dtype=torch.int32)
+        rank = within.gather(1, owner[:, None])[:, 0].long() - 1
+    else:
+        order = torch.argsort(owner, stable=True)
+        sorted_owner = owner[order]
+        starts = torch.searchsorted(sorted_owner, torch.arange(s, device=dev))
+        sorted_rank = torch.arange(q, device=dev) - starts[sorted_owner]
+        rank = torch.empty_like(sorted_rank).scatter_(0, order, sorted_rank)
+    violated = (rank >= capacity).any()
+    take = owner * capacity + rank.clamp(max=capacity - 1)
+    req = torch.full((s * capacity,), -1, dtype=torch.int32, device=dev)
+    req[take] = flat if valid is None else torch.where(valid.reshape(-1), flat, -1)
+    return req.view(s, capacity), take, violated
+
+
+class _OwnerRows(torch.autograd.Function):
+    """``apply(table [Np, F], loc [S * cap], live [S * cap])``: the owner's
+    answer rows ``table[loc]`` (an ``index_select``, JAX's ``take``); the
+    backward adds each live slot's cotangent into the shard's gradient,
+    Hopper kernel 2 in its sum mode with one slot per row."""
+
+    @staticmethod
+    def forward(ctx, table, loc, live):
+        ctx.save_for_backward(loc, live)
+        ctx.num_rows, ctx.dtype = table.shape[0], table.dtype
+        return table.index_select(0, loc.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        loc, live = ctx.saved_tensors
+        d = scatter_mean(g.to(torch.float32).contiguous(), loc.view(-1, 1),
+                         live.view(-1, 1), ctx.num_rows, normalize=False)
+        return d.to(ctx.dtype), None, None
+
+
+def _compact_lookup(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
+                    flat_ids: torch.Tensor, valid: torch.Tensor | None, capacity: int,
+                    hub=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(buffer [S * cap + H, F], take [q])``: the answer buffer of this
+    rank's requests ``flat_ids`` and, for each request, its row there. With
+    ``hub = (lookup [N], rows [H, F])`` hub requests enter the route masked
+    and point at the buffer's last ``H`` rows, a copy of ``rows``."""
+    group = mesh.get_group(axis)
+    s, np_ = axis_size(mesh, axis), table_local.shape[0]
+    flat = flat_ids.reshape(-1).to(torch.int32)
+    routed = valid
+    if hub is not None:
+        lookup, hub_rows = hub
+        hub_rank = lookup[flat.long()]
+        is_hub = hub_rank >= 0
+        routed = ~is_hub if valid is None else valid.reshape(-1) & ~is_hub
+    req, take, _ = route_buckets(flat, s, np_, capacity, routed)
+    recv = collectives.RouteIds.apply(req, group).reshape(-1)
+    loc = (recv - dist.get_rank(group) * np_).clamp_(0, np_ - 1)
+    answers = _OwnerRows.apply(table_local, loc, recv >= 0)
+    buffer = collectives.RouteAnswers.apply(answers.view(s, capacity, -1), group,
+                                            None if hub is None else hub_rows)
+    if hub is not None:
+        take = torch.where(is_hub, s * capacity + hub_rank.long(), take)
+    return buffer, take
+
+
+def sharded_row_gather_compact(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
+                               ids: torch.Tensor, capacity: int,
+                               valid_mask: torch.Tensor | None = None,
+                               hub=None) -> torch.Tensor:
+    """Rows ``[..., F]`` (the table's dtype) of ``ids`` through the compact
+    exchange (see the module docstring); a masked slot's row is that of the
+    id its slot was spread to, as JAX's. ``capacity`` must cover every
+    bucket; the trainers check it before the call."""
+    buffer, take = _compact_lookup(mesh, axis, table_local, ids, valid_mask, capacity, hub)
+    return gather(buffer, take).reshape(*ids.shape, buffer.shape[-1])
+
+
+def sharded_gather_mean_compact(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
+                                idx: torch.Tensor, mask: torch.Tensor, capacity: int,
+                                hub=None) -> torch.Tensor:
+    """The masked gather-mean ``[B, F]`` f32 of ``idx``/``mask`` through the
+    compact exchange: Hopper kernel 1 (mean mode) over the answer buffer, its
+    backward kernel 2 (mean mode) into the buffer's gradient."""
+    b, k = idx.shape
+    buffer, take = _compact_lookup(mesh, axis, table_local, idx, mask, capacity, hub)
+    return gather_mean(buffer, take.to(torch.int32).view(b, k), mask.contiguous())
+
+
+def make_sharded_gather_fns(mesh: DeviceMesh, axis: str, mode: str = "dense",
+                            slack: float = 1.5, hub=None):
     """``(gather_fn, gather_mean_fn)`` for :meth:`GraphSAGE.forward` where
-    the table argument is this rank's node-range shard."""
-    if mode == "compact":
-        raise NotImplementedError(
-            "the compact sharded gather is not ported yet (ROADMAP Queue 1 item 14b)")
-    if mode != "dense":
+    the table argument is this rank's node-range shard. ``mode="dense"`` is
+    exact for any id distribution; ``mode="compact"`` routes requests, each
+    call site's per-pair capacity :func:`request_capacity` of its request
+    count with ``slack``, and ``hub`` (``(lookup, rows)`` on the device,
+    compact only) serves the hub rows locally."""
+    if mode == "dense":
+        def gather_fn(table_local, ids, mask=None):
+            return sharded_row_gather(mesh, axis, table_local, ids)
+
+        def gather_mean_fn(table_local, idx, mask):
+            return sharded_gather_mean(mesh, axis, table_local, idx, mask)
+
+        return gather_fn, gather_mean_fn
+    if mode != "compact":
         raise ValueError(f"unknown sharded gather mode {mode!r}")
+    s = axis_size(mesh, axis)
 
     def gather_fn(table_local, ids, mask=None):
-        return sharded_row_gather(mesh, axis, table_local, ids)
+        cap = request_capacity(ids.numel(), s, slack)
+        return sharded_row_gather_compact(mesh, axis, table_local, ids, cap, mask, hub)
 
     def gather_mean_fn(table_local, idx, mask):
-        return sharded_gather_mean(mesh, axis, table_local, idx, mask)
+        cap = request_capacity(idx.numel(), s, slack)
+        return sharded_gather_mean_compact(mesh, axis, table_local, idx, mask, cap, hub)
 
     return gather_fn, gather_mean_fn
 
+
+def compact_sites(model: GraphSAGE, frontier: Frontier, fanouts=None) -> list:
+    """``(ids, mask)`` of each table lookup of ``model``'s forward on
+    ``frontier`` (``fanouts`` overrides the model's, as an evaluation's do):
+    what the compact exchange routes, so that the capacity check and the
+    traffic count see exactly its requests."""
+    L = model.num_layers
+    if model.layer0 in ("full", "cached"):
+        sites = [(frontier.ids[L - 1], frontier.masks[L - 1])]
+        if model.layer0 == "cached" and model.concat_self:
+            sites.append((frontier.ids[L - 1], frontier.masks[L - 1]))
+        return sites
+    if model.aggregator != "mean":
+        return [(frontier.ids[L], frontier.masks[L])]
+    n_out = frontier.ids[L - 1].shape[0]
+    k = (model.fanouts if fanouts is None else tuple(fanouts))[0]
+    if k is not None:
+        k_eff = k + 1 if (model.concat_self or model.self_loop) else k
+        if frontier.ids[L].shape[0] != n_out * k_eff:
+            raise ValueError(
+                f"frontier hop {L} has {frontier.ids[L].shape[0]} slots but the "
+                f"model's layout (fanout {k}, concat_self={model.concat_self}, "
+                f"self_loop={model.self_loop}) requires {n_out} x {k_eff} — the "
+                "frontier does not come from this model's sample()")
+    ids2 = frontier.ids[L].reshape(n_out, -1)
+    m2 = frontier.masks[L].reshape(n_out, -1)
+    if model.concat_self:
+        return [(ids2[:, 1:], m2[:, 1:]), (frontier.ids[L - 1], frontier.masks[L - 1])]
+    return [(ids2, m2)]
+
+
+def _frontier_slot_sizes(model: GraphSAGE, b_local: int) -> list[int]:
+    """Slots per hop of a ``b_local``-seed frontier, from the fanouts alone
+    (integer fanouts only)."""
+    L = model.num_layers
+    hops = L - 1 if model.layer0 in ("full", "cached") else L
+    sizes = [b_local]
+    for h in range(1, hops + 1):
+        k = model.fanouts[L - h]
+        if k is None:
+            raise ValueError(
+                "comm stats need integer fanouts (fanout=None means "
+                "full-neighborhood width, which the sharded sampled "
+                "trainers do not run)")
+        k_eff = k + 1 if (model.concat_self or model.self_loop) else k
+        sizes.append(sizes[-1] * k_eff)
+    return sizes
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def sharded_comm_stats(
+    model: GraphSAGE,
+    batch_size: int,
+    num_shards: int,
+    feature_dtype=torch.float32,
+    slack: float = 1.5,
+    fully_sharded: bool = False,
+) -> dict:
+    """Bytes each rank sends per step in the sharded trainers' exchanges,
+    from the shapes alone, JAX's numbers: the dense and compact feature
+    gathers per call site and, with ``fully_sharded``, the sampling hops
+    (ids out, sampled ids and masks back). The exchanged rows are
+    ``hidden_dims[0]``-wide f32 when a mean layer 0 projects first by the
+    JAX package's rule for injected gathers over a dense table (wider in
+    than out, or ``project_first=True``; this port's trainers decide per
+    batch, by :meth:`GraphSAGE.sampled_layer0_project_first`). JAX's
+    ``quantized``, ``num_nodes`` and ``layer0_partition`` (int8 tables,
+    ``layer0="full"``, the halo plan) come with ROADMAP items 14d and 14e."""
+    if batch_size % num_shards:
+        raise ValueError("batch_size must be divisible by num_shards")
+    s = num_shards
+    sizes = _frontier_slot_sizes(model, batch_size // s)
+    fr = Frontier(ids=tuple(torch.zeros(n, dtype=torch.int32) for n in sizes),
+                  masks=tuple(torch.ones(n, dtype=torch.bool) for n in sizes))
+    if model.layer0 == "full":
+        row_bytes = model.hidden_dims[0] * _itemsize(model.compute_dtype or feature_dtype)
+    elif model.layer0 != "cached" and model.use_project_first(0, model.in_dim):
+        row_bytes = model.hidden_dims[0] * 4
+    else:
+        row_bytes = model.in_dim * _itemsize(feature_dtype)
+    dense = compact = 0
+    site_detail = []
+    for ids, _ in compact_sites(model, fr):
+        q = ids.numel()
+        cap = request_capacity(q, s, slack)
+        d = (s - 1) * q * (row_bytes + 4)
+        c = (s - 1) * cap * (row_bytes + 4)
+        dense += d
+        compact += c
+        site_detail.append({"q_local": q, "capacity": cap, "dense_bytes": d,
+                            "compact_bytes": c})
+    out = {
+        "num_shards": s,
+        "per_chip_frontier_slots": sizes[-1],
+        "gather_dense_bytes_per_chip_step": dense,
+        "gather_compact_bytes_per_chip_step": compact,
+        "gather_compact_vs_dense": dense / max(compact, 1),
+        "sites": site_detail,
+    }
+    if fully_sharded:
+        samp = 0
+        hop_detail = []
+        L = model.num_layers
+        for h in range(1, len(sizes)):
+            q_h, k = sizes[h - 1], model.fanouts[L - h]
+            cap = request_capacity(q_h, s, slack)
+            v = (s - 1) * cap * (4 + k * 5)
+            samp += v
+            hop_detail.append({"hop": h, "q_local": q_h, "capacity": cap, "bytes": v})
+        out["sampling_bytes_per_chip_step"] = samp
+        out["sampling_hops"] = hop_detail
+        out["total_compact_bytes_per_chip_step"] = compact + samp
+    return out
+
+
+# --------------------------------------------------------------------------
+# The hub cache
+# --------------------------------------------------------------------------
+
+def hub_request_fraction(degrees: torch.Tensor, num_hub_rows: int) -> float:
+    """The share of sampled requests a ``num_hub_rows``-row hub cache serves
+    locally: a uniform neighbour draw lands on ``v`` once per incident edge,
+    so it is the top-``H`` nodes' share of the total ``degrees``."""
+    deg = degrees.cpu().numpy().astype(np.float64)
+    total = deg.sum()
+    if total <= 0:
+        return 0.0
+    top = np.sort(deg)[::-1][:int(num_hub_rows)]
+    return float(top.sum() / total)
+
+
+def build_hub_cache(features: torch.Tensor, degrees: torch.Tensor, num_hub_rows: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lookup [N] int32, rows [H, F])``: the ``num_hub_rows``
+    highest-degree nodes (a stable sort, ties by id) of a frozen dense
+    table, ``lookup`` each node's hub rank or -1, ``rows`` their rows, on
+    the table's device. Exact for ever: the table is frozen. (JAX's also
+    takes an int8 table, as the int8 sharded store does: item 14e.)"""
+    deg = degrees.cpu().numpy()
+    n = deg.shape[0]
+    h = int(num_hub_rows)
+    if not 0 < h <= n:
+        raise ValueError(f"num_hub_rows must be in (0, {n}], got {h}")
+    top = np.argsort(-deg, kind="stable")[:h].astype(np.int32)
+    lookup = np.full(n, -1, np.int32)
+    lookup[top] = np.arange(h, dtype=np.int32)
+    rows = features[torch.from_numpy(top.astype(np.int64)).to(features.device)]
+    return torch.from_numpy(lookup).to(features.device), rows.contiguous()
+
+
+# --------------------------------------------------------------------------
+# ShardedFeatureTrainer
+# --------------------------------------------------------------------------
 
 class ShardedFeatureTrainer(ShardedLoop, Trainer):
     """Sampled training whose feature table is node-sharded over ``axis``,
@@ -180,23 +524,32 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
     axis. ``layer0="cached"`` shards the frozen aggregate table like the
     features (same ``Np``, same padding), built once on the rank's device.
 
+    ``gather_mode="compact"`` routes the lookups in buckets of
+    ``capacity_slack`` times the even share (:func:`request_capacity`). A
+    step whose buckets would overflow on any rank is not applied: the
+    parameters, the optimizer and the step count stay, the generator is
+    rewound, and the same frontier is redone at twice the slack (a warning
+    each time), up to 8 times the configured slack; then it raises.
+    ``hub_cache_rows`` (compact only, frozen tables only) replicates that
+    many highest-degree rows (:func:`build_hub_cache`).
+
     Pass the graph on the CPU: the device then holds the adjacency, the
     labels and this rank's ``Np`` rows (a graph on the device works too, but
     its table stays where the caller keeps it). Evaluation with
-    ``eval_fanouts`` runs through the sharded gather; with ``None`` it is the
-    full-graph forward over a transient device copy of the graph, freed on
-    return. Rank 0 alone writes checkpoints."""
+    ``eval_fanouts`` runs through the sharded gather (a compact batch that
+    would overflow goes through the dense exchange, with a warning); with
+    ``None`` it is the full-graph forward over a transient device copy of
+    the graph, freed on return. Rank 0 alone writes checkpoints."""
+
+    # Overflow retry ladder: capacity_slack * 2**i for i < _SLACK_RETRIES.
+    _SLACK_RETRIES = 4
 
     def __init__(self, model: GraphSAGE, graph: Graph, config, mesh: DeviceMesh,
-                 axis: str = "data", gather_mode: str = "dense", feature_store=None,
+                 axis: str = "data", gather_mode: str = "dense",
+                 capacity_slack: float = 1.5, feature_store=None,
                  hub_cache_rows: int = 0):
         if gather_mode not in ("dense", "compact"):
             raise ValueError(f"unknown gather_mode {gather_mode!r}")
-        if gather_mode == "compact" or hub_cache_rows:
-            raise NotImplementedError(
-                "the compact exchange and hub_cache_rows are not ported yet "
-                "(ROADMAP Queue 1 item 14b); the dense exchange is exact for "
-                "any skew")
         if model.layer0 == "full":
             raise NotImplementedError(
                 "layer0='full' under the node-sharded store is not ported yet "
@@ -205,7 +558,12 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
             raise NotImplementedError(
                 "a prebuilt feature_store (shard_features_from_loader) is not "
                 "ported yet (ROADMAP Queue 1 item 15)")
+        self.hub_cache_rows = int(hub_cache_rows)
+        if self.hub_cache_rows:
+            _check_hub_cache(model, gather_mode)
         self.mesh, self.axis = mesh, axis
+        self.gather_mode = gather_mode
+        self.capacity_slack = capacity_slack
         self.num_shards = axis_size(mesh, axis)
         self.shard_index = axis_index(mesh, axis)
         self._group = mesh.get_group(axis)
@@ -215,14 +573,14 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
                 f"{axis!r} axis size {self.num_shards}"
             )
         super().__init__(model, graph, config)
-        self._gather_fn, self._gather_mean_fn = make_sharded_gather_fns(mesh, axis)
 
     def _prepare_graph(self, model: GraphSAGE, graph: Graph) -> Graph:
         """Shard the table (and a cached model's cache) from a host copy,
         and return the device graph without them: the adjacency and the
         labels, with a one-row placeholder table. A cache the graph lacks is
         built on the model's device (Hopper kernel 3 on a card) from a
-        transient copy of the graph, freed once the host copy is made."""
+        transient copy of the graph, freed once the host copy is made. The
+        hub cache comes from the table the lookups read."""
         if is_quantized(graph.features):
             raise NotImplementedError(
                 "ShardedFeatureTrainer over an int8 feature table is not "
@@ -238,57 +596,150 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
         self.features = shard_features(host.features, s, i, dev)
         self._cache_store = (None if host.layer0_cache is None or model.layer0 != "cached"
                              else shard_features(host.layer0_cache, s, i, dev))
-        blank = torch.zeros((1, host.num_features), dtype=host.features.dtype)
-        return dataclasses.replace(host, features=blank, layer0_cache=None).to(dev)
+        self._hub = None
+        if self.hub_cache_rows:
+            table = host.layer0_cache if model.layer0 == "cached" else host.features
+            lookup, rows = build_hub_cache(table, host.degrees, self.hub_cache_rows)
+            self._hub = (lookup.to(dev), rows.to(dev))
+        return self._device_graph(host, dev)
 
-    def _injected(self) -> dict:
+    def _device_graph(self, host: Graph, device) -> Graph:
+        blank = torch.zeros((1, host.num_features), dtype=host.features.dtype)
+        return dataclasses.replace(host, features=blank, layer0_cache=None).to(device)
+
+    def _injected(self, slack: float | None = None, mode: str | None = None) -> dict:
+        mode = mode or self.gather_mode
+        gather_fn, gather_mean_fn = make_sharded_gather_fns(
+            self.mesh, self.axis, mode,
+            slack=self.capacity_slack if slack is None else slack,
+            hub=self._hub if mode == "compact" else None)
         cache = self._cache_store
-        return dict(gather_fn=self._gather_fn, gather_mean_fn=self._gather_mean_fn,
+        return dict(gather_fn=gather_fn, gather_mean_fn=gather_mean_fn,
                     layer0_table=None if cache is None else cache.shard,
                     exchange_ranks=self.num_shards)
+
+    # ------------------------------------------------------------ capacity
+    def _local_sites_violated(self, frontier: Frontier, slack: float | None = None,
+                              fanouts=None) -> torch.Tensor:
+        """0-d bool: whether a lookup of this rank's ``frontier`` would
+        overflow a compact bucket at ``slack`` (the trainer's by default):
+        the sites, the spread of masked slots and the hub rows as the
+        compact gather routes them."""
+        s, np_ = self.num_shards, self.features.rows_per_shard
+        slack = self.capacity_slack if slack is None else slack
+        violated = torch.zeros((), dtype=torch.bool, device=self.device)
+        for ids, mask in compact_sites(self.model, frontier, fanouts):
+            cap = request_capacity(ids.numel(), s, slack)
+            flat = ids.reshape(-1).to(torch.int32)
+            valid = mask.reshape(-1)
+            if self._hub is not None:
+                valid = valid & (self._hub[0][flat.long()] < 0)
+            _, owner = _spread_owners(flat, valid, s, np_)
+            violated = violated | (torch.bincount(owner, minlength=s).max() > cap)
+        return violated
+
+    def _violated_anywhere(self, violated: torch.Tensor) -> bool:
+        """Whether any rank's flag is set: one all-reduce and one host read."""
+        return bool(collectives.all_reduce(violated.to(torch.int32), self._group,
+                                           op=dist.ReduceOp.MAX))
+
+    def _with_retries(self, attempt, what: str = "sharded request capacity"):
+        """Run ``attempt(slack)`` at the configured slack, then doubled, up to
+        ``_SLACK_RETRIES`` slacks, until it returns something else than
+        ``None`` (``None``: a bucket would have overflowed and nothing was
+        applied); the generator is rewound before each retry."""
+        slacks = [float(self.capacity_slack) * 2.0 ** i for i in range(self._SLACK_RETRIES)]
+        for i, slack in enumerate(slacks):
+            state = self.generator.get_state()
+            out = attempt(slack)
+            if out is not None:
+                return out
+            self.generator.set_state(state)
+            if i + 1 < len(slacks):
+                warnings.warn(
+                    f"{what} exceeded at slack={slack} (step NOT applied); redoing "
+                    f"the same batch with slack={slacks[i + 1]}; set "
+                    "capacity_slack higher to avoid it")
+        raise ValueError(
+            f"{what} still exceeded after retries up to slack={slacks[-1]}: a "
+            "per-pair request bucket overflowed (rows would be clipped). Raise "
+            "capacity_slack explicitly (ShardedFeatureTrainer alternatively "
+            "supports gather_mode='dense'; the fully sharded trainer is "
+            "compact-only).")
 
     # ------------------------------------------------------------------- step
     def step(self, seeds: np.ndarray) -> torch.Tensor:
         """One optimizer step on the batch ``seeds`` (the same on every
-        rank); returns the mean of the ranks' losses, a 0-d tensor."""
+        rank); returns the mean of the ranks' losses, a 0-d tensor. In the
+        compact mode a step that would overflow is redone (see the class
+        docstring)."""
         ids = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(self.device)
+        if self.gather_mode == "dense":
+            return self._attempt(ids, self.capacity_slack)
+        return self._with_retries(lambda slack: self._attempt(ids, slack))
+
+    def _attempt(self, ids: torch.Tensor, slack: float) -> torch.Tensor | None:
         frontier = slice_frontier(self.model.sample(self.generator, self.graph, ids),
                                   self.shard_index, self.num_shards)
+        if self.gather_mode == "compact" and self._violated_anywhere(
+                self._local_sites_violated(frontier, slack)):
+            return None
         loss = self.model.loss(self.features.shard, frontier,
-                               self.graph.labels[frontier.ids[0].long()], **self._injected())
+                               self.graph.labels[frontier.ids[0].long()],
+                               **self._injected(slack))
         return self._mean_over(self._update(loss), self._group, self.num_shards)
 
     def _reduce_gradients(self) -> None:
         collectives.average_gradients(self.model.parameters(), self._group, self.num_shards)
 
     # ------------------------------------------------------------------- eval
+    def _padded(self, nodes: np.ndarray) -> torch.Tensor:
+        """``nodes`` padded with node 0 to a multiple of S, on the device."""
+        pad = np.zeros((-len(nodes)) % self.num_shards, np.int32)
+        return torch.from_numpy(np.concatenate([np.asarray(nodes, np.int32), pad])).to(
+            self.device)
+
+    def _sampled_eval(self, nodes: np.ndarray, return_embeddings: bool = False
+                      ) -> torch.Tensor:
+        """Every rank's sampled forward of its slice of ``nodes`` (padded to
+        a multiple of S) at ``eval_fanouts`` from a generator seeded ``seed +
+        7``, gathered: ``[len(nodes), C]`` logits (or embeddings). A compact
+        batch that would overflow at the configured slack goes through the
+        dense exchange instead, with a warning."""
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 7)
+        frontier = slice_frontier(
+            self.model.sample(gen, self.graph, self._padded(nodes), self.cfg.eval_fanouts),
+            self.shard_index, self.num_shards)
+        mode = self.gather_mode
+        if mode == "compact" and self._violated_anywhere(
+                self._local_sites_violated(frontier, fanouts=self.cfg.eval_fanouts)):
+            warnings.warn(
+                "compact sharded-gather capacity exceeded during eval; falling "
+                "back to the dense exchange for this batch — increase "
+                "capacity_slack to keep eval on the compact path")
+            mode = "dense"
+        out = self.model(self.features.shard, frontier, return_embeddings,
+                         **self._injected(mode=mode))
+        return collectives.all_gather_rows(out, self._group)[:len(nodes)]
+
     @torch.no_grad()
     def predict(self, nodes: np.ndarray) -> np.ndarray:
         """Sampled evaluation through the sharded gather when
-        ``eval_fanouts`` is set (``nodes`` padded to a multiple of S, each
-        rank scoring its slice); otherwise the full-graph forward over a
+        ``eval_fanouts`` is set; otherwise the full-graph forward over a
         transient device copy of the graph."""
         nodes = np.asarray(nodes)
         if self.cfg.eval_fanouts is None:
             full = self._transient_full_graph()
             return self.model.predictions(self.model.forward_full_graph(full))[nodes]
-        s = self.num_shards
-        seeds = np.concatenate([nodes, np.zeros((-len(nodes)) % s, nodes.dtype)])
-        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + 7)
-        ids = torch.from_numpy(seeds.astype(np.int32)).to(self.device)
-        frontier = slice_frontier(
-            self.model.sample(gen, self.graph, ids, self.cfg.eval_fanouts),
-            self.shard_index, s)
-        logits = self.model(self.features.shard, frontier, **self._injected())
-        every = collectives.all_gather_rows(logits, self._group)
-        return self.model.predictions(every)[: len(nodes)]
+        return self.model.predictions(self._sampled_eval(nodes))
 
     def memory_stats(self) -> dict:
         """The per-rank layout (JAX's keys) and, on a card, the measured live
         device bytes (``utils.memory.live_device_bytes``): the largest live
         block below the full table's bytes shows that no rank holds it."""
-        stats = {**self.features.memory_stats(), "hub_cache_rows": 0,
-                 "hub_cache_bytes_per_chip": 0}
+        hub_bytes = 0 if self._hub is None else sum(t.nbytes for t in self._hub)
+        stats = {**self.features.memory_stats(), "hub_cache_rows": self.hub_cache_rows,
+                 "hub_cache_bytes_per_chip": hub_bytes}
         if self._cache_store is not None:
             cm = self._cache_store.memory_stats()
             stats["layer0_cache_bytes_per_chip"] = cm["feature_bytes_per_chip"]
@@ -304,3 +755,309 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
                      measured_largest_buffer_bytes=measured["largest_buffer_bytes"],
                      measured_per_device_bytes=measured["per_device_bytes"])
         return stats
+
+
+def _check_hub_cache(model: GraphSAGE, gather_mode: str) -> None:
+    """JAX's construction checks for ``hub_cache_rows``: the compact mode,
+    and a frozen table behind every lookup the cache would answer."""
+    if gather_mode != "compact":
+        raise ValueError(
+            "hub_cache_rows only affects the compact exchange "
+            "(the dense psum_scatter is exact for any skew)")
+    if model.layer0 == "cached":
+        if model.concat_self:
+            raise ValueError(
+                "hub_cache_rows with layer0='cached' supports the "
+                "pure-mean mode only: concat_self adds a raw "
+                "self-feature gather site that shares the exchange "
+                "closure with the cache-row site — one hub table "
+                "cannot serve both (drop concat_self or the cache)")
+    elif model.use_project_first(0, model.in_dim):
+        raise ValueError(
+            "hub_cache_rows requires a frozen gather table: the "
+            "injected project-first and layer0='full' modes gather "
+            "from params-DEPENDENT tables a frozen hub cache "
+            "cannot track (set project_first=False or skip the "
+            "cache)")
+
+
+# --------------------------------------------------------------------------
+# Fully sharded training: the adjacency sharded too, each hop sampled at
+# the owners. Per rank: E/S edges, N/S x F features, B/S seeds.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardedAdjacency:
+    """A rank's node range of the adjacency: its ELL rows ``ell [Np, W]``,
+    ``degrees [Np]``, a local CSR ``indptr [Np + 1]`` over ``edge_dst
+    [E_max]`` (``E_max`` the largest range's edge count rounded up to 128).
+    Neighbour ids stay global."""
+
+    ell: torch.Tensor
+    degrees: torch.Tensor
+    indptr: torch.Tensor
+    edge_dst: torch.Tensor
+    num_shards: int
+    rows_per_shard: int
+    ell_covers_all: bool
+
+    def memory_stats(self) -> dict:
+        per_chip = sum(t.numel() * t.element_size()
+                       for t in (self.ell, self.degrees, self.indptr, self.edge_dst))
+        return {"adjacency_bytes_per_chip": per_chip,
+                "adjacency_bytes_replicated_approx": per_chip * self.num_shards}
+
+
+def shard_adjacency(graph: Graph, num_shards: int, index: int,
+                    device=None) -> ShardedAdjacency:
+    """Rank ``index``'s node range of ``graph``'s ELL and CSR views (the
+    ownership rule of :func:`shard_features`), cut from a host copy and
+    placed on ``device`` (default: the graph's). Rank ``index``'s arrays are
+    JAX's ``shard_adjacency(...)[index]``."""
+    ell = graph.neighbors.cpu().numpy()
+    deg = graph.degrees.cpu().numpy()
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    edge_dst = graph.edge_dst.cpu().numpy()
+    n = graph.num_nodes
+    rows = _rows_per_shard(n, num_shards)
+    e_max = max(int(indptr[min(s * rows + rows, n)] - indptr[min(s * rows, n)])
+                for s in range(num_shards))
+    e_max = _round_up(max(e_max, 1), 128)
+    lo, hi = min(index * rows, n), min(index * rows + rows, n)
+    size = hi - lo
+    ell_s = np.zeros((rows, ell.shape[1]), np.int32)
+    deg_s = np.zeros(rows, np.int32)
+    ind_s = np.zeros(rows + 1, np.int32)
+    dst_s = np.zeros(e_max, np.int32)
+    ell_s[:size], deg_s[:size] = ell[lo:hi], deg[lo:hi]
+    local = indptr[lo:hi + 1] - indptr[lo]
+    ind_s[:size + 1] = local
+    ind_s[size + 1:] = local[-1] if size else 0
+    dst_s[:int(indptr[hi] - indptr[lo])] = edge_dst[indptr[lo]:indptr[hi]]
+    dev = graph.device if device is None else device
+    place = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return ShardedAdjacency(ell=place(ell_s), degrees=place(deg_s), indptr=place(ind_s),
+                            edge_dst=place(dst_s), num_shards=num_shards,
+                            rows_per_shard=rows, ell_covers_all=graph.ell_covers_all)
+
+
+def owner_generator(device, seed: int, step: int, rank: int) -> torch.Generator:
+    """Rank ``rank``'s sampling stream at step ``step``: a ``torch.Generator``
+    on ``device`` seeded with 64 bits of numpy's ``SeedSequence((seed, step,
+    rank))``. The counterpart of JAX's ``fold_in(step key, axis_index)``: a
+    function of the run's seed, the step and the rank alone, so a redone step
+    and a resumed run draw what the first attempt drew."""
+    hi, lo = np.random.SeedSequence((seed, step, rank)).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed((int(hi) << 32) | int(lo))
+
+
+def sharded_sample_neighbors(
+    mesh: DeviceMesh,
+    axis: str,
+    adj: ShardedAdjacency,
+    ids: torch.Tensor,
+    fanout: int | None,
+    generator: torch.Generator,
+    capacity: int,
+    valid_mask: torch.Tensor | None = None,
+    method: str = "floyd",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One distributed sampling hop: ``ids [q]`` (global; this rank's
+    parents) route to their owners, each owner samples its requests from its
+    ELL and CSR rows with ``generator`` (this rank's stream), and the
+    sampled global ids come back (one all-to-all of ids, masked slots sent as
+    -1 and returned as 0). Returns ``(ids [q, k] int32, mask [q, k] bool,
+    violated)``. At covering fanouts or ``fanout=None`` the result is the
+    single-device sampler's for Floyd; windowed sampling is random at any
+    fanout."""
+    group = mesh.get_group(axis)
+    s, np_ = adj.num_shards, adj.rows_per_shard
+    flat = ids.reshape(-1).to(torch.int32)
+    req, take, violated = route_buckets(flat, s, np_, capacity, valid_mask)
+    recv = collectives.RouteIds.apply(req, group)
+    local = (recv.reshape(-1) - dist.get_rank(group) * np_).clamp_(0, np_ - 1)
+    nids, nmask = sample_neighbors(
+        generator, adj.ell, adj.degrees, local, fanout, method=method,
+        indptr=adj.indptr, edge_dst=adj.edge_dst, ell_covers_all=adj.ell_covers_all)
+    k = nids.shape[-1]
+    answers = torch.where(nmask, nids.to(torch.int32), torch.full_like(nids, -1,
+                                                                       dtype=torch.int32))
+    back = collectives.all_to_all_rows(answers.view(s, capacity, k), group)[take]
+    mask = back >= 0
+    if valid_mask is not None:
+        mask = mask & valid_mask.reshape(-1)[:, None]
+    return back.clamp_(min=0), mask, violated
+
+
+def sharded_random_walk(
+    mesh: DeviceMesh,
+    axis: str,
+    adj: ShardedAdjacency,
+    starts: torch.Tensor,
+    length: int,
+    generator: torch.Generator,
+    slack: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Distributed uniform random walks: each of the ``length`` steps is one
+    :func:`sharded_sample_neighbors` round with ``fanout=1``. The semantics
+    of :func:`graphsage_torch.ops.walks.random_walk` (a walk at a sink stays
+    there, masked from then on); equal to it where a step is deterministic
+    (out-degree 1). Returns ``(walks [b, length+1], valid [b, length+1],
+    violated)``."""
+    cur = starts.reshape(-1).to(torch.int32)
+    cap = request_capacity(cur.shape[0], adj.num_shards, slack)
+    alive = torch.ones(cur.shape, dtype=torch.bool, device=cur.device)
+    steps, flags = [cur], [alive]
+    violated = torch.zeros((), dtype=torch.bool, device=cur.device)
+    for _ in range(length):
+        nids, nmask, viol = sharded_sample_neighbors(mesh, axis, adj, cur, 1, generator,
+                                                     cap, valid_mask=alive)
+        violated = violated | viol
+        alive = alive & nmask[:, 0]
+        cur = torch.where(alive, nids[:, 0], cur)
+        steps.append(cur)
+        flags.append(alive)
+    return torch.stack(steps, dim=-1), torch.stack(flags, dim=-1), violated
+
+
+def sharded_sample_frontier(
+    mesh: DeviceMesh,
+    axis: str,
+    model: GraphSAGE,
+    adj: ShardedAdjacency,
+    seeds_local: torch.Tensor,
+    generator: torch.Generator,
+    slack: float,
+    fanouts=None,
+) -> tuple[Frontier, torch.Tensor]:
+    """This rank's frontier of ``seeds_local``, as :meth:`GraphSAGE.sample`
+    builds it (``fanouts`` overrides the model's), with every hop sampled at
+    the owners; and the overflow flag of its hops."""
+    fanouts = model.fanouts if fanouts is None else tuple(fanouts)
+    seeds_local = seeds_local.reshape(-1).to(torch.int32)
+    ids = [seeds_local]
+    masks = [torch.ones(seeds_local.shape, dtype=torch.bool, device=seeds_local.device)]
+    violated = torch.zeros((), dtype=torch.bool, device=seeds_local.device)
+    L = model.num_layers
+    hops = L - 1 if model.layer0 in ("full", "cached") else L
+    for h in range(1, hops + 1):
+        parent_ids, parent_mask = ids[-1], masks[-1]
+        cap = request_capacity(parent_ids.shape[0], adj.num_shards, slack)
+        nids, nmask, viol = sharded_sample_neighbors(
+            mesh, axis, adj, parent_ids, fanouts[L - h], generator, cap,
+            valid_mask=parent_mask, method=model.sampling)
+        violated = violated | viol
+        if model.concat_self or model.self_loop:
+            nids = torch.cat([parent_ids[:, None], nids], dim=1)
+            nmask = torch.cat([parent_mask[:, None], nmask], dim=1)
+        ids.append(nids.reshape(-1))
+        masks.append(nmask.reshape(-1))
+    return Frontier(ids=tuple(ids), masks=tuple(masks)), violated
+
+
+class FullyShardedTrainer(ShardedFeatureTrainer):
+    """Sampled training with nothing graph-sized replicated: the adjacency,
+    the feature table and the seed batch all shard over one axis. Each hop
+    is sampled at the owners (:func:`sharded_sample_frontier`) and the
+    lookups go through the compact exchange; per rank the device holds
+    ``E/S`` edges, ``N/S x F`` features (and a cached model's cache shard),
+    the labels and the batch slice.
+
+    Each rank samples from :func:`owner_generator` of the run's seed, the
+    step and its rank, so losses equal the single-device trainer's only
+    where sampling is deterministic (Floyd at covering fanouts or
+    ``fanout=None``). An overflow in a sampling hop or a lookup redoes the
+    step as :class:`ShardedFeatureTrainer`'s compact mode does; the owners'
+    draws are laid out by bucket slot, so a retry at another capacity draws
+    afresh where sampling is random (as JAX's does). Evaluation is
+    distributed too, at ``eval_fanouts`` or the model's (no replicated
+    fallback), with the same retries."""
+
+    def __init__(self, model, graph, config, mesh, axis: str = "data",
+                 capacity_slack: float = 1.5, feature_store=None,
+                 hub_cache_rows: int = 0):
+        if model.sampling == "topk":
+            raise ValueError(
+                "FullyShardedTrainer samples through the owner-side CSR "
+                "slice; method='topk' is ELL-only — use 'floyd' (exact) "
+                "or 'windowed'")
+        super().__init__(model, graph, config, mesh, axis=axis, gather_mode="compact",
+                         capacity_slack=capacity_slack, feature_store=feature_store,
+                         hub_cache_rows=hub_cache_rows)
+
+    def _device_graph(self, host: Graph, device) -> Graph:
+        """Shard the adjacency; the device graph keeps the labels only."""
+        self.adjacency = shard_adjacency(host, self.num_shards, self.shard_index, device)
+        blank = dict(
+            features=torch.zeros((1, host.num_features), dtype=host.features.dtype),
+            neighbors=torch.zeros((1, 1), dtype=torch.int32),
+            degrees=torch.zeros(1, dtype=torch.int32),
+            indptr=torch.zeros(2, dtype=torch.int32),
+            edge_dst=torch.zeros(1, dtype=torch.int32),
+            edge_src=torch.zeros(1, dtype=torch.int32),
+            edge_mask=torch.zeros(1, dtype=torch.bool),
+            layer0_cache=None)
+        return dataclasses.replace(host, **blank).to(device)
+
+    def _generator(self, eval_: bool = False) -> torch.Generator:
+        if eval_:
+            return owner_generator(self.device, self.cfg.seed + 7, 0, self.shard_index)
+        return owner_generator(self.device, self.cfg.seed, self.step_count, self.shard_index)
+
+    def _local_seeds(self, ids: torch.Tensor) -> torch.Tensor:
+        return ids.chunk(self.num_shards)[self.shard_index]
+
+    def _frontier(self, seeds_local, generator, slack, fanouts=None):
+        """This rank's distributed frontier and whether it, or a lookup on
+        it, would overflow on any rank."""
+        frontier, violated = sharded_sample_frontier(
+            self.mesh, self.axis, self.model, self.adjacency, seeds_local, generator,
+            slack, fanouts)
+        violated = violated | self._local_sites_violated(frontier, slack, fanouts)
+        return frontier, self._violated_anywhere(violated)
+
+    # ------------------------------------------------------------------- step
+    def step(self, seeds: np.ndarray) -> torch.Tensor:
+        ids = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(self.device)
+        return self._with_retries(lambda slack: self._attempt(ids, slack))
+
+    def _attempt(self, ids: torch.Tensor, slack: float) -> torch.Tensor | None:
+        seeds_local = self._local_seeds(ids)
+        frontier, violated = self._frontier(seeds_local, self._generator(), slack)
+        if violated:
+            return None
+        loss = self.model.loss(self.features.shard, frontier,
+                               self.graph.labels[seeds_local.long()], **self._injected(slack))
+        return self._mean_over(self._update(loss), self._group, self.num_shards)
+
+    # ------------------------------------------------------------------- eval
+    def _distributed_eval(self, nodes: np.ndarray, return_embeddings: bool = False
+                          ) -> torch.Tensor:
+        """Every rank's distributed forward of its slice of ``nodes`` (padded
+        to a multiple of S) at ``eval_fanouts`` or the model's, gathered:
+        ``[len(nodes), C]`` (or embeddings). Sampling uses a stream seeded
+        ``seed + 7``; an overflow retries at doubled slack."""
+        seeds_local = self._local_seeds(self._padded(nodes))
+        fanouts = self.cfg.eval_fanouts or self.model.fanouts
+
+        def attempt(slack):
+            frontier, violated = self._frontier(seeds_local, self._generator(eval_=True),
+                                                slack, fanouts)
+            if violated:
+                return None
+            return self.model(self.features.shard, frontier, return_embeddings,
+                              **self._injected(slack))
+
+        out = self._with_retries(attempt, "distributed eval request capacity")
+        return collectives.all_gather_rows(out, self._group)[:len(nodes)]
+
+    @torch.no_grad()
+    def predict(self, nodes: np.ndarray) -> np.ndarray:
+        """Distributed sampled evaluation: the adjacency stays ``E/S`` and
+        the features ``N/S x F`` per rank through evaluation too. Covering
+        fanouts (Floyd) give the replicated trainer's deterministic
+        predictions."""
+        return self.model.predictions(self._distributed_eval(np.asarray(nodes)))
+
+    def memory_stats(self) -> dict:
+        return {**super().memory_stats(), **self.adjacency.memory_stats()}

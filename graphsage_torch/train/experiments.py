@@ -1,7 +1,8 @@
 """Reference-compatible experiment drivers: the counterpart of
-``graphsage_tpu/train/experiments.py`` on one device: supervised training,
-sampled or full-graph, unsupervised training (``objective="unsupervised"``,
-sampled), checkpoints and resume.
+``graphsage_tpu/train/experiments.py``: supervised training, sampled,
+full-graph, node-sharded or fully sharded, unsupervised training
+(``objective="unsupervised"``: sampled or either sharded mode), checkpoints
+and resume.
 
 ``run_cora()`` / ``run_pubmed()`` reproduce the observable surface of the
 reference's entry points (reference graphsage/model.py:65-106, 137-178):
@@ -32,9 +33,8 @@ from graphsage_torch.utils.checkpoint import restore_checkpoint
 from graphsage_torch.utils.diagnostics import diagnose
 from graphsage_torch.utils.logging import MetricsLogger
 
-# Training modes of the JAX package that the port does not run yet, and the
-# ROADMAP Queue 1 item that brings each.
-_NOT_PORTED_MODES = {"fully-sharded": "14c"}
+MODES = ("sampled", "full-graph", "sharded", "fully-sharded")
+_SHARDED_MODES = ("sharded", "fully-sharded")
 
 
 # The synthetic power-law datasets: JAX's sizes (its train/experiments.py),
@@ -102,6 +102,7 @@ def run_preset(
     eval_only: bool = False,
     checkpoint_every: int = 0,
     device=None,
+    hub_cache_rows: int = 0,
 ) -> dict[str, Any]:
     """Train one of the presets end to end: load its dataset, build its
     model and trainer, run. ``mode="sampled"`` trains on minibatches with
@@ -112,8 +113,15 @@ def run_preset(
     node-sharded (:class:`~graphsage_torch.parallel.feature_store.
     ShardedFeatureTrainer`; a plain process is a world of one, ``torchrun
     --nproc-per-node=S`` gives S ranks, and only rank 0 logs and writes
-    checkpoints); an ``objective="unsupervised"``
-    preset trains sampled with :class:`UnsupervisedTrainer`. The result
+    checkpoints), ``mode="fully-sharded"`` the same with the adjacency
+    sharded too and each hop sampled at its owner (:class:`~graphsage_torch.
+    parallel.feature_store.FullyShardedTrainer`). An
+    ``objective="unsupervised"`` preset trains with
+    :class:`UnsupervisedTrainer`, or in the sharded modes with
+    ``UnsupervisedShardedTrainer`` and ``UnsupervisedFullyShardedTrainer``.
+    ``hub_cache_rows`` (sharded modes only) replicates that many
+    highest-degree rows; in ``mode="sharded"`` it selects the compact
+    exchange (``gather_mode="compact"``), as in the JAX package. The result
     holds the losses, step times, validation F1 and the ``trainer`` (with
     the trained model). ``quantize_features`` in the preset (or the
     overrides) quantizes the loaded graph's feature table to int8 first.
@@ -122,17 +130,17 @@ def run_preset(
     continues from it; ``checkpoint_path`` receives the final state (and a
     snapshot every ``checkpoint_every`` steps); ``eval_only`` evaluates the
     restored state on the validation and test splits without training."""
-    if mode in _NOT_PORTED_MODES:
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet (ROADMAP Queue 1 item "
-            f"{_NOT_PORTED_MODES[mode]}); the port trains mode='sampled', "
-            "'full-graph' and 'sharded'"
+    if hub_cache_rows and mode not in _SHARDED_MODES:
+        raise ValueError(
+            "hub_cache_rows is a sharded-trainer lever (the single-table "
+            f"modes gather locally); got mode={mode!r} — drop the flag or "
+            "use mode='sharded'/'fully-sharded'"
         )
-    if mode not in ("sampled", "full-graph", "sharded"):
+    if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     config = preset_config(name, overrides)
     model_device = None
-    if mode == "sharded":
+    if mode in _SHARDED_MODES:
         from graphsage_torch.parallel import multihost
 
         info = multihost.initialize(device=device)
@@ -151,30 +159,46 @@ def run_preset(
         graph = quantize_graph(graph)
         if log:
             log(f"feature table quantized to int8: {graph.features.nbytes} B resident")
-    if config.train.objective == "unsupervised":
+    sharded_kw = {}
+    if hub_cache_rows:
+        sharded_kw["hub_cache_rows"] = hub_cache_rows
         if mode == "sharded":
-            raise NotImplementedError(
-                "objective='unsupervised' with mode='sharded' is not ported yet "
-                "(ROADMAP Queue 1 item 14c)")
-        if mode != "sampled":
+            sharded_kw["gather_mode"] = "compact"
+    if config.train.objective == "unsupervised":
+        if mode == "full-graph":
             raise ValueError(
                 "objective='unsupervised' supports mode='sampled', the "
                 "node-sharded mode='sharded', and the everything-sharded "
                 f"mode='fully-sharded' (got mode={mode!r})"
             )
-        trainer = UnsupervisedTrainer(build_model(config, graph), graph, config.train)
+        if mode == "sampled":
+            trainer = UnsupervisedTrainer(build_model(config, graph), graph, config.train)
+        else:
+            from graphsage_torch.parallel.mesh import make_mesh
+            from graphsage_torch.train.unsupervised import (
+                UnsupervisedFullyShardedTrainer,
+                UnsupervisedShardedTrainer,
+            )
+
+            cls = (UnsupervisedShardedTrainer if mode == "sharded"
+                   else UnsupervisedFullyShardedTrainer)
+            trainer = cls(build_model(config, graph, model_device), graph, config.train,
+                          make_mesh({"data": s}), **sharded_kw)
     elif mode == "full-graph":
         fanouts = tuple(None for _ in config.model.fanouts)
         config = dataclasses.replace(
             config, model=dataclasses.replace(config.model, fanouts=fanouts))
         trainer = FullGraphTrainer(build_model(config, graph), graph, config.train)
-    elif mode == "sharded":
-        from graphsage_torch.parallel.feature_store import ShardedFeatureTrainer
+    elif mode in _SHARDED_MODES:
+        from graphsage_torch.parallel.feature_store import (
+            FullyShardedTrainer,
+            ShardedFeatureTrainer,
+        )
         from graphsage_torch.parallel.mesh import make_mesh
 
-        mesh = make_mesh({"data": s})
-        trainer = ShardedFeatureTrainer(build_model(config, graph, model_device), graph,
-                                        config.train, mesh)
+        cls = ShardedFeatureTrainer if mode == "sharded" else FullyShardedTrainer
+        trainer = cls(build_model(config, graph, model_device), graph, config.train,
+                      make_mesh({"data": s}), **sharded_kw)
         if log:
             stats = trainer.memory_stats()
             log(f"{mode} over {s} device(s): "
@@ -236,7 +260,6 @@ def run_pubmed(data_root: str | None = None, **kwargs) -> dict[str, Any]:
 # Flags of the JAX package's CLI that the port does not take yet: the
 # ROADMAP Queue 1 item that brings each, or why it has no counterpart.
 _NOT_PORTED_FLAGS = {
-    "hub_cache_rows": "14b",
     "compilation_cache": "the port compiles no XLA programs",
     "no_compilation_cache": "the port compiles no XLA programs",
 }
@@ -252,8 +275,9 @@ def main(argv: Optional[list[str]] = None) -> None:
     )
     parser.add_argument("--preset", default="cora", choices=sorted(PRESETS))
     parser.add_argument(
-        "--mode", default="sampled",
-        choices=("sampled", "full-graph", "sharded", "fully-sharded"),
+        "--mode", default="sampled", choices=MODES,
+        help="sampled | full-graph | sharded (the feature table node-sharded "
+        "over the process group's ranks) | fully-sharded (the adjacency too)",
     )
     parser.add_argument("--data-root", default=None,
                         help="dataset directory (cora/ or pubmed-data/ layout)")
@@ -278,6 +302,10 @@ def main(argv: Optional[list[str]] = None) -> None:
                         help="layer-0 formulation: sampled (the reference's "
                         "estimator) | full (one full-graph pass per step) | "
                         "cached (a frozen aggregate table built once)")
+    parser.add_argument("--hub-cache-rows", type=int, default=0,
+                        help="sharded modes: replicate this many highest-degree "
+                        "feature rows on every rank (selects the compact "
+                        "exchange under --mode sharded)")
     parser.add_argument("--quantize-features", action="store_true",
                         help="int8-quantize the frozen feature table at load "
                         "time (per-row scales)")
@@ -339,8 +367,9 @@ def main(argv: Optional[list[str]] = None) -> None:
             checkpoint_path=args.checkpoint, mode=args.mode,
             resume_path=args.resume, eval_only=args.eval_only,
             checkpoint_every=args.checkpoint_every, device=args.device,
+            hub_cache_rows=args.hub_cache_rows,
         )
-    if args.mode == "sharded":
+    if args.mode in _SHARDED_MODES:
         import torch.distributed as dist
 
         dist.destroy_process_group()

@@ -371,8 +371,10 @@ def test_sharded_trainer_dp_tp_losses_equal_jax_at_covering_fanouts(graphs, job4
     ("indivisible", "ValueError: batch_size 31 must be divisible by the 'data' axis size 2"),
     ("run_preset_indivisible",
      "ValueError: batch_size 31 is not divisible by the 2 visible devices; pass --batch-size"),
-    ("compact", "NotImplementedError: .*item 14b"),
-    ("hub_cache_rows", "NotImplementedError: .*item 14b"),
+    ("compact", "ValueError: hub_cache_rows only affects the compact exchange "
+                r"\(the dense psum_scatter is exact for any skew\)"),
+    ("hub_cache_rows", "ValueError: hub_cache_rows requires a frozen gather table: the "
+                       "injected project-first and layer0='full' modes gather"),
     ("layer0_full", "NotImplementedError: .*item 14e"),
     ("int8", "NotImplementedError: .*item 14e"),
     ("feature_store", "NotImplementedError: .*item 15"),
@@ -388,9 +390,20 @@ def test_sharded_trainer_rejects_indivisible_batch(job4):
         "ValueError: batch_size 31 must divide over data axis size 2")
 
 
-def test_fully_sharded_mode_still_raises(cora_root):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_preset("cora", str(cora_root), log=None, mode="fully-sharded", device="cpu")
+def test_run_preset_fully_sharded_in_a_world_of_one(cora_root):
+    """``mode="fully-sharded"`` trains the preset through
+    ``FullyShardedTrainer`` (the adjacency sharded, each hop sampled at its
+    owner) in a world of one over gloo."""
+    from graphsage_torch.parallel.feature_store import FullyShardedTrainer
+
+    over = {"num_steps": 3, "batch_size": 32, "test_size": 100, "val_size": 80}
+    lines = []
+    res = run_preset("cora", str(cora_root), log=lines.append, mode="fully-sharded",
+                     device="cpu", overrides=over)
+    assert isinstance(res["trainer"], FullyShardedTrainer)
+    assert len(res["losses"]) == 3 and np.isfinite(res["losses"]).all()
+    assert 0.0 <= res["val_micro_f1"] <= 1.0
+    assert lines[0].startswith("fully-sharded over 1 device(s): ")
 
 
 # --------------------------------------------------------------- multihost

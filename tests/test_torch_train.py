@@ -252,14 +252,30 @@ def test_run_cora_quiet(synth_cora_root, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--hub-cache-rows", "8"], "Queue 1 item 14"),
-    (["--mode", "fully-sharded"], "Queue 1 item 14"),
     (["--compilation-cache", "cache"], "not ported"),
     (["--mode", "sharded", "--layer0", "full"], "Queue 1 item 14"),
 ])
 def test_cli_rejects_what_is_not_ported(argv, match, synth_cora_root):
     with pytest.raises(NotImplementedError, match=match):
         main(["--device", "cpu", "--data-root", str(synth_cora_root), *argv])
+
+
+def test_cli_hub_cache_rows_outside_the_sharded_modes_is_jax_error(synth_cora_root):
+    with pytest.raises(ValueError, match="hub_cache_rows is a sharded-trainer lever"):
+        main(["--device", "cpu", "--data-root", str(synth_cora_root),
+              "--hub-cache-rows", "8"])
+
+
+def test_cli_trains_fully_sharded(synth_cora_root, capsys):
+    """``--mode fully-sharded`` (a world of one over gloo) prints the
+    reference's lines after its memory line."""
+    main(["--preset", "cora", "--data-root", str(synth_cora_root), "--device", "cpu",
+          "--mode", "fully-sharded", "--steps", "2", "--test-size", "100",
+          "--val-size", "80"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("fully-sharded over 1 device(s): ")
+    assert [ln.split()[0] for ln in lines[1:3]] == ["0", "1"]
+    assert lines[-2].startswith("Validation F1: ")
 
 
 @pytest.mark.parametrize("sampling", ["topk", "windowed"])

@@ -393,10 +393,19 @@ def test_run_preset_dispatches_unsupervised(synth_cora_root):
     with pytest.raises(ValueError, match="unsupervised"):
         run_preset("cora_unsup", data_root=synth_cora_root, log=None, mode="full-graph",
                    overrides=over, device="cpu")
-    for mode in ("sharded", "fully-sharded"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            run_preset("cora_unsup", data_root=synth_cora_root, log=None, mode=mode,
-                       overrides=over, device="cpu")
+    # The sharded modes dispatch to the sharded trainers (a world of one).
+    from graphsage_torch.train.unsupervised import (
+        UnsupervisedFullyShardedTrainer,
+        UnsupervisedShardedTrainer,
+    )
+
+    over = {**over, "num_steps": 2}
+    for mode, cls in (("sharded", UnsupervisedShardedTrainer),
+                      ("fully-sharded", UnsupervisedFullyShardedTrainer)):
+        result = run_preset("cora_unsup", data_root=synth_cora_root, log=None, mode=mode,
+                            overrides=over, device="cpu")
+        assert type(result["trainer"]) is cls
+        assert len(result["losses"]) == 2 and np.isfinite(result["losses"]).all()
 
 
 def test_cli_trains_cora_unsup(synth_cora_root, capsys):

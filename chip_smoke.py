@@ -185,9 +185,33 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    arrays', its largest live block below the whole table's), then the dense
    and compact ``ShardedFeatureTrainer`` (within ``RESUME_RTOL`` of one
    device), at ``cora``, 20 steps each.
-15. a ``{"kernels": [...]}`` line (the sum modes, and the compact
-   answer-buffer mean modes, as their own entries), then the last line
-   ``{"ok": true, "device": {...}}``.
+15. the halo exchange: a world of one over NCCL again (the CLI ended
+   phase 14's); the native partitioner (built from ``csrc/partitioner.cpp``
+   with ``g++``; the run fails without it) equal to numpy's LPA and BFS on
+   the stand-in and timed against them (host ms), and alone at ``reddit``;
+   ``FullGraphTrainer(mesh=)`` on ``pubmed`` (200 steps, the trainer's
+   ``order="auto"`` plan), the stand-in at lr 0.1 with a hub threshold (100
+   steps: the hub all-gather runs), ``reddit`` bf16 (100 steps, its plan in
+   input order) and ``cora_pool`` (100 steps), counters set to 0 just before
+   each and read just after (kernel 3 once per mean layer forward, over the
+   combined CSR, and once per layer whose SpMM input needs a gradient,
+   over its transpose; kernel 2's sum mode once per such exchange), each
+   within ``HALO_RTOL`` of the single-device ``FullGraphTrainer`` step for
+   step (``reddit``: ``HALO_BF16_RTOL``), with host and device ms beside it
+   and ``comm_stats``; kernel 3 on
+   the halo's combined CSR and its transpose and kernel 2's sum mode on a
+   send list against their plain versions and timed (rank 0 of a 2-shard
+   plan of the synthetic Pubmed graph and of the stand-in; ``reddit``'s
+   world-of-one shard); ``ServingEngine(mesh=)`` serving ``pubmed`` and
+   ``reddit`` against the single-device table tier, with ``memory_stats``.
+   Then two ranks of this script (``--halo-two-rank``) share the card over
+   gloo on the stand-in, ``order="auto"`` and ``"bfs"`` per offset with
+   hubs: halo logits against ``forward_full_graph``, 20 steps within
+   ``HALO_RTOL`` of one device, ``comm_stats`` against
+   ``partition_comm_rows``.
+16. a ``{"kernels": [...]}`` line (the sum modes, the compact answer-buffer
+   mean modes and the halo path's kernels 3 and 2 as their own entries),
+   then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -256,6 +280,13 @@ from graphsage_torch.parallel.feature_store import (
     route_buckets,
     shard_features,
     sharded_comm_stats,
+)
+from graphsage_torch.parallel import halo, native_partition
+from graphsage_torch.parallel.halo import (
+    auto_partition_plan,
+    build_node_partition,
+    halo_full_graph_logits,
+    partition_comm_rows,
 )
 from graphsage_torch.parallel.mesh import make_mesh
 from graphsage_torch.parallel.partition import partition_edges
@@ -2979,6 +3010,400 @@ def parallel(graphs, roots, results, timings, errs, main_launches, compact_launc
         two_ranks_on_one_card(roots["cora"])
 
 
+# ---------------------------------------------------------- the halo exchange
+# Phase 15: full-graph training and serving through the halo exchange.
+HALO_HUB = 100  # the stand-in's hub threshold: 0.3% of its rows (degrees up to 949)
+HALO_TWO_RANK_STEPS = 20
+HALO_RTOL = 1e-4
+# A bf16 model's halo losses against one device's: its plan pads the rows to
+# Np = round_up(N, 8), and cuBLAS's bf16 products over Np rows (the weight
+# gradients contract over them) round in another order than over N.
+HALO_BF16_RTOL = 1e-3
+# Kernels 3 (forward over the combined CSR, backward over its transpose) and
+# 2 (sum mode, the send gathers' transpose) on the halo path: their launches
+# there are counted apart.
+HALO_KERNELS = {"spmm_mean_halo": "spmm_mean", "scatter_mean_halo": "scatter_mean"}
+# The two-rank phase's plans of the stand-in.
+HALO_TWO_RANK_PLANS = {"auto": dict(order="auto"),
+                       "bfs, per_offset, hub": dict(order="bfs", sizing="per_offset",
+                                                    hub_threshold=HALO_HUB)}
+
+
+def halo_stand_in(device=None):
+    """The heavy-tailed Pubmed stand-in of phase 3."""
+    return power_law_graph(19717, 44338, num_feats=500, num_classes=3, homophily=0.8,
+                           device=device)
+
+
+def native_partitioner(stand_in, reddit) -> None:
+    """The native LPA and BFS: built from ``csrc/partitioner.cpp`` (the run
+    fails when they are not), equal to numpy's on the stand-in and timed
+    against them there (host ms), and timed alone at ``reddit``."""
+    if native_partition.load_library() is None:
+        raise AssertionError(f"the native partitioner did not build: "
+                             f"{native_partition.build_error}")
+    times = {}
+    for name, native, plain in (
+            ("lpa", lambda g: native_partition.lpa_assign_native(g, 2),
+             lambda g: halo.lpa_assign(g, 2)),
+            ("bfs", native_partition.bfs_order_native, halo.bfs_order)):
+        t0 = time.perf_counter()
+        got = native(stand_in)
+        t1 = time.perf_counter()
+        want = plain(stand_in)
+        t2 = time.perf_counter()
+        native(reddit)
+        t3 = time.perf_counter()
+        np.testing.assert_array_equal(got, want, err_msg=f"native {name} != numpy {name}")
+        times[name] = dict(stand_in_native_ms=(t1 - t0) * 1e3, stand_in_numpy_ms=(t2 - t1) * 1e3,
+                           reddit_native_ms=(t3 - t2) * 1e3)
+    print(f"   native partitioner ({native_partition.library_path()}): equal to numpy on "
+          f"the stand-in; host ms {json.dumps(times)}")
+
+
+def halo_launches_per_step(model) -> tuple[int, int]:
+    """Kernel 3's and kernel 2's (sum mode) launches in one halo step: kernel
+    3 as on one device (``full_graph_step_launches``); kernel 2 once per
+    exchange whose input needs a gradient (every maxpool layer; a mean
+    layer's when its SpMM runs backward)."""
+    k3 = full_graph_step_launches(model)["spmm_mean"]
+    return k3, (k3 - model.num_layers if model.aggregator == "mean" else model.num_layers)
+
+
+def halo_run(label, build, graph, train_cfg, plan, main_launches, halo_launches) -> dict:
+    """``FullGraphTrainer(mesh=)`` in the world of one (``plan``: the
+    partition's keywords; ``order="auto"`` is the trainer's default), the
+    counters set to 0 just before and read just after, against the
+    single-device ``FullGraphTrainer`` from the same seed, step for step
+    (``HALO_RTOL``; ``HALO_BF16_RTOL`` for a bf16 model); host and device ms
+    per step beside the single device's,
+    the collectives' device ms, ``comm_stats``."""
+    mesh = make_mesh({"graph": 1})
+    t0 = time.perf_counter()
+    native_partition.last_impl.clear()
+    part = build_node_partition(graph, 1, **plan)
+    t1 = time.perf_counter()
+    if "numpy" in native_partition.last_impl.values():
+        raise AssertionError(f"halo {label}: the numpy partitioner ran "
+                             f"{native_partition.last_impl}")
+    reset_launches()
+    trainer = FullGraphTrainer(build(), graph, train_cfg, mesh, partition=part)
+    plan_s, built_s = t1 - t0, time.perf_counter() - t1
+    result = trainer.run(log=None)
+    launches = read_launches()
+    model, steps = trainer.model, train_cfg.num_steps
+    k3, k2 = halo_launches_per_step(model)
+    want = {name: 0 for name in KERNELS}
+    want["spmm_mean"] = steps * k3 + (model.num_layers if model.aggregator == "mean" else 0)
+    want["scatter_mean"] = want["scatter_mean_sum"] = steps * k2
+    if launches != want:
+        raise AssertionError(f"halo {label}: launches {launches}, want {want}")
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    for name, base in HALO_KERNELS.items():
+        halo_launches[name] += launches[base]
+    losses = np.asarray(result["losses"])
+    if losses.shape != (steps,) or not np.isfinite(losses).all():
+        raise AssertionError(f"halo {label}: losses {losses}")
+    single_trainer = FullGraphTrainer(build(), graph, train_cfg)
+    single = single_trainer.run(log=None)
+    rtol = HALO_RTOL if model.compute_dtype is None else HALO_BF16_RTOL
+    np.testing.assert_allclose(losses, single["losses"], rtol=rtol,
+                               err_msg=f"halo {label} != single-device {label}")
+    by_name = device_profile(trainer.step, iters=10)
+    single_by_name = device_profile(single_trainer.step, iters=10)
+    dev_ms, single_ms = sum(by_name.values()), sum(single_by_name.values())
+    host_ms = result["mean_step_time"] * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # Where the halo step's extra device time goes: kernels by their gain.
+    extra = {short_name(k): by_name.get(k, 0.0) - single_by_name.get(k, 0.0)
+             for k in set(by_name) | set(single_by_name)}
+    extra = sorted(extra.items(), key=lambda kv: -abs(kv[1]))[:6]
+    print(f"   halo {label}: {steps} steps, plan {plan} built in {plan_s:.2f} s on the host "
+          f"(partitioner {native_partition.last_impl or 'not needed'}), "
+          f"the trainer (the rank's slice on the card) in {built_s:.2f} s, segments "
+          f"{trainer.shard.segments}; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, within {relative_gap(losses, single['losses']):.3g} "
+          f"(relative) of the single device's; val micro-F1 {result['val_micro_f1']:.4f} "
+          f"(single {single['val_micro_f1']:.4f}); per step: host ms {host_ms:.3f} (single "
+          f"{single['mean_step_time'] * 1e3:.3f}), device ms {dev_ms:.4f} (single "
+          f"{single_ms:.4f}), idle share {1 - dev_ms / host_ms:.3f}, collectives "
+          f"{collective_ms(by_name):.4f}; top {[(short_name(k), round(v, 5)) for k, v in top]}; "
+          f"against the single device's, by kernel {[(k, round(v, 5)) for k, v in extra]}; "
+          f"launches {launches}; comm_stats {trainer.partition.comm_stats()}")
+    result["trainer"] = trainer
+    return result
+
+
+def halo_kernel_records(cases, timings, errs) -> None:
+    """Kernel 3 on each case's combined CSR (the mean) and on its transpose
+    (the backward's sum on ``g / deg`` in the table's dtype), and kernel 2's
+    sum mode on its
+    send list, against their plain versions (sums: each element held to the
+    tolerance of its terms' magnitude) and timed beside them,
+    ``torch.sparse.mm`` (kernel 3) or ``index_add_`` into zeros (kernel 2),
+    and the bound: the buffer, ids and output once; one add per edge and
+    element."""
+    rng = torch.Generator().manual_seed(61)
+    for label, sh, dtype in cases:
+        dev = sh.indptr.device
+        f, np_, width, e = 128, sh.nodes_per_shard, sh.width, int(sh.cols.numel())
+        elt = torch.empty((), dtype=dtype).element_size()
+        buf = torch.randn(width, f, generator=rng).to(device=dev, dtype=dtype)
+        gs = torch.randn(np_, f, generator=rng).to(device=dev, dtype=dtype)
+        g2 = torch.randn(sh.send_idx.shape[0], f, generator=rng).to(dev)
+        deg = (sh.indptr[1:] - sh.indptr[:-1]).long()
+        vals = (1.0 / deg.clamp(min=1).float()).repeat_interleave(deg)
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            mean = torch.sparse_csr_tensor(sh.indptr.long(), sh.cols.long(), vals.to(dtype),
+                                           size=(np_, width))
+            ones = torch.sparse_csr_tensor(sh.t_indptr.long(), sh.t_cols.long(),
+                                           torch.ones(e, device=dev, dtype=dtype),
+                                           size=(width, np_))
+        valid = sh.send_mask[:, 0]
+        ids = sh.send_idx[:, 0][valid]
+        n_valid = int(valid.sum())
+        fwd = lambda: spmm_kernel.spmm_block_sum(buf, sh.indptr, sh.cols, normalize=True)  # noqa: E731
+        fwd_plain = lambda: spmm_kernel.spmm_mean_plain(buf, sh.indptr, sh.cols, True)  # noqa: E731
+        bwd = lambda: spmm_kernel.spmm_block_sum(gs, sh.t_indptr, sh.t_cols)  # noqa: E731
+        bwd_plain = lambda: spmm_kernel.spmm_mean_plain(gs, sh.t_indptr, sh.t_cols, False)  # noqa: E731
+        sc = lambda: sm_kernel.scatter_mean(g2, sh.send_idx, sh.send_mask, np_, False)  # noqa: E731
+        sc_plain = lambda: sm_kernel.scatter_mean_plain(g2, sh.send_idx, sh.send_mask, np_, False)  # noqa: E731
+        tol = TOL if dtype == torch.float32 else BF16_TOL
+        errs["spmm_mean_halo"] = max(
+            errs.get("spmm_mean_halo", 0.0),
+            max_err(fwd(), fwd_plain(), f"kernel 3 on the halo buffer, {label}", tol,
+                    magnitude=spmm_kernel.spmm_mean_plain(buf.abs(), sh.indptr, sh.cols,
+                                                          True).float()),
+            max_err(bwd(), bwd_plain(), f"kernel 3 on the transposed CSR, {label}", tol,
+                    magnitude=spmm_kernel.spmm_mean_plain(gs.abs(), sh.t_indptr, sh.t_cols,
+                                                          False).float()))
+        errs["scatter_mean_halo"] = max(
+            errs.get("scatter_mean_halo", 0.0),
+            max_err(sc(), sc_plain(), f"kernel 2's sum mode on the send list, {label}",
+                    magnitude=sm_kernel.scatter_mean_plain(g2.abs(), sh.send_idx, sh.send_mask,
+                                                           np_, False)))
+        rows = [
+            ("spmm_mean_halo", label, f"{label} forward: buffer [{width},{f}] {dtype}, "
+             f"{np_} rows, E={e}, segments {[seg.kind for seg in sh.segments]}", fwd, fwd_plain,
+             lambda: library_ms(lambda: torch.sparse.mm(mean, buf),
+                               lambda: torch.sparse.mm(mean.to(torch.float32), buf.float()),
+                               f"sparse.mm {label} forward"),
+             bound(width * f * elt + (np_ + 1) * 4 + e * 4 + np_ * f * elt, e * f + np_ * f)),
+            ("spmm_mean_halo", f"{label} backward", f"{label} backward: g/deg [{np_},{f}] "
+             f"{dtype} over the transpose into [{width},{f}]", bwd, bwd_plain,
+             lambda: library_ms(lambda: torch.sparse.mm(ones, gs),
+                                lambda: torch.sparse.mm(ones.to(torch.float32), gs.float()),
+                                f"sparse.mm {label} backward"),
+             bound(np_ * f * elt + (width + 1) * 4 + e * 4 + width * f * elt, e * f)),
+            ("scatter_mean_halo", label, f"{label}: g [{g2.shape[0]},{f}] f32 into "
+             f"[{np_},{f}], {n_valid} valid send slots", sc, sc_plain,
+             lambda: (device_ms(lambda: torch.zeros(np_, f, device=dev).index_add_(
+                0, ids, g2[valid])), "zeros, then index_add_"),
+             bound(n_valid * f * 4 + g2.shape[0] * 5 + np_ * f * 4, n_valid * f)),
+        ]
+        for name, rec_label, shape, kernel, plain, lib, (bd, by) in rows:
+            kname = "spmm_mean_kernel" if name == "spmm_mean_halo" else "scatter"
+            lib_ms, lib_note = lib()
+            rec = dict(label=rec_label, shape=shape, ms=device_ms(kernel, kname),
+                       plain_ms=device_ms(plain), library_ms=lib_ms, library_note=lib_note,
+                       bound_ms=bd, bound_by=by, call_ms=call_ms(kernel))
+            timings.setdefault(name, []).append(rec)
+            print_records({name: [rec]})
+        del mean, ones, buf
+        torch.cuda.empty_cache()
+
+
+def halo_serving(name, graph, build, part, requests, main_launches, halo_launches) -> None:
+    """``ServingEngine(mesh=)`` in the world of one (``part``: the training
+    run's plan of the graph), the counters set to 0
+    just before and read just after (kernel 3 once per mean layer in the
+    refresh, kernel 1's sum mode once per request: the owner exchange),
+    against the single-device table tier on the same requests; a warm
+    refresh's and a request's host ms; ``memory_stats``."""
+    model = build()
+    single = ServingEngine(model, graph)
+    reset_launches()
+    sharded = ServingEngine(model, graph, mesh=make_mesh({"graph": 1}), partition=part)
+    got = [sharded.logits(r) for r in requests]
+    launches = read_launches()
+    want = {k: 0 for k in KERNELS}
+    want["spmm_mean"] = model.num_layers if model.aggregator == "mean" else 0
+    want["gather_mean"] = want["gather_mean_sum"] = len(requests)
+    if launches != want:
+        raise AssertionError(f"sharded serving {name}: launches {launches}, want {want}")
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    halo_launches["spmm_mean_halo"] += launches["spmm_mean"]
+    agree = []
+    for r, logits in zip(requests, got):
+        want_logits = single.logits(r)
+        if model.compute_dtype is None:
+            np.testing.assert_allclose(logits, want_logits, **TOL,
+                                       err_msg=f"sharded serving {name}")
+        else:  # bf16: sums in another order round to neighbouring values
+            gap = np.abs(logits - want_logits).max() / np.abs(want_logits).max()
+            if not gap <= 2e-2:
+                raise AssertionError(f"sharded serving {name}: logits off by {gap:.3g}")
+        agree.append(float((logits.argmax(-1) == want_logits.argmax(-1)).mean()))
+    if min(agree) < (1.0 if model.compute_dtype is None else 0.99):
+        raise AssertionError(f"sharded serving {name}: predictions agree on {agree}")
+    _, refresh_ms = timed(sharded.refresh)
+    _, request_ms = timed(lambda: sharded.logits(requests[0]))
+    print(f"   sharded serving {name}: answers equal the single-device table tier's "
+          f"(predictions agree on {min(agree):.4f}); launches {launches}; warm refresh "
+          f"{refresh_ms:.3f} host ms, request of {len(requests[0])} {request_ms:.3f} host ms; "
+          f"memory_stats {sharded.memory_stats()}")
+
+
+def halo_two_rank_rank(rank: int, port: int, out: str) -> None:
+    """One of two ranks sharing the card over gloo: each plan of
+    ``HALO_TWO_RANK_PLANS`` over the stand-in, its halo logits against the
+    single-device ``forward_full_graph`` and ``HALO_TWO_RANK_STEPS`` halo
+    steps against the single-device trainer's, ``comm_stats`` beside
+    ``partition_comm_rows``'s estimate. Writes JSON to ``out``."""
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         rank=rank, world_size=2)
+    multihost.initialize()
+    host = halo_stand_in("cpu")
+    g = host.to(multihost.device())
+    cfg = preset_config("pubmed", {"learning_rate": 0.1, "num_steps": HALO_TWO_RANK_STEPS})
+    mesh = make_mesh({"graph": 2})
+    rec = {}
+    for name, kw in HALO_TWO_RANK_PLANS.items():
+        t0 = time.perf_counter()
+        native_partition.last_impl.clear()
+        part = build_node_partition(host, 2, **kw)
+        plan_s = time.perf_counter() - t0
+        model = build_model(cfg, g)
+        with torch.no_grad():
+            err = max_err(halo_full_graph_logits(model, part, mesh), model.forward_full_graph(g),
+                          f"rank {rank} halo logits, {name}")
+        reset_launches()
+        tr = FullGraphTrainer(build_model(cfg, g), host, cfg.train, mesh, partition=part)
+        res = tr.run(log=None)
+        launches = read_launches()
+        k3, k2 = halo_launches_per_step(tr.model)
+        want = {"spmm_mean": HALO_TWO_RANK_STEPS * k3 + tr.model.num_layers,
+                "scatter_mean_sum": HALO_TWO_RANK_STEPS * k2}
+        single = FullGraphTrainer(build_model(cfg, g), g, cfg.train).run(log=None)
+        chosen = kw
+        if kw.get("order") == "auto":
+            plan = auto_partition_plan(host, 2)
+            chosen = {k: plan[k] for k in ("order", "sizing", "hub_threshold")}
+        rec[name] = dict(logits_err=err, losses=res["losses"], single_losses=single["losses"],
+                         launches=launches, want_launches=want,
+                         host_ms=res["mean_step_time"] * 1e3,
+                         single_host_ms=single["mean_step_time"] * 1e3, plan_s=plan_s,
+                         chosen=chosen, comm_stats=part.comm_stats(),
+                         estimate=partition_comm_rows(host, 2, **chosen),
+                         segments=[list(seg) for seg in tr.shard.segments],
+                         native=dict(native_partition.last_impl))
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+    torch.distributed.destroy_process_group()
+
+
+def halo_two_ranks() -> None:
+    """The halo exchange with CUDA tensors between two processes on the one
+    card over gloo (NCCL refuses two ranks on one device)."""
+    port = free_port()
+    os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
+    outs = [os.path.join(REPO, "build", "chip_smoke", f"halo_rank_{r}.json") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--halo-two-rank",
+                               str(r), str(port), outs[r]], cwd=REPO) for r in (0, 1)]
+    try:
+        rcs = [p.wait(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if rcs != [0, 0]:
+        raise AssertionError(f"halo, two ranks on one card: exit codes {rcs}")
+    recs = []
+    for out in outs:
+        with open(out) as fh:
+            recs.append(json.load(fh))
+    steps = HALO_TWO_RANK_STEPS
+    for name in HALO_TWO_RANK_PLANS:
+        for r, rec in enumerate(recs):
+            got = rec[name]
+            np.testing.assert_allclose(got["losses"], got["single_losses"], rtol=HALO_RTOL,
+                                       err_msg=f"rank {r} halo {name} != the single device")
+            la = got["launches"]
+            if any(la[k] != v for k, v in got["want_launches"].items()) or not all(
+                    la[k] == 0 for k in la if k not in ("spmm_mean", "scatter_mean",
+                                                        "scatter_mean_sum")):
+                raise AssertionError(f"rank {r} halo {name}: launches {la}, want "
+                                     f"{got['want_launches']}")
+            if got["comm_stats"]["rows_exchanged_per_shard"] != \
+                    got["estimate"]["rows_exchanged_per_shard"]:
+                raise AssertionError(f"rank {r} halo {name}: comm_stats {got['comm_stats']} "
+                                     f"against the estimate {got['estimate']}")
+            if "numpy" in got["native"].values():
+                raise AssertionError(f"rank {r} halo {name}: the numpy partitioner ran "
+                                     f"{got['native']}")
+        r0 = recs[0][name]
+        print(f"   two ranks over gloo, stand-in, {name} (chosen {r0['chosen']}, plan built in "
+              f"{r0['plan_s']:.2f} s, segments {r0['segments']}): logits within "
+              f"{[rec[name]['logits_err'] for rec in recs]} of forward_full_graph; {steps} "
+              f"losses {r0['losses'][0]:.4f} -> {r0['losses'][-1]:.4f} within "
+              f"{max(relative_gap(rec[name]['losses'], rec[name]['single_losses']) for rec in recs):.3g} "
+              f"(relative) of one device; host ms per step {[round(rec[name]['host_ms'], 3) for rec in recs]} "
+              f"(one device {round(r0['single_host_ms'], 3)}); launches per rank "
+              f"{r0['launches']}; comm_stats {r0['comm_stats']}; partition_comm_rows "
+              f"{r0['estimate']}")
+
+
+def halo_exchange(pg, graphs, roots, timings, errs, main_launches, halo_launches) -> None:
+    """Phase 15 (see the module docstring)."""
+    import torch.distributed as dist
+
+    with phase("halo: a world of one over NCCL"):
+        multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+    with phase("halo: the native partitioner"):
+        native_partitioner(graphs["pubmed heavy-tailed"], pg["reddit"])
+    runs = {}
+    pubmed = load_dataset("pubmed", roots["pubmed"])
+    cora = load_dataset("cora", roots["cora"])
+    for label, preset, graph, over, plan in (
+            ("pubmed", "pubmed", pubmed, None, dict(order="auto")),
+            ("pubmed heavy-tailed, hub", "pubmed", graphs["pubmed heavy-tailed"],
+             {"learning_rate": 0.1, "num_steps": 100}, dict(hub_threshold=HALO_HUB)),
+            ("reddit", "reddit", pg["reddit"], {"fanouts": (None, None)}, dict(order="input")),
+            ("cora_pool", "cora_pool", cora, None, dict(order="auto"))):
+        with phase(f"halo: FullGraphTrainer(mesh=), {label}"):
+            cfg = preset_config(preset, over)
+            runs[label] = halo_run(label, lambda cfg=cfg, graph=graph: build_model(cfg, graph),
+                                   graph, cfg.train, plan, main_launches, halo_launches)
+    with phase("halo: kernels 3 and 2 at the halo shapes"):
+        dev = multihost.device()
+        cases = [("pubmed", build_node_partition(pubmed, 2).local(0, dev), torch.float32),
+                 ("pubmed heavy-tailed", build_node_partition(
+                     graphs["pubmed heavy-tailed"], 2,
+                     **HALO_TWO_RANK_PLANS["bfs, per_offset, hub"]).local(0, dev),
+                  torch.float32),
+                 ("reddit", runs["reddit"]["trainer"].shard, torch.bfloat16)]
+        halo_kernel_records(cases, timings, errs)
+    for name, graph, over in (("pubmed", pubmed, None),
+                              ("reddit", pg["reddit"], {"fanouts": (None, None)})):
+        with phase(f"halo: ServingEngine(mesh=), {name}"):
+            cfg = preset_config(name, over)
+            rng = np.random.default_rng(71)
+            halo_serving(name, graph, lambda cfg=cfg, graph=graph: build_model(cfg, graph),
+                         runs[name]["trainer"].partition,
+                         [rng.integers(0, graph.num_nodes, size) for size in (256, 1000)],
+                         main_launches, halo_launches)
+    del runs
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    with phase("halo: two ranks on one card over gloo, pubmed heavy-tailed"):
+        halo_two_ranks()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3155,11 +3580,15 @@ def main() -> int:
     unsupervised_checkpoint_inductive(graphs, roots, results, timings, main_launches)
     compact_launches = {name: 0 for name in COMPACT_KERNELS}
     parallel(graphs, roots, results, timings, errs, main_launches, compact_launches)
+    halo_launches = {name: 0 for name in HALO_KERNELS}
+    halo_exchange(pg, graphs, roots, timings, errs, main_launches, halo_launches)
 
     kernels = []
     entries = [(name, meta, main_launches[name]) for name, meta in KERNELS.items()]
     entries += [(name, KERNELS[base], compact_launches[name])
                 for name, base in COMPACT_KERNELS.items()]
+    entries += [(name, KERNELS[base], halo_launches[name])
+                for name, base in HALO_KERNELS.items()]
     for name, meta, launches in entries:
         recs = timings[name]
         head = next(r for r in recs if r["label"] == "pubmed")
@@ -3181,6 +3610,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--two-rank"]:  # a rank of the two-rank phase
         two_rank_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--halo-two-rank"]:  # a rank of the halo's two-rank phase
+        halo_two_rank_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     try:
         sys.exit(main())

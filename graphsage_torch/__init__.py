@@ -15,8 +15,9 @@ Every entry point places its tensors on ``cuda`` unless the caller passes
   serve   — table and sampled serving tiers
   train   — configs, presets, the sampled, full-graph and unsupervised
             trainers, the CLI
-  parallel — the process group, meshes, edge partitioning, the DP+TP,
-            node-sharded and fully sharded trainers (``torch.distributed``)
+  parallel — the process group, meshes, edge partitioning, the halo
+            exchange and its node partitions, the DP+TP, node-sharded and
+            fully sharded trainers (``torch.distributed``)
   utils   — metrics, checkpoints, logging, diagnostics, profiling, memory
 """
 
@@ -27,6 +28,7 @@ from graphsage_torch.data.graph import (
     disjoint_union,
     induced_subgraph,
     quantize_graph,
+    relabel_graph,
     with_cached_layer0,
 )
 from graphsage_torch.ops.quantize import QuantizedTable, dequantize, quantize_features
@@ -51,6 +53,11 @@ from graphsage_torch.parallel.feature_store import (
     hub_request_fraction,
     sharded_comm_stats,
 )
+from graphsage_torch.parallel.halo import (
+    auto_partition_plan,
+    build_node_partition,
+    locality_relabel,
+)
 from graphsage_torch.parallel.mesh import make_mesh
 
 __version__ = "0.1.0"
@@ -62,6 +69,7 @@ __all__ = [
     "quantize_graph",
     "with_cached_layer0",
     "induced_subgraph",
+    "relabel_graph",
     "disjoint_union",
     "QuantizedTable",
     "quantize_features",
@@ -87,6 +95,9 @@ __all__ = [
     "FullyShardedTrainer",
     "sharded_comm_stats",
     "make_mesh",
+    "auto_partition_plan",
+    "build_node_partition",
+    "locality_relabel",
     "run_cora",
     "run_pubmed",
     "run_preset",

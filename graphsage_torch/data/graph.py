@@ -17,7 +17,8 @@ every array is identical from the same edges:
 means behind ``GraphSAGE(layer0="cached")``; :func:`quantize_graph` swaps the
 feature table for an int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable`;
 :func:`disjoint_union` puts several graphs side by side in one;
-:func:`induced_subgraph` keeps the part of a graph on some of its nodes.
+:func:`induced_subgraph` keeps the part of a graph on some of its nodes;
+:func:`relabel_graph` permutes its node ids.
 
 Indices are int32 throughout, as in the JAX ``Graph``.
 """
@@ -396,3 +397,45 @@ def disjoint_union(graphs: Sequence[Graph], device=None, **build_kwargs) -> Grap
     if all(g.symmetric for g in graphs) and build_kwargs.get("max_degree") is None:
         union = dataclasses.replace(union, symmetric=True)
     return union
+
+
+def relabel_graph(graph: Graph, order, device=None) -> tuple[Graph, np.ndarray]:
+    """Rebuild ``graph`` with its node ids permuted: old node ``order[i]``
+    becomes new id ``i``. Returns ``(relabeled graph, perm)`` with
+    ``perm[old] = new``. Features, labels and edges all move and the edge
+    set is unchanged, so every order-invariant computation (the full-graph
+    forward included) gives the same rows permuted: ``logits_new[perm[v]] ==
+    logits_old[v]``. A symmetric graph is rebuilt from its upper triangle
+    and mirrored again, so it stays symmetric. The table keeps its dtype;
+    the result lies on the graph's device unless ``device`` says otherwise.
+
+    The locality preprocessing of id-range ownership
+    (:func:`graphsage_torch.parallel.halo.locality_relabel` is the one-call
+    version)."""
+    order = np.asarray(order, dtype=np.int64).reshape(-1)
+    n = graph.num_nodes
+    if order.shape[0] != n or len(np.unique(order)) != n:
+        raise ValueError("order must be a permutation of all node ids")
+    if is_quantized(graph.features):
+        raise ValueError(
+            "relabel before quantizing: per-row scales move with their rows, "
+            "so quantize_graph(relabel_graph(dense_graph, order)[0]) is "
+            "identical and keeps this function simple"
+        )
+    perm = np.empty(n, dtype=np.int64)
+    perm[order] = np.arange(n, dtype=np.int64)
+    feats = graph.features.detach().cpu()[torch.from_numpy(order)]
+    labels = graph.labels.cpu().numpy()[order]
+    e = graph.num_edges
+    src = perm[graph.edge_src[:e].cpu().numpy().astype(np.int64)]
+    dst = perm[graph.edge_dst[:e].cpu().numpy().astype(np.int64)]
+    if graph.symmetric:
+        keep = src <= dst
+        edges, undirected = np.stack([src[keep], dst[keep]], axis=1), True
+    else:
+        edges, undirected = np.stack([src, dst], axis=1), False
+    relabeled = build_graph(
+        feats.to(torch.float32).numpy(), labels, edges, num_classes=graph.num_classes,
+        undirected=undirected, feature_dtype=feats.dtype,
+        device=graph.device if device is None else device)
+    return relabeled, perm

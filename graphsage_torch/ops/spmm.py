@@ -203,18 +203,20 @@ def spmm_mean(
 
 
 def spmm_block_sum(
-    features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor
+    features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor,
+    normalize: bool = False,
 ) -> torch.Tensor:
-    """The unnormalised CSR sum over an edge block's rows, ``[R, F]`` in the
+    """The CSR sum over the rows that ``indptr`` covers, ``[R, F]`` in the
     features' dtype: ``out[r] = sum_{e in [indptr[r], indptr[r+1])}
-    features[edge_dst[e]]`` for the ``R = indptr.numel() - 1`` rows that
-    ``indptr`` covers, which may be fewer than the table's. Kernel 3 with
-    ``normalize=False`` on the card, its plain version on the CPU; no
-    autograd (the edge-partitioned path,
-    :mod:`graphsage_torch.parallel.distributed`, has its own backward)."""
+    features[edge_dst[e]]`` for ``R = indptr.numel() - 1`` rows, which may
+    be fewer or more than the table's; ``normalize`` divides each row by
+    ``max(deg, 1)`` before the one rounding. Kernel 3 on the card, its plain
+    version on the CPU; no autograd (the edge-partitioned path,
+    :mod:`graphsage_torch.parallel.distributed`, and the halo exchange,
+    :mod:`graphsage_torch.parallel.halo`, have their own backwards)."""
     _check(features, indptr, edge_dst, square=False)
     if features.device.type == "cpu":
-        return spmm_mean_plain(features, indptr, edge_dst, normalize=False)
+        return spmm_mean_plain(features, indptr, edge_dst, normalize=normalize)
     if features.device.type != "cuda":
         raise ValueError(f"no spmm_mean for device {features.device}")
-    return _launch(features, indptr, edge_dst, False)
+    return _launch(features, indptr, edge_dst, normalize)

@@ -8,6 +8,11 @@ the CPU).
   partition      — contiguous CSR edge blocks
   distributed    — edge-partitioned full-graph aggregation and the DP+TP
                    ``ShardedTrainer``
+  halo           — node partitions (the plan, orders, the auto levers,
+                   ``locality_relabel``) and the halo-exchange full-graph
+                   aggregation behind ``FullGraphTrainer(mesh=)`` and
+                   ``ServingEngine(mesh=)``
+  native_partition — the C++ LPA and BFS (``csrc/partitioner.cpp``)
   feature_store  — the node-sharded feature table, its dense and compact
                    cross-rank gathers, the hub cache, ``ShardedFeatureTrainer``
                    (``--mode sharded``), the sharded adjacency with its

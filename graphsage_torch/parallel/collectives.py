@@ -13,6 +13,12 @@ The compact exchange routes fixed-size buckets with :func:`all_to_all_rows`:
 the request ids out (:class:`RouteIds`, no gradient) and the answer rows
 back (:class:`RouteAnswers`, whose backward is the reverse all-to-all of the
 cotangent).
+
+The halo exchange (:mod:`graphsage_torch.parallel.halo`) moves rows with
+three collectives, each an ``autograd.Function`` with its transpose:
+:class:`AllGatherRows` (backward: the sum reduce-scatter),
+:class:`AllToAllRows` (its own transpose) and :class:`PermuteRows` (one
+ppermute round; backward: the inverse shift).
 """
 
 from __future__ import annotations
@@ -57,6 +63,83 @@ def all_to_all_rows(x: torch.Tensor, group, extra_rows: int = 0) -> torch.Tensor
         wire = torch.uint8 if flat.dtype == torch.bool else flat.dtype
         dist.all_to_all_single(out[:rows].view(wire), flat.view(wire), group=group)
     return out
+
+
+def permute_rows(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """``x`` sent to rank ``(r + shift) % S`` of the group; returns the rows
+    rank ``(r - shift) % S`` sent (the same shape). Every rank calls it with
+    the same ``shift`` and shape. One ``all_to_all_single`` with a single
+    non-zero split each way, on every backend: gloo's point-to-point
+    ``send``/``recv`` reads a CUDA tensor's device address as host memory
+    (probed on the H100: ``writev ... Bad address``), its all-to-all copies
+    through the host."""
+    s, r = dist.get_world_size(group), dist.get_rank(group)
+    x = x.contiguous()
+    if shift % s == 0:
+        return x.clone()
+    out = torch.empty_like(x)
+    m = x.shape[0]
+    send = [m if d == (r + shift) % s else 0 for d in range(s)]
+    recv = [m if d == (r - shift) % s else 0 for d in range(s)]
+    dist.all_to_all_single(out, x, recv, send, group=group)
+    return out
+
+
+class AllGatherRows(torch.autograd.Function):
+    """``apply(x [B, ...], group, replicated=False)``: every rank's ``x`` in
+    rank order, ``[S * B, ...]``; the backward sums the cotangent's blocks
+    over the ranks and returns block ``rank`` (reduce-scatter). With
+    ``replicated`` the result feeds a computation every rank repeats (its
+    cotangent is the same everywhere), and the backward takes block ``rank``
+    of the rank's own cotangent instead."""
+
+    @staticmethod
+    def forward(ctx, x, group, replicated=False):
+        ctx.group, ctx.replicated, ctx.rows = group, replicated, x.shape[0]
+        return all_gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.replicated:
+            r = dist.get_rank(ctx.group)
+            return g[r * ctx.rows:(r + 1) * ctx.rows], None, None
+        return reduce_scatter_rows(g, ctx.group), None, None
+
+
+def _swap_blocks(x: torch.Tensor, group) -> torch.Tensor:
+    return all_to_all_rows(x.reshape(dist.get_world_size(group), -1, *x.shape[1:]), group)
+
+
+class AllToAllRows(torch.autograd.Function):
+    """``apply(x [S * B, ...], group)``: block ``d`` of ``x`` goes to rank
+    ``d``, and block ``d`` of the result came from rank ``d`` (JAX's
+    ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``); the same
+    exchange is its own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _swap_blocks(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _swap_blocks(g, ctx.group), None
+
+
+class PermuteRows(torch.autograd.Function):
+    """``apply(x, group, offset)``: JAX's ``ppermute`` of one per-offset
+    round, rank ``t`` sending ``x`` to ``(t - offset) % S`` and receiving
+    from ``(t + offset) % S``; the backward sends the cotangent the other
+    way, ``t -> (t + offset) % S``."""
+
+    @staticmethod
+    def forward(ctx, x, group, offset):
+        ctx.group, ctx.offset = group, offset
+        return permute_rows(x, group, -offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return permute_rows(g, ctx.group, ctx.offset), None, None
 
 
 class RouteIds(torch.autograd.Function):

@@ -74,7 +74,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from graphsage_torch.data.graph import Graph, with_cached_layer0
 from graphsage_torch.models.graphsage import Frontier, GraphSAGE
 from graphsage_torch.ops.aggregate import gather
-from graphsage_torch.ops.gather_mean import gather_mean
+from graphsage_torch.ops.gather_mean import gather_mean, gather_mean_int8
 from graphsage_torch.ops.quantize import is_quantized
 from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.ops.scatter_mean import scatter_mean
@@ -151,7 +151,10 @@ class _OwnerExchange(torch.autograd.Function):
         local = requests - dist.get_rank(group) * np_
         own = (requests >= 0) & (local >= 0) & (local < np_)
         local = torch.where(own, local, torch.zeros_like(local)).contiguous()
-        partial = gather_mean(table.detach().contiguous(), local, own, normalize=False)
+        if is_quantized(table):  # a frozen int8 table: each slot's mean is its row
+            partial = gather_mean_int8(table.q, table.scale, local, own)
+        else:
+            partial = gather_mean(table.detach().contiguous(), local, own, normalize=False)
         sums = collectives.reduce_scatter_rows(partial, group)
         count = mask.sum(dim=1, keepdim=True).clamp(min=1).to(torch.float32)
         ctx.save_for_backward(local, own, count)
@@ -178,15 +181,20 @@ def sharded_gather_mean(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
                                 mask.contiguous(), mesh.get_group(axis), True)
 
 
-def sharded_row_gather(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
-                       ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``[..., F]`` (the table's dtype) of the global node ids ``ids``
-    over the node-sharded table; its gradient is a scatter-add into the
-    owners' shards."""
+def sharded_row_gather(mesh: DeviceMesh, axis: str, table_local, ids: torch.Tensor
+                       ) -> torch.Tensor:
+    """Rows ``[..., F]`` (the table's dtype; f32 for an int8
+    :class:`~graphsage_torch.ops.quantize.QuantizedTable`) of the ids
+    ``ids`` over a table whose rank ``s`` holds rows ``[s * Np, (s + 1) *
+    Np)`` as ``table_local [Np, F]`` (the stride is the local table's row
+    count: the node-sharded store's ranges, or a halo plan's stacked
+    positions). Its gradient is a scatter-add into the owners' shards."""
     flat = ids.reshape(-1, 1).to(torch.int32).contiguous()
     rows = _OwnerExchange.apply(table_local, flat, torch.ones_like(flat, dtype=torch.bool),
                                 mesh.get_group(axis), False)
-    return rows.to(table_local.dtype).reshape(*ids.shape, table_local.shape[-1])
+    if not is_quantized(table_local):
+        rows = rows.to(table_local.dtype)
+    return rows.reshape(*ids.shape, table_local.shape[-1])
 
 
 # --------------------------------------------------------------------------

@@ -16,6 +16,17 @@ Requests pad to a small set of static batch **buckets** (the smallest that
 fits, or a multiple of the largest) with node 0, so the work per request
 takes a few fixed shapes. Everything runs under ``torch.no_grad()``.
 
+With ``mesh=`` the table tier is **sharded** over the mesh's ``axis``: the
+refresh runs the halo-exchange full-graph forward
+(:func:`~graphsage_torch.parallel.halo.halo_full_graph_logits`, ``stacked``)
+over a node partition, so each rank keeps only its ``[Np, d_L]`` rows (int8
+too), and a request remaps its ids through the partition's
+``stacked_index`` and gathers the rows from their owners with the dense
+owner exchange (:func:`~graphsage_torch.parallel.feature_store.
+sharded_row_gather`: position ``s * Np + r`` is row ``r`` of rank ``s``).
+Every rank of the axis serves the same requests together (SPMD), as JAX's
+one program does.
+
 ``quantize_table=True`` (table tier only) keeps the refreshed table as an
 int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable` (a quarter of the
 f32 bytes); a request dequantizes its rows before the head. bf16 models
@@ -32,6 +43,8 @@ from graphsage_torch._device import resolve_device
 from graphsage_torch.data.graph import Graph
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.quantize import gather_dequant, is_quantized, quantize_rows
+from graphsage_torch.parallel.halo import build_node_partition, halo_full_graph_logits
+from graphsage_torch.parallel.mesh import axis_index, axis_size
 
 
 class ServingEngine:
@@ -48,6 +61,11 @@ class ServingEngine:
         serving (``None`` entries mean full neighborhoods).
     seed : sampled mode only — fixes the sampling stream per request.
     device : ``cuda`` unless the caller passes ``device="cpu"``.
+    mesh, axis, partition : table mode only — shard the tier over
+        ``mesh``'s ``axis`` (module docstring). ``partition`` is a prebuilt
+        :class:`~graphsage_torch.parallel.halo.NodePartition` of ``graph``;
+        by default one is built with ``order="auto"``. The graph then stays
+        where it lies.
     quantize_table : table mode only — store the refreshed ``[N, d_L]``
         table as int8 rows and per-row f32 scales; logits move by at most
         the quantization error of the representations (half a scale step
@@ -65,9 +83,17 @@ class ServingEngine:
         seed: int = 0,
         device=None,
         quantize_table: bool = False,
+        mesh=None,
+        axis: str = "graph",
+        partition=None,
     ):
         if mode not in ("table", "sampled"):
             raise ValueError(f"unknown serving mode {mode!r}")
+        if mesh is not None and mode != "table":
+            raise ValueError(
+                "sharded serving is table-mode only (sampled serving at "
+                "scale is FullyShardedTrainer.predict)"
+            )
         if quantize_table and mode != "table":
             raise ValueError("quantize_table requires mode='table'")
         if not batch_buckets or any(b <= 0 for b in batch_buckets):
@@ -76,7 +102,14 @@ class ServingEngine:
             raise ValueError("eval_fanouts needs one entry per layer")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.graph = graph.to(self.device)
+        self.mesh, self.axis = mesh, axis
+        if mesh is None:
+            self.graph = graph.to(self.device)
+        else:
+            self.graph = graph
+            self.partition = (partition if partition is not None else
+                              build_node_partition(graph, axis_size(mesh, axis), order="auto"))
+            self._shard = self.partition.local(axis_index(mesh, axis), self.device)
         self.mode = mode
         self.quantize_table = quantize_table
         self.buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
@@ -93,14 +126,21 @@ class ServingEngine:
         per-model-update cost; free in sampled mode."""
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
-        if self.mode == "table":
+        if self.mesh is not None:
+            table = halo_full_graph_logits(self.model, self.partition, self.mesh, self.axis,
+                                           return_embeddings=True, stacked=True,
+                                           shard=self._shard)
+            self._table = quantize_rows(table) if self.quantize_table else table
+        elif self.mode == "table":
             table = self.model.embed_full_graph(self.graph)
             self._table = quantize_rows(table) if self.quantize_table else table
 
     @property
     def table(self):
         """The current ``[N, d_L]`` embedding table (table mode; a
-        ``QuantizedTable`` under ``quantize_table``)."""
+        ``QuantizedTable`` under ``quantize_table``); under ``mesh``, this
+        rank's ``[Np, d_L]`` rows (global node ``v`` at flat position
+        ``partition.stacked_index[v]`` of the ranks' tables stacked)."""
         return self._table
 
     # ------------------------------------------------------------ requests
@@ -129,7 +169,13 @@ class ServingEngine:
     def _logits(self, nodes) -> tuple[torch.Tensor, torch.Tensor, int]:
         ids_np, n = self._pad(nodes)
         ids = torch.from_numpy(ids_np).to(self.device)
-        if self.mode == "table":
+        if self.mesh is not None:
+            # (feature_store imports the trainers, which import this module.)
+            from graphsage_torch.parallel.feature_store import sharded_row_gather
+
+            pos = torch.from_numpy(self.partition.stacked_index[ids_np]).to(self.device)
+            rows = sharded_row_gather(self.mesh, self.axis, self._table, pos)
+        elif self.mode == "table":
             rows = (gather_dequant(self._table, ids) if is_quantized(self._table)
                     else self._table[ids.long()])
         else:
@@ -142,10 +188,16 @@ class ServingEngine:
         return rows, rows @ self.model.head, n
 
     def memory_stats(self) -> dict:
-        """Capacity-planning numbers: the resident table's bytes."""
+        """Capacity-planning numbers: the resident table's bytes per rank and,
+        sharded, what a replicated table would take and the refresh's
+        boundary-exchange rows per layer (``NodePartition.comm_stats``)."""
         out = {"mode": self.mode, "buckets": self.buckets}
         if self._table is not None:
             out["table_bytes_per_chip"] = self._table.nbytes
+            if self.mesh is not None:
+                out["table_bytes_replicated_equiv"] = (self._table.nbytes
+                                                       * self.partition.num_shards)
+                out["refresh_comm"] = self.partition.comm_stats()
         return out
 
     def logits(self, nodes) -> np.ndarray:

@@ -10,11 +10,18 @@ backward; ``spmm_impl="bucketed_ell"`` runs the degree-bucketed PyTorch pass
 (``ops/bucketed_spmm.py``) instead. The JAX package's ``"auto"`` picks the
 bucketed pass from TPU measurements; here ``"auto"`` stays kernel 3.
 
+With ``mesh=`` the same loss runs through the halo exchange
+(:mod:`graphsage_torch.parallel.halo`) over the mesh's ``axis``: each rank
+keeps its node range of a :class:`~graphsage_torch.parallel.halo.
+NodePartition` (by default ``build_node_partition(graph, S,
+order="auto")``), takes the loss over its own train rows divided by the
+global train count (the single device's mean over all N), and the parameters'
+gradients are summed over the axis. Evaluation all-gathers the ranks' logits.
+
 The model holds its parameters, as with :class:`~graphsage_torch.train.
 trainer.Trainer`, and the run loop, checkpoints and resume are its
 (:class:`~graphsage_torch.train.trainer.TrainLoop`; the state has no
-generator: nothing is sampled). The halo mesh path comes with ROADMAP Queue
-1 item 14d.
+generator: nothing is sampled).
 """
 
 from __future__ import annotations
@@ -25,6 +32,10 @@ import torch
 from graphsage_torch.data.graph import Graph
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.bucketed_spmm import make_spmm_mean_bucketed, plan_bucketed_spmm
+from graphsage_torch.parallel import collectives
+from graphsage_torch.parallel.halo import build_node_partition, halo_full_graph_logits
+from graphsage_torch.parallel.mesh import axis_index, axis_size
+from graphsage_torch.parallel.multihost import is_primary
 from graphsage_torch.train.config import TrainConfig
 from graphsage_torch.train.trainer import TrainLoop, make_optimizer, reference_splits
 from graphsage_torch.utils.metrics import macro_f1, micro_f1
@@ -32,30 +43,48 @@ from graphsage_torch.utils.metrics import macro_f1, micro_f1
 
 class FullGraphTrainer(TrainLoop):
     """Transductive full-batch training of ``model`` on ``graph`` (both on
-    the same device)."""
+    the same device), or, with ``mesh``, halo-distributed over its ``axis``
+    (``partition``: a prebuilt plan for ``graph``; the graph may then lie
+    anywhere, the rank's rows go to the model's device)."""
 
-    def __init__(self, model: GraphSAGE, graph: Graph, config: TrainConfig, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FullGraphTrainer(mesh=...), the halo-exchange path, is not "
-                "ported yet (ROADMAP Queue 1 item 14d)"
-            )
-        if model.device != graph.device:
+    def __init__(self, model: GraphSAGE, graph: Graph, config: TrainConfig, mesh=None,
+                 axis: str = "graph", partition=None):
+        if mesh is None and model.device != graph.device:
             raise ValueError(
                 f"the model lies on {model.device} and the graph on {graph.device}"
             )
         self.model = model
         self.graph = graph
         self.cfg = config
-        self.device = graph.device
+        self.mesh = mesh
+        self.device = model.device
         self.optimizer = make_optimizer(model.parameters(), config)
         self.test_nodes, self.val_nodes, self.train_nodes = reference_splits(
             graph.num_nodes, config.seed, config.test_size, config.val_size
         )
         weight = torch.zeros(graph.num_nodes, dtype=torch.float32)
         weight[torch.from_numpy(self.train_nodes).long()] = 1.0
-        self._train_weight = weight.to(self.device)
+        self._train_count = float(weight.sum())
         self._spmm_override = None
+        if mesh is not None:
+            if model.aggregator == "lstm":
+                raise ValueError(
+                    "FullGraphTrainer's halo mesh path supports mean and "
+                    "maxpool only (lstm aggregation is not a per-edge "
+                    "segment reduction); use the sampled trainers for lstm"
+                )
+            self.axis = axis
+            self._group = mesh.get_group(axis)
+            self.partition = (partition if partition is not None else
+                              build_node_partition(graph, axis_size(mesh, axis), order="auto"))
+            self.shard = self.partition.local(axis_index(mesh, axis), self.device)
+            # The rank's train weights in stacked order (0 on padding rows).
+            np_ = self.partition.nodes_per_shard
+            stacked = torch.zeros(self.partition.num_shards * np_)
+            stacked[torch.from_numpy(self.partition.stacked_index.astype(np.int64))] = weight
+            self._train_weight = stacked[self.shard.rank * np_:][:np_].to(self.device)
+            return
+        self._train_weight = weight.to(self.device)
         if model.aggregator == "mean" and model.spmm_impl == "bucketed_ell":
             if not graph.symmetric:
                 # The bucketed backward relies on A == A^T.
@@ -67,31 +96,56 @@ class FullGraphTrainer(TrainLoop):
             bucketed = make_spmm_mean_bucketed(plan_bucketed_spmm(graph))
             self._spmm_override = lambda x: (bucketed(x), graph.degrees)
 
-    def _logits(self) -> torch.Tensor:
-        """Full-graph logits ``[N, C]`` under the current parameters."""
-        return self.model.forward_full_graph(self.graph, spmm_override=self._spmm_override)
+    def _logits(self, stacked: bool = False) -> torch.Tensor:
+        """Full-graph logits ``[N, C]`` under the current parameters (with
+        ``stacked`` on a mesh: this rank's ``[Np, C]`` rows)."""
+        if self.mesh is None:
+            return self.model.forward_full_graph(self.graph, spmm_override=self._spmm_override)
+        return halo_full_graph_logits(self.model, self.partition, self.mesh, self.axis,
+                                      stacked=stacked, shard=self.shard)
 
     def _loss(self) -> torch.Tensor:
         """The classification loss over every node, weighted by the train
-        split's mask."""
-        per_node = self.model.classification_loss(self._logits(), self.graph.labels)
-        w = self._train_weight
-        return (per_node * w).sum() / w.sum()
+        split's mask over the train count (on a mesh: this rank's part of
+        it)."""
+        if self.mesh is None:
+            per_node = self.model.classification_loss(self._logits(), self.graph.labels)
+        else:
+            per_node = self.model.classification_loss(self._logits(stacked=True),
+                                                      self.shard.labels)
+        return (per_node * self._train_weight).sum() / self._train_count
 
     def step(self) -> torch.Tensor:
         """One full-batch optimizer step; returns the loss as a 0-d tensor on
         the device (reading it waits for the step)."""
-        return self._update(self._loss())
+        loss = self._update(self._loss())
+        return loss if self.mesh is None else collectives.all_reduce(loss, self._group)
+
+    def _reduce_gradients(self) -> None:
+        if self.mesh is not None:
+            collectives.average_gradients(self.model.parameters(), self._group, 1)
+
+    def write_checkpoint(self, path: str) -> str | None:
+        if self.mesh is None:
+            return super().write_checkpoint(path)
+        written = super().write_checkpoint(path) if is_primary() else None
+        torch.distributed.barrier(self._group)
+        return written
 
     def _steps(self):
         while True:
             yield self.step
 
     @torch.no_grad()
+    def predict(self, nodes: np.ndarray) -> np.ndarray:
+        """Full-graph predictions for ``nodes`` (on a mesh every rank calls
+        it, and every rank gets them)."""
+        return self.model.predictions(self._logits())[np.asarray(nodes)]
+
     def evaluate(self, nodes: np.ndarray) -> dict[str, float]:
         """Micro- and macro-F1 of the full-graph predictions on ``nodes``."""
         nodes = np.asarray(nodes)
-        preds = self.model.predictions(self._logits())[nodes]
+        preds = self.predict(nodes)
         truth = self.graph.labels.cpu().numpy()[nodes]
         return {
             "micro_f1": micro_f1(truth, preds),

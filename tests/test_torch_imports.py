@@ -38,6 +38,26 @@ def _env(**extra):
     return env
 
 
+@pytest.mark.parametrize("module", ["parallel/halo.py", "parallel/native_partition.py"])
+def test_halo_modules_are_checked_and_stand_alone(module):
+    path = REPO / "graphsage_torch" / module
+    assert path in PORT_FILES
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+def test_partitioner_source_is_the_ports_own_copy():
+    """The native partitioner builds the port's copy of the C++ source into
+    ``build/`` with ``g++``; it never runs the JAX package's ``make``."""
+    from graphsage_torch.parallel import native_partition
+
+    source = REPO / "graphsage_torch" / "csrc" / "partitioner.cpp"
+    assert native_partition.SOURCE == source
+    assert source.read_bytes() == (REPO / "graphsage_tpu" / "csrc" / "partitioner.cpp").read_bytes()
+    assert REPO / "build" / "graphsage_torch" in native_partition.library_path().parents
+    text = (REPO / "graphsage_torch" / "parallel" / "native_partition.py").read_text()
+    assert '"make"' not in text and "graphsage_tpu/csrc" not in text
+
+
 def test_port_imports_with_jax_blocked():
     code = f"""
 import importlib, pkgutil, sys
@@ -113,7 +133,8 @@ def test_top_level_exports_every_ported_name_of_the_jax_package():
     assert {"with_cached_layer0", "run_cora", "run_pubmed", "quantize_graph",
             "QuantizedTable", "quantize_features", "dequantize", "FullGraphTrainer",
             "disjoint_union", "Trainer", "GraphSAGE", "UnsupervisedTrainer",
-            "induced_subgraph"} <= set(ported)
+            "induced_subgraph", "build_node_partition", "locality_relabel",
+            "relabel_graph"} <= set(ported)
     missing = [n for n in ported if not hasattr(graphsage_torch, n)]
     assert not missing, missing
     assert set(ported) <= set(graphsage_torch.__all__)

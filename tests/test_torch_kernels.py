@@ -802,3 +802,56 @@ def test_resume_on_the_card(cuda, tmp_path):
     for p, q in zip(straight.model.parameters(), second.model.parameters()):
         p, q = p.detach(), q.detach()
         assert float((p - q).abs().max()) <= 1e-4 * float(p.abs().max())
+
+
+def _halo_shards(cuda, plan):
+    """Both ranks' slices of a 2-shard halo plan of a heavy-tailed graph, on
+    the card (the plan is built on the host; no collective runs)."""
+    from graphsage_torch.data.synthetic import power_law_graph
+    from graphsage_torch.parallel.halo import build_node_partition
+
+    g = power_law_graph(3000, 15000, num_feats=8, num_classes=3, seed=4, homophily=0.8,
+                        device="cpu")
+    part = build_node_partition(g, 2, **plan)
+    return [part.local(r, cuda) for r in (0, 1)]
+
+
+HALO_PLANS = {"global": dict(halo_chunks=3, hub_threshold=40),
+              "per_offset": dict(sizing="per_offset", order="bfs")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", list(HALO_PLANS))
+def test_spmm_kernel_on_halo_buffer_and_transpose(cuda, plan, dtype):
+    """Kernel 3 over a rank's combined CSR (local rows, hub rows, boundary
+    chunks or rounds; mean) and over its transpose (the backward's sum on
+    ``g / deg``), against the plain version."""
+    for sh in _halo_shards(cuda, HALO_PLANS[plan]):
+        buf = torch.randn(sh.width, 128, device=cuda).to(dtype)
+        before = sp.launches
+        got = sp.spmm_block_sum(buf, sh.indptr, sh.cols, normalize=True)
+        assert sp.launches == before + 1 and got.shape == (sh.nodes_per_shard, 128)
+        want = sp.spmm_mean_plain(buf, sh.indptr, sh.cols, normalize=True)
+        torch.testing.assert_close(got, want, **(TOL if dtype == torch.float32
+                                                 else BF16_GRAD_TOL))
+        gs = torch.randn(sh.nodes_per_shard, 128, device=cuda)
+        got = sp.spmm_block_sum(gs, sh.t_indptr, sh.t_cols)
+        assert got.shape == (sh.width, 128)
+        torch.testing.assert_close(got, sp.spmm_mean_plain(gs, sh.t_indptr, sh.t_cols, False),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("plan", list(HALO_PLANS))
+def test_scatter_sum_kernel_on_halo_send_list(cuda, plan):
+    """Kernel 2's sum mode over a rank's padded send list (padded slots name
+    local row 0 and are masked), against the plain version."""
+    for sh in _halo_shards(cuda, HALO_PLANS[plan]):
+        assert not bool(sh.send_mask.all())  # some padding to skip
+        g = torch.randn(sh.send_idx.shape[0], 128, device=cuda)
+        before = sm.sum_launches
+        got = sm.scatter_mean(g, sh.send_idx, sh.send_mask, sh.nodes_per_shard,
+                              normalize=False)
+        assert sm.sum_launches == before + 1
+        want = sm.scatter_mean_plain(g, sh.send_idx, sh.send_mask, sh.nodes_per_shard,
+                                     normalize=False)
+        torch.testing.assert_close(got, want, **TOL)

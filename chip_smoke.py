@@ -209,9 +209,38 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    hubs: halo logits against ``forward_full_graph``, 20 steps within
    ``HALO_RTOL`` of one device, ``comm_stats`` against
    ``partition_comm_rows``.
-16. a ``{"kernels": [...]}`` line (the sum modes, the compact answer-buffer
-   mean modes and the halo path's kernels 3 and 2 as their own entries),
-   then the last line ``{"ok": true, "device": {...}}``.
+16. the rest of the sharded modes: kernel 3 at the node-sharded layer-0
+   table's shapes (the synthetic Pubmed graph's rank CSR over a projected
+   ``[S * Np, 128]`` buffer at S = 1 and rank 0 of 2, forward and its
+   transpose) and kernel 1's int8 route over the compact answer buffer
+   (Pubmed's table quantized, ``powerlaw_1m``'s int8 table), each against
+   its plain version and a second launch of itself and timed; in a world
+   of one over NCCL again, ``pubmed_layer0_full`` node-sharded for
+   ``MODES_STEPS`` steps (the all-gather build with dense and compact
+   gathers, the halo build with dense ones: kernel 3 twice a step, its
+   transpose in the backward) within ``MODES_RTOL`` of the single-device
+   ``Trainer`` step for step, and ``FullyShardedTrainer`` at covering
+   fanouts against ``ShardedFeatureTrainer`` for 5 steps; ``powerlaw_1m``
+   over the int8 table node-sharded (dense: kernel 1's int8 sum mode on the
+   owner side; compact with 256 hub rows: its int8 route over the int8
+   answer buffer) and ``powerlaw_1m_layer0_cached`` over an int8 cache,
+   the preset's 30 steps within ``MODES_BF16_RTOL`` of one device's;
+   ``ShardedTrainer`` on ``{"data": 1, "model": 1}`` for
+   ``pubmed_layer0_full``, ``cora_lstm`` and ``powerlaw_1m`` int8 against
+   ``Trainer``; ``sharded_comm_stats`` at S = 8 (``pubmed_layer0_full``
+   with its halo plan; ``reddit``'s raw rows in bf16 and int8). Each run
+   prints host and device ms per step, the idle share, the top kernels and
+   its launches, counters set to 0 just before and read just after. Then
+   two ranks of this script (``--modes-two-rank``) share the card over
+   gloo: ``pubmed_layer0_full`` with the all-gather and the halo builds and
+   ``cora`` over an int8 table (compact) and over its dense twin, 20 steps
+   each within ``MODES_TWO_RANK_RTOL`` of one device (``cora`` int8:
+   ``MODES_INT8_TWO_RANK_RTOL``).
+17. a ``{"kernels": [...]}`` line (the sum modes, the compact answer-buffer
+   mean modes, the halo path's kernels 3 and 2, kernel 3 on the node-sharded
+   layer-0 table and kernel 1's int8 route over the compact answer buffer
+   as their own entries), then the last line ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -219,6 +248,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -281,6 +311,7 @@ from graphsage_torch.parallel.feature_store import (
     shard_features,
     sharded_comm_stats,
 )
+from graphsage_torch.parallel import feature_store as fs
 from graphsage_torch.parallel import halo, native_partition
 from graphsage_torch.parallel.halo import (
     auto_partition_plan,
@@ -3404,6 +3435,452 @@ def halo_exchange(pg, graphs, roots, timings, errs, main_launches, halo_launches
         halo_two_ranks()
 
 
+# ------------------------------------------------- the sharded trainers' modes
+# Phase 16: layer0="full" over the node-sharded store, FullyShardedTrainer(
+# layer0="full"), int8 node-sharded tables, ShardedTrainer for full, lstm and
+# int8.
+MODES_STEPS = 40
+# f32 runs against one device's: the same kernels and sums but for the
+# order of the atomic adds of kernel 2 and of index_add_ (the table gather's
+# backward).
+MODES_RTOL = 1e-5
+# bf16 runs against one device's: one bf16 rounding step (BF16_TOL's).
+MODES_BF16_RTOL = 2.0**-7
+MODES_TWO_RANK_STEPS = 20
+MODES_TWO_RANK_RTOL = 1e-6
+# cora over the int8 table, two ranks: a rank projects its [Np, F] int8
+# rows with another cuBLAS reduction order than one device's [N, F]
+# product, so the projected rows differ in their last bit; a layer-0
+# pre-activation that close to ReLU's kink takes the other side, and one
+# unit's gradient is then on for one run only. The run's dense twin (f32
+# features holding the int8 values) takes the same steps at
+# MODES_TWO_RANK_RTOL.
+MODES_INT8_TWO_RANK_RTOL = RESUME_RTOL
+# Kernel 3 over the node-sharded layer-0 table's CSR (forward, and its
+# transpose in the backward) and kernel 1's int8 route over the compact
+# exchange's int8 answer buffer: their launches on those paths are counted
+# apart.
+MODES_KERNELS = {"spmm_mean_layer0_sharded": "spmm_mean",
+                 "gather_mean_int8_compact": "gather_mean"}
+
+
+def sparse_csr(indptr, cols, values, width):
+    """``torch.sparse.mm``'s CSR matrix ``[R, width]`` of a kernel-3 CSR."""
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(indptr.long(), cols[:int(indptr[-1])].long(), values,
+                                       size=(indptr.numel() - 1, width))
+
+
+def layer0_sharded_records(pubmed, timings, errs) -> None:
+    """Kernel 3 at the node-sharded layer-0 table's shapes: the synthetic
+    Pubmed graph's rank CSR (``slices_csr`` of ``shard_edge_slices``) over a
+    projected ``[S * Np, 128]`` buffer, the world of one's (S = 1) and rank 0's
+    of two, forward (the mean) and its transpose on ``g / deg`` (the
+    backward), each against its plain version (the transpose a sum: held to
+    its terms' magnitude) and a second launch of itself (bitwise); timed
+    beside ``torch.sparse.mm`` over the same CSR (values ``1 / deg``, or
+    ones). Bounds: the buffer rows the edges read, the CSR, the output."""
+    host = pubmed.to("cpu")
+    dev = pubmed.device
+    gen = torch.Generator().manual_seed(16)
+    recs = []
+    for shards in (1, 2):
+        csr = fs.slices_csr(fs.shard_edge_slices(host, shards, 0), dev)
+        np_, e = csr.indptr.numel() - 1, int(csr.indptr[-1])
+        width = shards * np_
+        buf = torch.randn(width, 128, generator=gen).to(dev)
+        g = torch.randn(np_, 128, generator=gen).to(dev)
+        gs = (g / csr.count.clamp(min=1.0)[:, None]).contiguous()
+        label = "pubmed" if shards == 1 else "pubmed, rank 0 of 2"
+        for what, x, ind, cols, norm, rows_out in (
+                ("forward", buf, csr.indptr, csr.cols, True, np_),
+                ("transpose", gs, csr.t_indptr, csr.t_cols, False, width)):
+            kernel = functools.partial(spmm_kernel.spmm_block_sum, x, ind, cols, normalize=norm)
+            plain = functools.partial(spmm_kernel.spmm_mean_plain, x, ind, cols, norm)
+            deg = (ind[1:] - ind[:-1]).clamp(min=1).float()
+            vals = (1.0 / deg).repeat_interleave((ind[1:] - ind[:-1]).long()) if norm else (
+                torch.ones(e, device=dev))
+            a = sparse_csr(ind, cols, vals, x.shape[0])
+            lib = lambda a=a, x=x: torch.sparse.mm(a, x)  # noqa: E731
+            got = kernel()
+            mag = None if norm else spmm_kernel.spmm_mean_plain(x.abs(), ind, cols, False)
+            err = max_err(got, plain(), f"spmm layer-0 sharded {label} {what}", magnitude=mag)
+            max_err(lib(), plain(), f"sparse.mm yardstick {label} {what}", magnitude=mag)
+            check_repeat(got, kernel, f"spmm layer-0 sharded {label} {what}")
+            errs["spmm_mean_layer0_sharded"] = max(errs["spmm_mean_layer0_sharded"], err)
+            read_rows = int(torch.unique(cols[:e]).numel())
+            bd, by = bound(read_rows * 128 * 4 + ind.numel() * 4 + e * 4 + rows_out * 128 * 4,
+                           e * 128 + (rows_out * 128 if norm else 0))
+            recs.append(dict(
+                label=label if what == "forward" else f"{label}, transpose",
+                shape=f"{label} {what}: buffer [{x.shape[0]},128] f32, {rows_out} rows out, "
+                      f"E={e}{'' if norm else ', g / deg, unnormalised'}",
+                ms=device_ms(kernel, "spmm_mean_kernel"), plain_ms=device_ms(plain),
+                library_ms=device_ms(lib), bound_ms=bd, bound_by=by, call_ms=call_ms(kernel)))
+    timings["spmm_mean_layer0_sharded"] = recs
+    print_records({"spmm_mean_layer0_sharded": recs})
+
+
+def int8_compact_records(models, graphs, timings, errs) -> None:
+    """Kernel 1's int8 route over the compact exchange's int8 answer buffer
+    (a world of one: the deepest hop of the preset's batch routed into
+    ``[cap, F]`` int8 rows and their ``[cap, 1]`` scales, cap = 1.5x the
+    requests, read at ``take``) on the synthetic Pubmed graph's table
+    quantized and on ``powerlaw_1m``'s int8 table; against its plain version
+    and the direct int8 gather-mean (bitwise: the same rows in the same
+    order), and a second launch of itself; timed beside one
+    ``F.embedding_bag`` (sum, per-slot weights ``scale / count``) over the
+    buffer's values as f32. Bounds: the valid slots' int8 rows and scales,
+    the ids and mask, the output."""
+    recs = []
+    for label in ("pubmed", "powerlaw_1m"):
+        g, model = graphs[label], models[label]
+        batch = PRESETS[label].train.batch_size
+        qt = tq.quantize_features(g.features) if label == "pubmed" else g.features
+        gen = torch.Generator(device=g.device).manual_seed(17)
+        seeds = torch.randint(0, g.num_nodes, (batch,), generator=gen, device=g.device,
+                              dtype=torch.int32)
+        fr = model.sample(gen, g, seeds)
+        L = model.num_layers
+        n_out = fr.ids[L - 1].numel()
+        idx = fr.ids[L].reshape(n_out, -1).contiguous()
+        mask = fr.masks[L].reshape(n_out, -1).contiguous()
+        b, k = idx.shape
+        shard = shard_features(qt, 1, 0).shard
+        cap = request_capacity(idx.numel(), 1, 1.5)
+        req, take, violated = route_buckets(idx.reshape(-1), 1, shard.shape[0], cap,
+                                            mask.reshape(-1))
+        if bool(violated):
+            raise AssertionError(f"int8 compact buffer {label}: the route overflowed")
+        rows = req.reshape(-1).clamp(min=0).long()
+        q, sc = shard.q.index_select(0, rows).contiguous(), shard.scale.index_select(0, rows)
+        slots = take.to(torch.int32).view(b, k).contiguous()
+        kernel = lambda: gm_kernel.gather_mean_int8(q, sc, slots, mask)  # noqa: E731
+        plain = lambda: gm_kernel.gather_mean_int8_plain(q, sc, slots, mask)  # noqa: E731
+        got = kernel()
+        err = max_err(got, plain(), f"gather_mean int8 compact buffer {label}")
+        direct = gm_kernel.gather_mean_int8(qt.q, qt.scale, idx, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got, direct):
+            raise AssertionError(f"int8 compact buffer {label} != the direct int8 gather-mean")
+        check_repeat(got, kernel, f"gather_mean int8 compact buffer {label}")
+        errs["gather_mean_int8_compact"] = max(errs["gather_mean_int8_compact"], err)
+        st = slot_stats(slots, mask)
+        cnt = mask.sum(1, keepdim=True).clamp(min=1).float()
+        weights = (sc[slots.long()][..., 0] / cnt)[mask]
+        qf = q.float()
+        lib = lambda: F.embedding_bag(st["flat"], qf, st["offsets"], mode="sum",  # noqa: E731
+                                      per_sample_weights=weights)
+        max_err(lib(), plain(), f"embedding_bag yardstick, int8 compact buffer {label}")
+        f = q.shape[1]
+        bd, by = bound(st["valid"] * (f + 4) + b * k + st["valid"] * 4 + b * f * 4,
+                       2 * st["valid"] * f + st["live"] * f)
+        recs.append(dict(
+            label=label,
+            shape=f"{label} int8 compact answer buffer: q [{cap},{f}] int8 and scales "
+                  f"[{cap},1], B={b}, k={k}, {st['valid']} valid slots",
+            ms=device_ms(kernel, "gather_mean_kernel"), plain_ms=device_ms(plain),
+            library_ms=device_ms(lib), bound_ms=bd, bound_by=by, call_ms=call_ms(kernel)))
+    timings["gather_mean_int8_compact"] = recs
+    print_records({"gather_mean_int8_compact": recs})
+
+
+def counted_run(make, main_launches) -> tuple:
+    """``make()``'s trainer run, counters set to 0 just before the trainer
+    is built and read just after the run: ``(trainer, result, launches)``;
+    ``result["trainer"]`` is the trainer."""
+    reset_launches()
+    tr = make()
+    result = tr.run(log=None)
+    result["trainer"] = tr
+    launches = read_launches()
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+    return tr, result, launches
+
+
+def full_sharded_launches(trainer, steps: int) -> dict:
+    """Launches of a node-sharded ``layer0="full"`` mean run (project-first
+    layer 0), ``steps`` steps and one sampled evaluation: kernel 3 builds
+    the table slice in every forward and runs its transpose in every
+    backward; the dense exchange's owner side is kernel 1's sum mode forward
+    and kernel 2's backward, the compact one's owner backward kernel 2's sum
+    mode (its rows are an ``index_select``); a halo plan that sends rows
+    adds kernel 2's sum mode in every backward (the send gathers'
+    transpose)."""
+    want = {name: 0 for name in KERNELS}
+    want["spmm_mean"] = 2 * steps + 1
+    sends = trainer._layer0_halo is not None and bool(trainer._layer0_halo.segments)
+    want["scatter_mean"] = want["scatter_mean_sum"] = steps * (1 + sends)
+    if trainer.gather_mode == "dense":
+        want["gather_mean"] = want["gather_mean_sum"] = steps + 1
+    return want
+
+
+def sharded_layer0_runs(root, results, main_launches, modes_launches) -> None:
+    """``pubmed_layer0_full`` through ``ShardedFeatureTrainer`` (all-gather
+    with the dense and the compact gathers, halo with the dense ones) for
+    ``MODES_STEPS`` steps, each held step for step to the single-device
+    ``Trainer`` (``MODES_RTOL``) and over the learning bar; then
+    ``FullyShardedTrainer`` at covering fanouts against
+    ``ShardedFeatureTrainer`` for ``COVER_STEPS`` steps."""
+    cfg = preset_config("pubmed_layer0_full", {"num_steps": MODES_STEPS})
+    host = load_dataset("pubmed", root, "cpu")
+    dev_graph = host.to("cuda")
+    single = Trainer(build_model(cfg, dev_graph), dev_graph, cfg.train)
+    want = single.run(log=None)
+    want["trainer"] = single
+    single_stats = check_learning("pubmed_layer0_full, one device", want)
+    mesh = make_mesh({"data": 1})
+    for mode, exchange in (("dense", "allgather"), ("compact", "allgather"), ("dense", "halo")):
+        label = f"pubmed_layer0_full, {exchange}, {mode} gathers"
+        tr, res, launches = counted_run(lambda: ShardedFeatureTrainer(
+            build_model(cfg, host, "cuda"), host, cfg.train, mesh, gather_mode=mode,
+            layer0_exchange=exchange), main_launches)
+        expect = full_sharded_launches(tr, MODES_STEPS)
+        if launches != expect:
+            raise AssertionError(f"{label}: launches {launches}, want {expect}")
+        modes_launches["spmm_mean_layer0_sharded"] += launches["spmm_mean"]
+        np.testing.assert_allclose(res["losses"], want["losses"], rtol=MODES_RTOL,
+                                   err_msg=f"{label} != the single device")
+        stats = check_learning(label, res)
+        results[f"modes {label}"] = dict(stats, losses=res["losses"])
+        mem = {k: v for k, v in tr.memory_stats().items() if "layer0" in k or "feature" in k}
+        print(f"   {label}: {MODES_STEPS} losses within "
+              f"{relative_gap(res['losses'], want['losses']):.3g} (relative) of one device's; "
+              f"host ms {stats['host_ms_per_step']:.3f} (one device "
+              f"{single_stats['host_ms_per_step']:.3f}), device ms "
+              f"{stats['device_ms_per_step']:.4f} (one device "
+              f"{single_stats['device_ms_per_step']:.4f}); launches {launches}; memory_stats "
+              f"{mem}")
+    cover = int(host.neighbors.shape[1])
+    cov = preset_config("pubmed_layer0_full", {"num_steps": COVER_STEPS,
+                                               "fanouts": (cover, cover)})
+    got = {}
+    for cls in (FullyShardedTrainer, ShardedFeatureTrainer):
+        tr, res, launches = counted_run(lambda: cls(build_model(cov, host, "cuda"), host,
+                                                    cov.train, mesh), main_launches)
+        modes_launches["spmm_mean_layer0_sharded"] += launches["spmm_mean"]
+        got[cls.__name__] = (tr, res, launches)
+    fully, res, launches = got["FullyShardedTrainer"]
+    np.testing.assert_allclose(res["losses"], got["ShardedFeatureTrainer"][1]["losses"],
+                               rtol=MODES_RTOL,
+                               err_msg="fully sharded pubmed_layer0_full != node-sharded")
+    if launches["spmm_mean"] != 2 * COVER_STEPS + 1:
+        raise AssertionError(f"fully sharded pubmed_layer0_full: launches {launches}")
+    dev_ms, top = step_device_ms(fully)
+    print(f"   FullyShardedTrainer pubmed_layer0_full at covering fanout {cover}: "
+          f"{COVER_STEPS} losses within "
+          f"{relative_gap(res['losses'], got['ShardedFeatureTrainer'][1]['losses']):.3g} of "
+          f"the node-sharded run's; host ms per step {res['mean_step_time'] * 1e3:.3f}, "
+          f"device ms {dev_ms:.4f}, top {top}; launches {launches}; memory_stats "
+          f"{ {k: v for k, v in fully.memory_stats().items() if not k.startswith('measured')} }")
+
+
+def int8_sharded_runs(pg, results, main_launches, modes_launches) -> None:
+    """``powerlaw_1m`` over the int8 table through ``ShardedFeatureTrainer``
+    (dense; compact with ``hub_cache_rows=HUB_ROWS``) and
+    ``powerlaw_1m_layer0_cached`` over an int8 cache (compact), the
+    preset's 30 steps each, held to the single-device ``Trainer`` over the
+    same int8 graph (``MODES_BF16_RTOL``; the first run's reference is the
+    int8 table run of phase 10), each over its learning floor."""
+    host = pg["powerlaw_1m int8"].to("cpu")
+    mesh = make_mesh({"data": 1})
+    over = {"quantize_features": True}
+    for name, kw in (("powerlaw_1m", dict(gather_mode="dense")),
+                     ("powerlaw_1m", dict(gather_mode="compact", hub_cache_rows=HUB_ROWS)),
+                     ("powerlaw_1m_layer0_cached", dict(gather_mode="compact"))):
+        cfg = preset_config(name, over)
+        label = f"{name} int8, {kw}"
+        tr, res, launches = counted_run(lambda: ShardedFeatureTrainer(
+            build_model(cfg, host, "cuda"), host, cfg.train, mesh, **kw), main_launches)
+        steps = cfg.train.num_steps
+        if name == "powerlaw_1m":
+            want = results["powerlaw_1m int8 table"]["losses"]
+            expect = {k: 0 for k in KERNELS}
+            expect["gather_mean"] = steps + 1
+            if kw["gather_mode"] == "dense":
+                expect["gather_mean_sum"] = steps + 1
+            else:
+                modes_launches["gather_mean_int8_compact"] += launches["gather_mean"]
+        else:
+            g = pg["powerlaw_1m int8"]
+            want = Trainer(build_model(cfg, g), g, cfg.train).run(log=None)["losses"]
+            expect = {**{k: 0 for k in KERNELS}, "spmm_mean": 1}
+        if launches != expect:
+            raise AssertionError(f"{label}: launches {launches}, want {expect}")
+        np.testing.assert_allclose(res["losses"], want, rtol=MODES_BF16_RTOL,
+                                   err_msg=f"{label} != the single device")
+        check_learning(label, res, FLOORS[name if name != "powerlaw_1m"
+                                          else "powerlaw_1m int8 table"])
+        mem = {k: v for k, v in tr.memory_stats().items()
+               if "feature" in k or "hub" in k or "cache" in k}
+        print(f"   {label}: {steps} losses within {relative_gap(res['losses'], want):.3g} "
+              f"(relative) of one device's; launches {launches}; {mem}")
+
+
+def tp_modes(roots, pg, main_launches) -> None:
+    """``ShardedTrainer`` on ``{data: 1, model: 1}`` (the tensor-parallel
+    layer 0's code over one rank) for ``pubmed_layer0_full``, ``cora_lstm``
+    and ``powerlaw_1m`` over the int8 table, ``TP_STEPS`` steps each against
+    the single-device ``Trainer``."""
+    mesh = make_mesh({"data": 1, "model": 1})
+    for name, graph, over, rtol in (
+            ("pubmed_layer0_full", load_dataset("pubmed", roots["pubmed"]), None, MODES_RTOL),
+            ("cora_lstm", load_dataset("cora", roots["cora"]), None, MODES_RTOL),
+            ("powerlaw_1m", pg["powerlaw_1m int8"], {"quantize_features": True},
+             MODES_BF16_RTOL)):
+        cfg = preset_config(name, over)
+        reset_launches()
+        tp = ShardedTrainer(build_model(cfg, graph), graph, cfg.train, mesh)
+        it = tp.batches()
+        got = [float(tp.step(next(it))) for _ in range(TP_STEPS)]
+        launches = read_launches()
+        for kernel, count in launches.items():
+            main_launches[kernel] += count
+        single = Trainer(build_model(cfg, graph), graph, cfg.train)
+        it = single.batches()
+        want = [float(single.step(next(it))) for _ in range(TP_STEPS)]
+        np.testing.assert_allclose(got, want, rtol=rtol,
+                                   err_msg=f"ShardedTrainer {name} != Trainer")
+        expect = {k: TP_STEPS * v for k, v in step_launches(
+            tp.model, graph.num_nodes, cfg.train.batch_size).items()}
+        if launches != expect:
+            raise AssertionError(f"ShardedTrainer {name}: launches {launches}, want {expect}")
+        dev, top = step_device_ms(tp)
+        print(f"   ShardedTrainer {{data: 1, model: 1}} {name}{' int8' if over else ''}: "
+              f"{TP_STEPS} losses within {relative_gap(got, want):.3g} (relative) of the "
+              f"Trainer's; device ms per step {dev:.4f}, top {top}; launches {launches}")
+
+
+def modes_comm_stats(pubmed, pg) -> None:
+    """``sharded_comm_stats`` at S = 8 (host arithmetic, JAX's numbers):
+    ``pubmed_layer0_full`` with its halo plan (``bounds="equal_nodes"``),
+    and ``reddit``'s raw rows (aggregating first) in bf16 against int8."""
+    host = pubmed.to("cpu")
+    cfg = preset_config("pubmed_layer0_full")
+    model = build_model(cfg, host)
+    part = build_node_partition(host, 8, bounds="equal_nodes")
+    stats = sharded_comm_stats(model, cfg.train.batch_size, 8, num_nodes=host.num_nodes,
+                               layer0_partition=part)
+    print(f"   pubmed_layer0_full sharded_comm_stats at S = 8: {stats}")
+    cfg = preset_config("reddit", {"project_first": False})
+    model = build_model(cfg, pg["reddit"])
+    for label, kw in (("bf16", dict(feature_dtype=torch.bfloat16)), ("int8", dict(quantized=True))):
+        print(f"   reddit raw rows {label} sharded_comm_stats at S = 8: "
+              f"{sharded_comm_stats(model, cfg.train.batch_size, 8, **kw)}")
+
+
+def modes_two_rank_rank(rank: int, port: int, pubmed_root: str, cora_root: str,
+                        out: str) -> None:
+    """One of two ranks sharing the card over gloo: ``pubmed_layer0_full``
+    node-sharded with the all-gather and the halo table builds, and ``cora``
+    over the int8 table with the compact gathers, ``MODES_TWO_RANK_STEPS``
+    steps each, and the int8 run's dense twin (f32 features holding the int8
+    values); rank 0 also runs each on one device. Writes JSON to ``out``."""
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         rank=rank, world_size=2)
+    multihost.initialize()
+    mesh = make_mesh({"data": 2})
+    rec = {}
+    pubmed = load_dataset("pubmed", pubmed_root, "cpu")
+    cora = quantize_graph(load_dataset("cora", cora_root, "cpu"))
+    twin = dataclasses.replace(cora, features=tq.dequantize(cora.features))
+    for label, name, host, kw in (
+            ("pubmed_layer0_full, allgather", "pubmed_layer0_full", pubmed, {}),
+            ("pubmed_layer0_full, halo", "pubmed_layer0_full", pubmed,
+             dict(layer0_exchange="halo")),
+            ("cora int8, compact", "cora", cora, dict(gather_mode="compact")),
+            ("cora int8's dense twin, compact", "cora", twin, dict(gather_mode="compact"))):
+        cfg = preset_config(name, {"num_steps": MODES_TWO_RANK_STEPS})
+        reset_launches()
+        tr = ShardedFeatureTrainer(build_model(cfg, host, "cuda"), host, cfg.train, mesh, **kw)
+        res = tr.run(log=None)
+        r = dict(losses=res["losses"], launches=read_launches(),
+                 host_ms=res["mean_step_time"] * 1e3)
+        if rank == 0:
+            g = host.to("cuda")
+            r["single_losses"] = Trainer(build_model(cfg, g), g, cfg.train).run(
+                log=None)["losses"]
+        rec[label] = r
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+    torch.distributed.destroy_process_group()
+
+
+def modes_two_ranks(roots) -> None:
+    """The new modes with CUDA tensors between two processes on the one
+    card over gloo, each within ``MODES_TWO_RANK_RTOL`` of one device
+    (``cora`` int8: ``MODES_INT8_TWO_RANK_RTOL``)."""
+    port = free_port()
+    os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
+    outs = [os.path.join(REPO, "build", "chip_smoke", f"modes_rank_{r}.json") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--modes-two-rank",
+                               str(r), str(port), roots["pubmed"], roots["cora"], outs[r]],
+                              cwd=REPO) for r in (0, 1)]
+    try:
+        rcs = [p.wait(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if rcs != [0, 0]:
+        raise AssertionError(f"the new modes, two ranks on one card: exit codes {rcs}")
+    recs = []
+    for out in outs:
+        with open(out) as fh:
+            recs.append(json.load(fh))
+    for label, r0 in recs[0].items():
+        want = r0["single_losses"]
+        rtol = MODES_INT8_TWO_RANK_RTOL if label == "cora int8, compact" else MODES_TWO_RANK_RTOL
+        for r, rec in enumerate(recs):
+            np.testing.assert_allclose(rec[label]["losses"], want, rtol=rtol,
+                                       err_msg=f"rank {r} {label} != the single device")
+            la = rec[label]["launches"]
+            k = "gather_mean" if label.startswith("cora") else "spmm_mean"
+            if la[k] == 0:
+                raise AssertionError(f"rank {r} {label}: no {k} launch: {la}")
+        print(f"   two ranks over gloo, {label}: {MODES_TWO_RANK_STEPS} losses "
+              f"{want[0]:.4f} -> {want[-1]:.4f} within "
+              f"{max(relative_gap(rec[label]['losses'], want) for rec in recs):.3g} "
+              f"(relative) of one device; host ms per step "
+              f"{[round(rec[label]['host_ms'], 3) for rec in recs]}; launches per rank "
+              f"{[rec[label]['launches'] for rec in recs]}")
+
+
+def sharded_modes(pg, graphs, roots, results, timings, errs, main_launches,
+                  modes_launches) -> None:
+    """Phase 16 (see the module docstring)."""
+    import torch.distributed as dist
+
+    errs.update({k: 0.0 for k in MODES_KERNELS})
+    with phase("modes: kernel 3 at the node-sharded layer-0 table's shapes"):
+        layer0_sharded_records(graphs["pubmed"], timings, errs)
+    with phase("modes: kernel 1's int8 route over the compact answer buffer"):
+        models = {label: build_model(preset_config(label), g)
+                  for label, g in (("pubmed", graphs["pubmed"]),
+                                   ("powerlaw_1m", pg["powerlaw_1m int8"]))}
+        int8_compact_records(models, {"pubmed": graphs["pubmed"],
+                                      "powerlaw_1m": pg["powerlaw_1m int8"]}, timings, errs)
+    with phase("modes: a world of one over NCCL"):
+        multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+    with phase("modes: pubmed_layer0_full node-sharded and fully sharded"):
+        sharded_layer0_runs(roots["pubmed"], results, main_launches, modes_launches)
+    with phase("modes: powerlaw_1m over int8 tables, node-sharded"):
+        int8_sharded_runs(pg, results, main_launches, modes_launches)
+    with phase("modes: ShardedTrainer on {data: 1, model: 1}, full, lstm and int8"):
+        tp_modes(roots, pg, main_launches)
+    with phase("modes: sharded_comm_stats at S = 8"):
+        modes_comm_stats(graphs["pubmed"], pg)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    with phase("modes: two ranks on one card over gloo"):
+        modes_two_ranks(roots)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3582,6 +4059,8 @@ def main() -> int:
     parallel(graphs, roots, results, timings, errs, main_launches, compact_launches)
     halo_launches = {name: 0 for name in HALO_KERNELS}
     halo_exchange(pg, graphs, roots, timings, errs, main_launches, halo_launches)
+    modes_launches = {name: 0 for name in MODES_KERNELS}
+    sharded_modes(pg, graphs, roots, results, timings, errs, main_launches, modes_launches)
 
     kernels = []
     entries = [(name, meta, main_launches[name]) for name, meta in KERNELS.items()]
@@ -3589,6 +4068,8 @@ def main() -> int:
                 for name, base in COMPACT_KERNELS.items()]
     entries += [(name, KERNELS[base], halo_launches[name])
                 for name, base in HALO_KERNELS.items()]
+    entries += [(name, KERNELS[base], modes_launches[name])
+                for name, base in MODES_KERNELS.items()]
     for name, meta, launches in entries:
         recs = timings[name]
         head = next(r for r in recs if r["label"] == "pubmed")
@@ -3613,6 +4094,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--halo-two-rank"]:  # a rank of the halo's two-rank phase
         halo_two_rank_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--modes-two-rank"]:  # a rank of phase 16's two-rank part
+        modes_two_rank_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
         sys.exit(0)
     try:
         sys.exit(main())

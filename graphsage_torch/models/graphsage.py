@@ -239,13 +239,31 @@ class GraphSAGE(nn.Module):
             return d_in > self.hidden_dims[layer]
         return bool(self.project_first)
 
+    def injected_layer0_project_first(self, quantized: bool) -> bool:
+        """JAX's project-first rule for a node-sharded table's lookups (the
+        ``hub_cache_rows`` check and ``sharded_comm_stats`` read it): the
+        width rule (``d_in > d_out``, or ``project_first`` when it is not
+        ``"auto"``) for a dense table; for an int8 table the bytes, since a
+        raw row is ``F + 4`` bytes (int8 values and the scale) against a
+        projected row's ``4 * d_out``."""
+        if self.aggregator != "mean":
+            return False
+        if self.project_first != "auto":
+            return bool(self.project_first)
+        if not quantized:
+            return self.in_dim > self.hidden_dims[0]
+        return 4 * self.hidden_dims[0] < self.in_dim + 4
+
     def sampled_layer0_project_first(self, num_nodes: int, slots: int,
-                                     exchanged_rows: int = 0) -> bool:
+                                     exchanged_rows: int = 0, quantized: bool = False,
+                                     exchanged_row_bytes: int | None = None) -> bool:
         """Whether the sampled layer 0 projects the whole ``num_nodes``-row
         table before gathering ``slots`` neighbour rows. ``"auto"`` does
-        when the layer shrinks its width (``d_in > d_out``) and
+        when :meth:`injected_layer0_project_first` does (the layer shrinks
+        its width; over an int8 table, a projected f32 row is smaller than
+        the int8 row with its scale) and
 
-            (slots + exchanged_rows) * (d_in - d_out)
+            slots * (d_in - d_out) + exchanged_rows * (row - d_out)
                 >= LAYER0_ORDER_KAPPA * num_nodes * d_in:
 
         projecting first pays a fixed pass over the table (the product and
@@ -255,13 +273,15 @@ class GraphSAGE(nn.Module):
         the two costs per column, measured on the H100 (``PERF.md`` §5).
         A node-sharded step counts its rank's shard rows and slots, and
         ``exchanged_rows``: the layer's rows that cross to other ranks, each
-        ``d_in - d_out`` columns wider when aggregating first, counted as
-        gathered slots (a lower bound on their cost; 0 in a world of one,
-        where the rule is the single device's)."""
+        ``row = exchanged_row_bytes / 4`` f32 columns wide when aggregating
+        first (``d_in`` by default; an int8 answer row is ``F + 4`` bytes),
+        counted as gathered slots (a lower bound on their cost; 0 in a world
+        of one, where the rule is the single device's)."""
         d_in, d_out = self.in_dim, self.hidden_dims[0]
-        return self.use_project_first(0, d_in) and (
+        row = d_in if exchanged_row_bytes is None else exchanged_row_bytes / 4
+        return self.injected_layer0_project_first(quantized) and (
             self.project_first != "auto"
-            or (slots + exchanged_rows) * (d_in - d_out)
+            or slots * (d_in - d_out) + exchanged_rows * (row - d_out)
             >= LAYER0_ORDER_KAPPA * num_nodes * d_in)
 
     # -------------------------------------------------------------- sample
@@ -321,13 +341,21 @@ class GraphSAGE(nn.Module):
                                    graph.edge_mask, graph.num_nodes)
         return segmax
 
-    def layer0_full_table(self, features, graph: Graph | None) -> torch.Tensor:
+    def layer0_full_table(self, features, graph: Graph | None, *, spmm=None,
+                          segmax=None) -> torch.Tensor:
         """The shared layer-0 table of ``layer0="full"``: layer 0 over every
         node with complete neighborhoods, ``[N, hidden[0]]`` in the compute
-        dtype."""
+        dtype.
+
+        ``spmm`` (``x -> (neighbor mean, valid count)``) and ``segmax``
+        (``pooled -> guarded per-node max``) replace the ones over
+        ``graph``'s CSR: the node-sharded trainers pass closures over the
+        rank's own rows (an all-gather or a halo exchange first), with
+        ``features`` the rank's ``[Np, F]`` rows, and get the rank's
+        ``[Np, hidden[0]]`` slice of the table."""
         if self.layer0 != "full":
             raise ValueError("layer0_full_table requires layer0='full'")
-        if graph is None:
+        if graph is None and (spmm if self.aggregator == "mean" else segmax) is None:
             raise ValueError(
                 "layer0='full' needs forward(..., graph=...): the full-graph "
                 "layer 0 reads the CSR adjacency"
@@ -335,12 +363,14 @@ class GraphSAGE(nn.Module):
         layer0 = self.layers[0]
         if self.aggregator != "mean":
             return apply_full_graph_maxpool_layer(
-                layer0, self._dense(features), self._segmax(graph),
+                layer0, self._dense(features),
+                self._segmax(graph) if segmax is None else segmax,
                 self_loop=self.self_loop, activation=self.layer_activation(0))
+        spmm = self._spmm(graph) if spmm is None else spmm
         pf = self.use_project_first(0, self.in_dim)
         if not (is_quantized(features) and pf):
             return apply_full_graph_mean_layer(
-                layer0, self._dense(features), self._spmm(graph),
+                layer0, self._dense(features), spmm,
                 self_loop=self.self_loop, project_first=pf,
                 activation=self.layer_activation(0),
             )
@@ -350,7 +380,7 @@ class GraphSAGE(nn.Module):
         w_self, w_neigh = split_mean_weight(
             layer0.weight.to(h_dtype), self.in_dim, self.concat_self)
         hp = project_table(features, w_neigh).to(h_dtype)
-        mean, cnt = self._spmm(graph)(hp)
+        mean, cnt = spmm(hp)
         pre = mean.to(torch.float32)
         if self.self_loop:
             c = cnt.to(torch.float32)[:, None]
@@ -417,6 +447,7 @@ class GraphSAGE(nn.Module):
         layer0_table=None,
         layer0_out: torch.Tensor | None = None,
         exchange_ranks: int = 1,
+        exchange_row_bytes: int | None = None,
     ) -> torch.Tensor:
         """Logits ``[B, num_classes]`` for the frontier's seed batch (or the
         pre-head representations with ``return_embeddings``). ``graph``
@@ -428,9 +459,12 @@ class GraphSAGE(nn.Module):
         ``gather_fn(table, ids, mask)`` (rows) and ``gather_mean_fn(table, idx,
         mask)`` (the fused masked mean) replace the local ones, so that
         ``features`` may be this rank's node-range shard, and
-        ``layer0_table`` replaces the graph's cache (``"cached"``).
+        ``layer0_table`` replaces the graph's cache (``"cached"``) or the
+        shared table (``"full"``: the rank's slice, built by the caller).
         ``exchange_ranks`` is the number of ranks those lookups exchange
-        rows over, which the sampled mean layer 0's order rule counts
+        rows over, and ``exchange_row_bytes`` the bytes of a row they move
+        when layer 0 aggregates first (default ``4 * in_dim``), which the
+        sampled mean layer 0's order rule counts
         (:meth:`sampled_layer0_project_first`). ``layer0_out`` is layer 0's
         output at hop ``L - 1``, computed by the caller (the
         tensor-parallel layer 0): only the upper layers and the head run."""
@@ -448,12 +482,13 @@ class GraphSAGE(nn.Module):
             h = self.layers[0](self_h, None, None, precomputed_agg=agg, compute_dtype=cd,
                                activation=self.layer_activation(0))
         elif self.layer0 == "full":
-            h = rows(self.layer0_full_table(features, graph), frontier.ids[L - 1],
-                     frontier.masks[L - 1])
+            table = (layer0_table if layer0_table is not None
+                     else self.layer0_full_table(features, graph))
+            h = rows(table, frontier.ids[L - 1], frontier.masks[L - 1])
         elif self.aggregator == "mean":
             h = self._sampled_mean_layer0(features, frontier, rows,
                                           gather_mean_fn or self._gather_mean,
-                                          exchange_ranks)
+                                          exchange_ranks, exchange_row_bytes)
         else:  # maxpool and lstm read the deepest hop's raw rows
             h = rows(features, frontier.ids[L], frontier.masks[L])
             if cd is not None:
@@ -481,7 +516,8 @@ class GraphSAGE(nn.Module):
         return (h @ self.head.to(h.dtype)).to(torch.float32)
 
     def _sampled_mean_layer0(self, features, frontier: Frontier, rows, gather_mean_fn,
-                             exchange_ranks: int) -> torch.Tensor:
+                             exchange_ranks: int, exchange_row_bytes: int | None = None
+                             ) -> torch.Tensor:
         """Layer 0 of the sampled mean model: the fused gather-mean over the
         deepest hop, projecting first or aggregating first. Over
         ``exchange_ranks`` ranks each lookup's output rows cross ``S - 1``
@@ -500,7 +536,8 @@ class GraphSAGE(nn.Module):
         lookups = 2 if self.concat_self else 1
         passes = 2 if torch.is_grad_enabled() else 1
         exchanged = passes * lookups * (exchange_ranks - 1) * n_out
-        if self.sampled_layer0_project_first(features.shape[0], neigh_ids.numel(), exchanged):
+        if self.sampled_layer0_project_first(features.shape[0], neigh_ids.numel(), exchanged,
+                                             is_quantized(features), exchange_row_bytes):
             # Project the whole table to d_out once, then gather-mean narrow
             # rows (exact: the mean is linear); an int8 table is contracted
             # raw and scaled after.

@@ -138,21 +138,30 @@ def masked_lstm(
     row and an empty row gives 0 (quirk Q4). ``nn.LSTM`` cannot skip masked
     slots, hence the gate math written out.
     """
-    h_dim = wh.shape[0]
     lead, k = neigh_feats.shape[:-2], neigh_feats.shape[-2]
     x = neigh_feats.reshape(-1, k, neigh_feats.shape[-1])
-    m = neigh_mask.reshape(-1, k)[..., None]
     xg = (x @ wx.to(x.dtype)).to(torch.float32)  # [B, k, 4H]
+    h = lstm_recurrence(xg, wh, b, neigh_mask.reshape(-1, k))
+    return h.reshape(*lead, wh.shape[0]).to(neigh_feats.dtype)
+
+
+def lstm_recurrence(xg: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """:func:`masked_lstm`'s recurrence over input-gate products ``xg [B,
+    k, 4H]`` f32 (the tensor-parallel layer 0 sums them over its ranks
+    first): the final hidden state ``[B, H]`` f32."""
+    h_dim = wh.shape[0]
+    m = mask[..., None]
     wh32, b32 = wh.to(torch.float32), b.to(torch.float32)
-    h = xg.new_zeros((x.shape[0], h_dim))
-    c = xg.new_zeros((x.shape[0], h_dim))
-    for t in range(k):
+    h = xg.new_zeros((xg.shape[0], h_dim))
+    c = xg.new_zeros((xg.shape[0], h_dim))
+    for t in range(xg.shape[1]):
         i, f, g, o = (xg[:, t] + h @ wh32 + b32).chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
         h = torch.where(m[:, t], h_new, h)
         c = torch.where(m[:, t], c_new, c)
-    return h.reshape(*lead, h_dim).to(neigh_feats.dtype)
+    return h
 
 
 def apply_sage_layer(

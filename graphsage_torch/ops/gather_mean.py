@@ -162,25 +162,28 @@ def gather_mean(
 
 
 def gather_mean_int8_plain(
-    q: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor
+    q: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+    normalize: bool = True,
 ) -> torch.Tensor:
     """The plain PyTorch version of the int8 route: one slot at a time,
     ``q[id] * (mask * scale[id])`` summed in f32, over the valid count (no
-    ``[B, k, F]`` transient)."""
+    ``[B, k, F]`` transient); the sums undivided without ``normalize``."""
     safe = torch.where(mask, idx, torch.zeros_like(idx)).long()
     m = mask.to(torch.float32)
     w = m * scale.reshape(-1)[safe]
     total = torch.zeros((idx.shape[0], q.shape[1]), dtype=torch.float32, device=q.device)
     for j in range(idx.shape[1]):
         total = total + q[safe[:, j]].to(torch.float32) * w[:, j:j + 1]
-    return total / m.sum(dim=1, keepdim=True).clamp(min=1.0)
+    return total / m.sum(dim=1, keepdim=True).clamp(min=1.0) if normalize else total
 
 
 def gather_mean_int8(
-    q: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor
+    q: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+    normalize: bool = True,
 ) -> torch.Tensor:
     """Masked gather-mean ``[B, F]`` f32 of the int8 table ``q * scale``
-    (see module docstring); no gradient."""
+    (see module docstring), or its sums without ``normalize`` (the
+    node-sharded store's owner side); no gradient."""
     _check(q, idx, mask, dtypes=(torch.int8,))
     if scale.dtype != torch.float32:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
@@ -188,7 +191,7 @@ def gather_mean_int8(
         raise ValueError(f"scale must be a contiguous [N, 1] = [{q.shape[0]}, 1] on "
                          f"{q.device}, got {tuple(scale.shape)} on {scale.device}")
     if q.device.type == "cpu":
-        return gather_mean_int8_plain(q, scale, idx, mask)
+        return gather_mean_int8_plain(q, scale, idx, mask, normalize)
     if q.device.type != "cuda":
         raise ValueError(f"no gather_mean for device {q.device}")
-    return _launch(q, idx, mask, scale)
+    return _launch(q, idx, mask, scale, normalize)

@@ -13,9 +13,10 @@ the CPU).
                    aggregation behind ``FullGraphTrainer(mesh=)`` and
                    ``ServingEngine(mesh=)``
   native_partition — the C++ LPA and BFS (``csrc/partitioner.cpp``)
-  feature_store  — the node-sharded feature table, its dense and compact
-                   cross-rank gathers, the hub cache, ``ShardedFeatureTrainer``
-                   (``--mode sharded``), the sharded adjacency with its
-                   distributed sampler and ``FullyShardedTrainer``
-                   (``--mode fully-sharded``)
+  feature_store  — the node-sharded feature table (f32, bf16 or int8), its
+                   dense and compact cross-rank gathers, the hub cache, the
+                   layer-0 table build of ``layer0="full"`` (all-gather or
+                   halo), ``ShardedFeatureTrainer`` (``--mode sharded``), the
+                   sharded adjacency with its distributed sampler and
+                   ``FullyShardedTrainer`` (``--mode fully-sharded``)
 """

@@ -52,15 +52,15 @@ def all_to_all_rows(x: torch.Tensor, group, extra_rows: int = 0) -> torch.Tensor
     """``[S * cap + extra_rows, ...]`` from ``x [S, cap, ...]``: rows ``d *
     cap`` to ``(d + 1) * cap`` are rank ``d``'s block ``rank``, as JAX's
     ``all_to_all(split_axis=0, concat_axis=0)`` gives them. The
-    ``extra_rows`` after them are left for the caller to fill. A bool
-    payload travels as its bytes (``uint8``); gloo moves CUDA tensors too
-    (probed on the H100 for int32, uint8, bool, f32 and bf16; it refuses
+    ``extra_rows`` after them are left for the caller to fill. A bool or
+    int8 payload travels as its bytes (``uint8``); gloo moves CUDA tensors
+    too (probed on the H100 for int32, uint8, bool, f32 and bf16; it refuses
     int16)."""
     flat = x.reshape(x.shape[0] * x.shape[1], *x.shape[2:]).contiguous()
     rows = flat.shape[0]
     out = flat.new_empty((rows + extra_rows, *flat.shape[1:]))
     if rows:
-        wire = torch.uint8 if flat.dtype == torch.bool else flat.dtype
+        wire = torch.uint8 if flat.dtype in (torch.bool, torch.int8) else flat.dtype
         dist.all_to_all_single(out[:rows].view(wire), flat.view(wire), group=group)
     return out
 
@@ -162,7 +162,9 @@ class RouteAnswers(torch.autograd.Function):
     rank's requests, ``[S * cap + T, F]``, block ``d`` from owner ``d``, and
     ``tail [T, F]`` (rows the requester holds itself, no gradient; ``None``
     for none) copied after them. The backward routes the cotangent of the
-    ``S * cap`` routed rows back to their owners (the reverse all-to-all)."""
+    ``S * cap`` routed rows back to their owners (the reverse all-to-all).
+    An int8 table's answers travel as two of these, its ``q`` rows and its
+    ``[S, cap, 1]`` scales, neither with a gradient (the table is frozen)."""
 
     @staticmethod
     def forward(ctx, answers, group, tail):

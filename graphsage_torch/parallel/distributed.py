@@ -11,9 +11,10 @@
   transpose summed over the axis.
 * **DP + TP sampled training** (:class:`ShardedTrainer`): the seed batch
   splits over ``data``; the feature table's columns and the matching rows of
-  layer 0's weight (and of the max-pool MLP's) over ``model``. Layer 0's
-  partial product is summed over ``model`` once; every deeper layer and the
-  head are replicated, and gradients are averaged over ``data``.
+  layer 0's weight (and of the max-pool MLP's and the LSTM's input product)
+  over ``model``. Layer 0's partial product is summed over ``model`` once;
+  every deeper layer and the head are replicated, and gradients are
+  averaged over ``data``.
 
 Every rank samples the whole batch's frontier with the same generator and
 seed and keeps its ``data`` slice, so a sharded step computes the
@@ -32,9 +33,9 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from graphsage_torch.data.graph import Graph
 from graphsage_torch.models.graphsage import Frontier, GraphSAGE
-from graphsage_torch.models.layers import split_mean_weight
+from graphsage_torch.models.layers import lstm_recurrence, split_mean_weight
 from graphsage_torch.ops.aggregate import masked_max
-from graphsage_torch.ops.quantize import is_quantized
+from graphsage_torch.ops.quantize import QuantizedTable, is_quantized, project_table
 from graphsage_torch.ops.spmm import spmm_block_sum, spmm_transpose_plain
 from graphsage_torch.parallel import collectives
 from graphsage_torch.parallel.mesh import axis_index, axis_size, has_axis
@@ -265,22 +266,38 @@ def _split(size: int, parts: int, index: int) -> tuple[int, int]:
     return lo, lo + base + (index < extra)
 
 
+def _columns(table, c0: int, c1: int):
+    """Columns ``[c0, c1)`` of a dense table, or of an int8 table's ``q``
+    with its ``[N, 1]`` scales whole (JAX's ``graph_shardings`` replicates
+    them)."""
+    if is_quantized(table):
+        return QuantizedTable(q=table.q[:, c0:c1].contiguous(), scale=table.scale)
+    return table[:, c0:c1].contiguous()
+
+
 class ShardedTrainer(ShardedLoop, Trainer):
     """Sampled training over a mesh with data parallelism and, when the
     mesh has a ``model`` axis, tensor parallelism in layer 0.
 
     Each rank keeps the columns ``[c0, c1)`` of the feature table (and of a
     ``layer0="cached"`` cache) that its ``model`` coordinate owns, and uses
-    the matching rows of layer 0's weight (the max-pool MLP's too; the
-    neighbour rows of a max-pool layer's weight, which contract the pooled
-    width, split the same way over that width). Layer 0's partial product
-    goes through one ``model``-axis sum (:class:`collectives.SumOverAxis`).
-    The parameters are kept whole on every rank: a rank's gradient of layer
-    0's weight fills only its own rows, and the gradient sum over ``model``
-    assembles them; every gradient is then averaged over ``data``. Layer 0
-    under tensor parallelism is the sampled mean (either product order, the
-    single-device trainer's rule), the cached mean, or the sampled max-pool
-    layer; without a ``model`` axis every model trains as on one device.
+    the matching rows of layer 0's weight (the max-pool MLP's and the
+    LSTM's input product too; the neighbour rows of a max-pool or lstm
+    layer's weight, which contract the pooled or hidden width, split the
+    same way over that width). Layer 0's partial product goes through one
+    ``model``-axis sum (:class:`collectives.SumOverAxis`). The parameters
+    are kept whole on every rank: a rank's gradient of layer 0's weight
+    fills only its own rows, and the gradient sum over ``model`` assembles
+    them; every gradient is then averaged over ``data``. Layer 0 under
+    tensor parallelism is the sampled mean (either product order, the
+    single-device trainer's rule), the cached mean, the sampled max-pool
+    layer, the sampled lstm (the input-gate products of every slot summed
+    over ``model`` once, then the recurrence on every rank), or
+    ``layer0="full"``'s table (each rank's columns' partial product summed,
+    Hopper kernel 3 over the whole CSR, in the layer's order; the max-pool
+    table's segment max); without a ``model`` axis every model trains as on
+    one device. An int8 table splits its ``q`` columns and keeps its scales
+    whole on every rank.
 
     The trainer re-slices the graph its parent prepared (with the layer-0
     cache the parent built), not the argument."""
@@ -298,18 +315,6 @@ class ShardedTrainer(ShardedLoop, Trainer):
                 f"batch_size {config.batch_size} must divide over data axis "
                 f"size {d}"
             )
-        if is_quantized(self.graph.features):
-            raise NotImplementedError(
-                "ShardedTrainer over an int8 feature table is not ported yet "
-                "(ROADMAP Queue 1 item 14e)")
-        if self.model_axis is not None and (model.layer0 == "full"
-                                            or model.aggregator == "lstm"):
-            raise NotImplementedError(
-                "the tensor-parallel layer 0 runs the sampled mean and "
-                "max-pool layers and the cached mean; layer0='full' and the "
-                "lstm aggregator over a 'model' axis are not ported yet "
-                "(ROADMAP Queue 1 item 14e); a mesh without a 'model' axis "
-                "trains them data-parallel")
         self._data_group = mesh.get_group(data_axis)
         self._num_data = d
         self._data_index = axis_index(mesh, data_axis)
@@ -320,13 +325,15 @@ class ShardedTrainer(ShardedLoop, Trainer):
             self._model_group = mesh.get_group(self.model_axis)
             self._cols = _split(model.in_dim, parts, m)
             layer0 = model.layers[0]
-            if model.aggregator == "maxpool":
-                self._pool_cols = _split(layer0.pool_weight.shape[1], parts, m)
+            if model.aggregator != "mean":  # the pooled or the LSTM's hidden width
+                width = (layer0.pool_weight.shape[1] if model.aggregator == "maxpool"
+                         else layer0.lstm_wh.shape[0])
+                self._pool_cols = _split(width, parts, m)
             c0, c1 = self._cols
             cache = prepared.layer0_cache
             self.graph = dataclasses.replace(
-                prepared, features=prepared.features[:, c0:c1].contiguous(),
-                layer0_cache=None if cache is None else cache[:, c0:c1].contiguous())
+                prepared, features=_columns(prepared.features, c0, c1),
+                layer0_cache=None if cache is None else _columns(cache, c0, c1))
 
     # ------------------------------------------------------------------- step
     def step(self, seeds: np.ndarray) -> torch.Tensor:
@@ -348,9 +355,10 @@ class ShardedTrainer(ShardedLoop, Trainer):
                                       self._num_data)
 
     def _sliced_params(self) -> list[torch.nn.Parameter]:
-        layer0 = self.model.layers[0]
-        return [layer0.weight] + ([layer0.pool_weight]
-                                  if self.model.aggregator == "maxpool" else [])
+        """Layer 0's parameters whose rows split over ``model``."""
+        layer0, agg = self.model.layers[0], self.model.aggregator
+        return [layer0.weight] + ([layer0.pool_weight] if agg == "maxpool" else
+                                  [layer0.lstm_wx] if agg == "lstm" else [])
 
     # ------------------------------------------------------ tensor parallel
     def _tp_layer0(self, fr: Frontier, slots_scale: int | None = None) -> torch.Tensor:
@@ -365,8 +373,9 @@ class ShardedTrainer(ShardedLoop, Trainer):
         c0, c1 = self._cols
         act = model.layer_activation(0) or (lambda x: x)
         w = layer0.weight if cd is None else layer0.weight.to(cd)
-        total = lambda x: collectives.SumOverAxis.apply(x, self._model_group)  # noqa: E731
         feats = g.features
+        if model.layer0 == "full":
+            return model._gather_rows(self._tp_full_table(), fr.ids[L - 1])
         if model.layer0 == "cached":
             ids = fr.ids[L - 1]
             w_self, w_neigh = split_mean_weight(w, F, model.concat_self)
@@ -375,7 +384,7 @@ class ShardedTrainer(ShardedLoop, Trainer):
             if model.concat_self:
                 parts.insert(0, model._gather_rows(feats, ids))
                 rows.insert(0, w_self[c0:c1])
-            return act(total(self._product(parts, rows, cd)))
+            return act(self._total(self._product(parts, rows, cd)))
         if model.aggregator == "mean":
             n_out = fr.ids[L - 1].shape[0]
             ids2 = fr.ids[L].reshape(n_out, -1)
@@ -386,19 +395,26 @@ class ShardedTrainer(ShardedLoop, Trainer):
             self_ids = fr.ids[L - 1]
             w_self, w_neigh = split_mean_weight(w, F, model.concat_self)
             scale = self._num_data if slots_scale is None else slots_scale
-            if model.sampled_layer0_project_first(g.num_nodes, ids2.numel() * scale):
-                table = feats.to(w.dtype)
-                pre = model._gather_mean(table @ w_neigh[c0:c1], ids2, m2)
+            quantized = is_quantized(feats)
+            if model.sampled_layer0_project_first(g.num_nodes, ids2.numel() * scale,
+                                                  quantized=quantized):
+                if quantized:  # the raw int8 values, scaled after
+                    project = lambda wr: project_table(feats, wr)  # noqa: E731
+                else:
+                    table = feats.to(w.dtype)
+                    project = lambda wr: table @ wr  # noqa: E731
+                pre = model._gather_mean(project(w_neigh[c0:c1]), ids2, m2)
                 if model.concat_self:
-                    pre = pre + model._gather_rows(table @ w_self[c0:c1], self_ids)
-                return act(total(pre)).to(w.dtype)
+                    pre = pre + model._gather_rows(project(w_self[c0:c1]), self_ids)
+                return act(self._total(pre)).to(w.dtype)
             parts = [model._gather_mean(feats, ids2, m2)]
             rows = [w_neigh[c0:c1]]
             if model.concat_self:
                 parts.insert(0, model._gather_rows(feats, self_ids))
                 rows.insert(0, w_self[c0:c1])
-            return act(total(self._product(parts, rows, cd)))
-        # maxpool: the pooling MLP's partial product, summed, then the max.
+            return act(self._total(self._product(parts, rows, cd)))
+        # maxpool and lstm: the aggregator's partial input product, summed,
+        # then the max or the recurrence on every rank.
         n_out = fr.ids[L - 1].shape[0]
         x = model._gather_rows(feats, fr.ids[L])
         if cd is not None:
@@ -406,19 +422,87 @@ class ShardedTrainer(ShardedLoop, Trainer):
         x3 = x.reshape(n_out, -1, x.shape[-1])
         m3 = fr.masks[L].reshape(n_out, -1)
         neigh, nm = (x3[:, 1:], m3[:, 1:]) if model.concat_self else (x3, m3)
-        pdt = cd or layer0.weight.dtype
-        wp = layer0.pool_weight[c0:c1].to(pdt).to(torch.float32)
-        pooled = torch.relu(total(neigh.to(torch.float32) @ wp)
-                            + layer0.pool_bias.to(pdt)).to(neigh.dtype)
-        agg = masked_max(pooled, nm)
-        p0, p1 = self._pool_cols
-        agg_rows = w[F:] if model.concat_self else w
-        parts = [collectives.CopyToAxis.apply(agg, self._model_group)[:, p0:p1]]
-        rows = [agg_rows[p0:p1]]
+        if model.aggregator == "maxpool":
+            pdt = cd or layer0.weight.dtype
+            wp = layer0.pool_weight[c0:c1].to(pdt).to(torch.float32)
+            pooled = torch.relu(self._total(neigh.to(torch.float32) @ wp)
+                                + layer0.pool_bias.to(pdt)).to(neigh.dtype)
+            agg = masked_max(pooled, nm)
+        else:
+            xg = (neigh @ layer0.lstm_wx[c0:c1].to(neigh.dtype)).to(torch.float32)
+            agg = lstm_recurrence(self._total(xg), layer0.lstm_wh, layer0.lstm_b,
+                                  nm).to(neigh.dtype)
+        parts, rows = self._split_aggregate(agg, w)
         if model.concat_self:
             parts.insert(0, x3[:, 0])
             rows.insert(0, w[c0:c1])
-        return act(total(self._product(parts, rows, cd)))
+        return act(self._total(self._product(parts, rows, cd)))
+
+    def _total(self, x: torch.Tensor) -> torch.Tensor:
+        return collectives.SumOverAxis.apply(x, self._model_group)
+
+    def _split_aggregate(self, agg: torch.Tensor, w: torch.Tensor) -> tuple[list, list]:
+        """``([this rank's columns of agg], [their weight rows])``: a max-pool
+        or lstm aggregate is replicated, and its product with the weight's
+        neighbour rows splits over its width (the backward sums the ranks'
+        cotangents of ``agg``)."""
+        p0, p1 = self._pool_cols
+        agg_rows = w[self.model.in_dim:] if self.model.concat_self else w
+        return ([collectives.CopyToAxis.apply(agg, self._model_group)[:, p0:p1]],
+                [agg_rows[p0:p1]])
+
+    def _tp_full_table(self) -> torch.Tensor:
+        """``layer0="full"``'s ``[N, hidden[0]]`` table from this rank's
+        feature columns: :meth:`GraphSAGE.layer0_full_table`'s layer with
+        each product split over ``model`` and summed once. Hopper kernel 3
+        runs over the whole CSR on the summed projection (project-first) or
+        on the rank's columns (mean first); the max-pool table sums the
+        pooling MLP's product, takes the segment max on every rank and
+        splits its product with the weight over the pooled width."""
+        model, g = self.model, self.graph
+        F, layer0 = model.in_dim, model.layers[0]
+        c0, c1 = self._cols
+        act = model.layer_activation(0) or (lambda x: x)
+        feats = g.features
+        h = model._dense(feats)
+        w = layer0.weight.to(h.dtype)
+        if model.aggregator == "maxpool":
+            wp = layer0.pool_weight[c0:c1].to(h.dtype).to(torch.float32)
+            pooled = torch.relu(self._total(h.to(torch.float32) @ wp)
+                                + layer0.pool_bias.to(h.dtype)).to(h.dtype)
+            agg = model._segmax(g)(pooled).to(h.dtype)
+            if model.self_loop:
+                agg = torch.maximum(agg, pooled)
+            parts, rows = self._split_aggregate(agg, w)
+            if model.concat_self:
+                parts.insert(0, h)
+                rows.insert(0, w[c0:c1])
+            return act(self._total(torch.cat(parts, dim=-1) @ torch.cat(rows, dim=0)))
+        spmm = model._spmm(g)
+        w_self, w_neigh = split_mean_weight(w, F, model.concat_self)
+        if model.use_project_first(0, F):
+            if is_quantized(feats):  # the raw int8 values, scaled after
+                project = lambda wr: project_table(feats, wr)  # noqa: E731
+            else:
+                project = lambda wr: h @ wr  # noqa: E731
+            hp = self._total(project(w_neigh[c0:c1])).to(h.dtype)
+            mean, cnt = spmm(hp)
+            pre = mean.to(torch.float32)
+            if model.self_loop:
+                c = cnt.to(torch.float32)[:, None]
+                pre = (pre * c + hp.to(torch.float32)) / (c + 1.0)
+            if model.concat_self:
+                pre = pre + self._total(project(w_self[c0:c1])).to(torch.float32)
+            return act(pre).to(h.dtype)
+        mean, cnt = spmm(h)
+        if model.self_loop:
+            c = cnt.to(mean.dtype)[:, None]
+            mean = (mean * c + h) / (c + 1.0)
+        parts, rows = [mean], [w_neigh[c0:c1]]
+        if model.concat_self:
+            parts.insert(0, h)
+            rows.insert(0, w_self[c0:c1])
+        return act(self._total(torch.cat(parts, dim=-1) @ torch.cat(rows, dim=0)))
 
     @staticmethod
     def _product(parts: list[torch.Tensor], rows: list[torch.Tensor], cd) -> torch.Tensor:

@@ -1,13 +1,16 @@
 """The node-sharded feature store: the counterpart of
 ``graphsage_tpu/parallel/feature_store.py`` (``NodeShardedFeatures``,
 ``shard_features``, the dense and compact cross-rank gathers, the hub cache,
-``ShardedFeatureTrainer``, the sharded adjacency with its distributed
-sampler, and ``FullyShardedTrainer``).
+the layer-0 table build of ``layer0="full"``, ``ShardedFeatureTrainer``, the
+sharded adjacency with its distributed sampler, and ``FullyShardedTrainer``).
 
 The ``[N, F]`` table is split on the node dimension: rank ``s`` of the axis
 owns rows ``[s * Np, (s + 1) * Np)`` with ``Np = round_up(ceil(N / S), 8)``;
 padding rows are zero and ownership is ``id // Np``. Only a rank's own rows
-reach its device: the shard is cut from a host copy of the table.
+reach its device: the shard is cut from a host copy of the table. An int8
+:class:`~graphsage_torch.ops.quantize.QuantizedTable` shards the same way,
+its ``q`` rows and ``[N, 1]`` scales cut on the same ranges (padding rows
+keep scale 1).
 
 **The dense exchange** (:class:`_OwnerExchange`) computes what JAX's dense
 exchange computes, the requested rows' masked sums, without shipping a zero
@@ -16,7 +19,8 @@ row for every request a rank does not own:
 * every rank's requests (id, or -1 for a masked slot: 4 bytes a slot) are
   all-gathered;
 * each owner sums the rows it owns for every rank's requests, Hopper kernel
-  1 in its sum mode, ``[S * B, F]`` partial sums;
+  1 in its sum mode (its int8 route over an int8 table), ``[S * B, F]``
+  partial sums in f32;
 * one reduce-scatter returns each rank its own ``[B, F]`` sums, and the rank
   divides by its full valid count (the guarded mean, quirk Q4).
 
@@ -34,8 +38,11 @@ H), F]``, and the requester reads it at ``take`` (each request's bucket
 slot): Hopper kernel 1 (mean mode) for a masked mean, an ``index_select`` for
 rows. The backward is kernel 2 (mean mode) into the buffer's gradient, the
 reverse all-to-all, and kernel 2's sum mode (one slot per answered row) into
-the owner's ``[Np, F]`` gradient; a frozen table skips it. A bucket that
-overflows its capacity clips rows: the trainers check every call site first
+the owner's ``[Np, F]`` gradient; a frozen table skips it. An int8 table
+answers with its ``q`` rows and, in a second all-to-all, their scales: ``F +
+4`` bytes a row, as JAX's; the requester's mean is kernel 1's int8 route
+over the int8 answer buffer. A bucket that overflows its capacity clips
+rows: the trainers check every call site first
 (:meth:`ShardedFeatureTrainer._local_sites_violated`), apply nothing on an
 overflow and redo the step on the same frontier at doubled slack.
 
@@ -43,6 +50,18 @@ overflow and redo the step on the same frontier at doubled slack.
 highest-degree rows of a frozen table on every rank; hub requests enter the
 route as masked slots and read the answer buffer's last ``H`` rows, so one
 kernel-1 call (or one ``index_select``) serves routed and hub slots.
+
+**The layer-0 table of ``layer0="full"``** is built per step over the
+rank's own rows (:meth:`GraphSAGE.layer0_full_table` with the closures of
+:func:`make_sharded_spmm` and :func:`make_sharded_segmax`): every rank's
+(projected) rows are all-gathered into an ``[S * Np, d]`` buffer and Hopper
+kernel 3 aggregates the rank's CSR over it (:class:`LocalCSR`: local rows,
+buffer columns), its backward kernel 3 again over the transposed CSR; or
+(``layer0_exchange="halo"``) only the boundary rows travel, through the halo
+plan of :mod:`graphsage_torch.parallel.halo` over the store's own node
+ranges. The one gather site then reads ``d0``-wide rows of the rank's table
+slice, which depends on the parameters: the compact exchange's owner
+backward (kernel 2's sum mode) carries its gradient.
 
 **Fully sharded training** shards the adjacency too (:func:`shard_adjacency`)
 and samples each hop at the owners (:func:`sharded_sample_neighbors`, routed
@@ -56,15 +75,15 @@ rows are ``d``-wide; the sampled mean layer 0 picks its order by the single
 device's rule over the rank's shard and slots, with the rows the exchange
 moves counted (``GraphSAGE.sampled_layer0_project_first``).
 
-Not ported yet, each raising with the ROADMAP Queue 1 sub-item that brings
-it: ``layer0="full"`` and int8 tables (14e), and a prebuilt loader
-``feature_store`` (item 15).
+Not ported yet, raising with the ROADMAP Queue 1 item that brings it: a
+prebuilt loader ``feature_store`` (item 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,12 +92,14 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from graphsage_torch.data.graph import Graph, with_cached_layer0
 from graphsage_torch.models.graphsage import Frontier, GraphSAGE
-from graphsage_torch.ops.aggregate import gather
+from graphsage_torch.ops.aggregate import gather, segment_max_csr
 from graphsage_torch.ops.gather_mean import gather_mean, gather_mean_int8
-from graphsage_torch.ops.quantize import is_quantized
+from graphsage_torch.ops.quantize import QuantizedTable, gather_dequant, is_quantized
 from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.ops.scatter_mean import scatter_mean
 from graphsage_torch.parallel import collectives
+from graphsage_torch.parallel.halo import _BufferMean, build_node_partition, halo_segment_max
+from graphsage_torch.parallel.halo import halo_spmm_mean
 from graphsage_torch.parallel.distributed import ShardedLoop, slice_frontier
 from graphsage_torch.parallel.mesh import axis_index, axis_size
 from graphsage_torch.train.trainer import Trainer
@@ -94,17 +115,20 @@ def _rows_per_shard(num_nodes: int, num_shards: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class NodeShardedFeatures:
-    """A rank's node range of the ``[N, F]`` table: ``shard [Np, F]``, rows
-    ``[s * Np, (s + 1) * Np)`` on rank ``s``, zero past ``num_nodes``."""
+    """A rank's node range of the ``[N, F]`` table: ``shard [Np, F]`` (a
+    tensor or an int8 ``QuantizedTable``), rows ``[s * Np, (s + 1) * Np)``
+    on rank ``s``, zero past ``num_nodes``."""
 
-    shard: torch.Tensor
+    shard: torch.Tensor | QuantizedTable
     num_shards: int
     rows_per_shard: int
     num_nodes: int
 
     def memory_stats(self) -> dict:
-        """Bytes per rank against a replicated table, as JAX's."""
-        row = int(self.shard.shape[-1]) * self.shard.element_size()
+        """Bytes per rank against a replicated table, as JAX's (an int8 row
+        counts its 4-byte scale)."""
+        row = int(self.shard.shape[-1]) * _itemsize(self.shard.dtype)
+        row += 4 if is_quantized(self.shard) else 0
         return {
             "num_shards": self.num_shards,
             "rows_per_shard": self.rows_per_shard,
@@ -114,23 +138,31 @@ class NodeShardedFeatures:
         }
 
 
-def shard_features(features: torch.Tensor, num_shards: int, index: int,
-                   device=None) -> NodeShardedFeatures:
+def _cut_rows(host: torch.Tensor, rows: int, index: int, fill=0) -> torch.Tensor:
+    """Rows ``[index * rows, (index + 1) * rows)`` of ``host``, padded with
+    ``fill`` past its end."""
+    n = host.shape[0]
+    lo, hi = min(index * rows, n), min((index + 1) * rows, n)
+    shard = torch.full((rows, *host.shape[1:]), fill, dtype=host.dtype)
+    shard[:hi - lo] = host[lo:hi]
+    return shard
+
+
+def shard_features(features, num_shards: int, index: int, device=None) -> NodeShardedFeatures:
     """Rank ``index``'s node range of ``features [N, F]`` on ``device``
     (default: the table's), cut from a host copy: no full-table buffer is
-    made on the device."""
-    if is_quantized(features):
-        raise NotImplementedError(
-            "an int8 node-sharded table is not ported yet (ROADMAP Queue 1 item 14e)")
-    host = features.detach().cpu()
-    n, f = host.shape
+    made on the device. An int8 ``QuantizedTable`` gives one: ``q`` and
+    ``scale`` cut on the same ranges, padding rows of scale 1."""
+    n = features.shape[0]
     rows = _rows_per_shard(n, num_shards)
-    lo, hi = min(index * rows, n), min((index + 1) * rows, n)
-    shard = torch.zeros((rows, f), dtype=host.dtype)
-    shard[:hi - lo] = host[lo:hi]
-    return NodeShardedFeatures(
-        shard=shard.to(features.device if device is None else device),
-        num_shards=num_shards, rows_per_shard=rows, num_nodes=n)
+    dev = features.device if device is None else device
+    if is_quantized(features):
+        shard = QuantizedTable(q=_cut_rows(features.q.cpu(), rows, index).to(dev),
+                               scale=_cut_rows(features.scale.cpu(), rows, index, 1).to(dev))
+    else:
+        shard = _cut_rows(features.detach().cpu(), rows, index).to(dev)
+    return NodeShardedFeatures(shard=shard, num_shards=num_shards, rows_per_shard=rows,
+                               num_nodes=n)
 
 
 # --------------------------------------------------------------------------
@@ -141,7 +173,10 @@ class _OwnerExchange(torch.autograd.Function):
     """``apply(table, idx [B, k], mask [B, k], group, normalize)``: the masked
     sums (or means) ``[B, F]`` f32 of this rank's requests over the
     node-sharded table whose local shard is ``table [Np, F]`` (see the
-    module docstring)."""
+    module docstring). Over an int8 table the owners' sums are kernel 1's
+    int8 route and the reduce-scatter moves them in f32: ``4F`` bytes per
+    seed row, where JAX's ``sharded_row_gather`` moves ``(F + 4) * k``
+    (int8 partial rows and scales for each of the ``k`` slots)."""
 
     @staticmethod
     def forward(ctx, table, idx, mask, group, normalize):
@@ -151,8 +186,8 @@ class _OwnerExchange(torch.autograd.Function):
         local = requests - dist.get_rank(group) * np_
         own = (requests >= 0) & (local >= 0) & (local < np_)
         local = torch.where(own, local, torch.zeros_like(local)).contiguous()
-        if is_quantized(table):  # a frozen int8 table: each slot's mean is its row
-            partial = gather_mean_int8(table.q, table.scale, local, own)
+        if is_quantized(table):  # a frozen int8 table: its sums, no backward
+            partial = gather_mean_int8(table.q, table.scale, local, own, normalize=False)
         else:
             partial = gather_mean(table.detach().contiguous(), local, own, normalize=False)
         sums = collectives.reduce_scatter_rows(partial, group)
@@ -288,7 +323,9 @@ def _compact_lookup(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
     """``(buffer [S * cap + H, F], take [q])``: the answer buffer of this
     rank's requests ``flat_ids`` and, for each request, its row there. With
     ``hub = (lookup [N], rows [H, F])`` hub requests enter the route masked
-    and point at the buffer's last ``H`` rows, a copy of ``rows``."""
+    and point at the buffer's last ``H`` rows, a copy of ``rows``. Over an
+    int8 table (and its int8 hub rows) the buffer is a ``QuantizedTable``:
+    the ``q`` answers and their scales, routed apart."""
     group = mesh.get_group(axis)
     s, np_ = axis_size(mesh, axis), table_local.shape[0]
     flat = flat_ids.reshape(-1).to(torch.int32)
@@ -301,9 +338,19 @@ def _compact_lookup(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
     req, take, _ = route_buckets(flat, s, np_, capacity, routed)
     recv = collectives.RouteIds.apply(req, group).reshape(-1)
     loc = (recv - dist.get_rank(group) * np_).clamp_(0, np_ - 1)
-    answers = _OwnerRows.apply(table_local, loc, recv >= 0)
-    buffer = collectives.RouteAnswers.apply(answers.view(s, capacity, -1), group,
-                                            None if hub is None else hub_rows)
+
+    def route(answers, tail):
+        return collectives.RouteAnswers.apply(answers.view(s, capacity, -1), group, tail)
+
+    if is_quantized(table_local):
+        rows = loc.long()
+        buffer = QuantizedTable(
+            q=route(table_local.q.index_select(0, rows), None if hub is None else hub_rows.q),
+            scale=route(table_local.scale.index_select(0, rows),
+                        None if hub is None else hub_rows.scale))
+    else:
+        buffer = route(_OwnerRows.apply(table_local, loc, recv >= 0),
+                       None if hub is None else hub_rows)
     if hub is not None:
         take = torch.where(is_hub, s * capacity + hub_rank.long(), take)
     return buffer, take
@@ -313,12 +360,14 @@ def sharded_row_gather_compact(mesh: DeviceMesh, axis: str, table_local: torch.T
                                ids: torch.Tensor, capacity: int,
                                valid_mask: torch.Tensor | None = None,
                                hub=None) -> torch.Tensor:
-    """Rows ``[..., F]`` (the table's dtype) of ``ids`` through the compact
-    exchange (see the module docstring); a masked slot's row is that of the
-    id its slot was spread to, as JAX's. ``capacity`` must cover every
-    bucket; the trainers check it before the call."""
+    """Rows ``[..., F]`` (the table's dtype; f32 for an int8 table, read
+    from the int8 answer buffer) of ``ids`` through the compact exchange
+    (see the module docstring); a masked slot's row is that of the id its
+    slot was spread to, as JAX's. ``capacity`` must cover every bucket; the
+    trainers check it before the call."""
     buffer, take = _compact_lookup(mesh, axis, table_local, ids, valid_mask, capacity, hub)
-    return gather(buffer, take).reshape(*ids.shape, buffer.shape[-1])
+    rows = gather_dequant(buffer, take) if is_quantized(buffer) else gather(buffer, take)
+    return rows.reshape(*ids.shape, buffer.shape[-1])
 
 
 def sharded_gather_mean_compact(mesh: DeviceMesh, axis: str, table_local: torch.Tensor,
@@ -326,10 +375,14 @@ def sharded_gather_mean_compact(mesh: DeviceMesh, axis: str, table_local: torch.
                                 hub=None) -> torch.Tensor:
     """The masked gather-mean ``[B, F]`` f32 of ``idx``/``mask`` through the
     compact exchange: Hopper kernel 1 (mean mode) over the answer buffer, its
-    backward kernel 2 (mean mode) into the buffer's gradient."""
+    backward kernel 2 (mean mode) into the buffer's gradient; kernel 1's
+    int8 route over an int8 answer buffer and its scales."""
     b, k = idx.shape
     buffer, take = _compact_lookup(mesh, axis, table_local, idx, mask, capacity, hub)
-    return gather_mean(buffer, take.to(torch.int32).view(b, k), mask.contiguous())
+    slots = take.to(torch.int32).view(b, k)
+    if is_quantized(buffer):
+        return gather_mean_int8(buffer.q, buffer.scale, slots, mask.contiguous())
+    return gather_mean(buffer, slots, mask.contiguous())
 
 
 def make_sharded_gather_fns(mesh: DeviceMesh, axis: str, mode: str = "dense",
@@ -422,17 +475,23 @@ def sharded_comm_stats(
     feature_dtype=torch.float32,
     slack: float = 1.5,
     fully_sharded: bool = False,
+    num_nodes: int | None = None,
+    layer0_partition=None,
+    quantized: bool = False,
 ) -> dict:
     """Bytes each rank sends per step in the sharded trainers' exchanges,
     from the shapes alone, JAX's numbers: the dense and compact feature
     gathers per call site and, with ``fully_sharded``, the sampling hops
     (ids out, sampled ids and masks back). The exchanged rows are
     ``hidden_dims[0]``-wide f32 when a mean layer 0 projects first by the
-    JAX package's rule for injected gathers over a dense table (wider in
-    than out, or ``project_first=True``; this port's trainers decide per
-    batch, by :meth:`GraphSAGE.sampled_layer0_project_first`). JAX's
-    ``quantized``, ``num_nodes`` and ``layer0_partition`` (int8 tables,
-    ``layer0="full"``, the halo plan) come with ROADMAP items 14d and 14e."""
+    JAX package's rule for injected gathers
+    (:meth:`GraphSAGE.injected_layer0_project_first`; this port's trainers
+    decide per batch, by :meth:`GraphSAGE.sampled_layer0_project_first`),
+    ``F + 4`` bytes for a ``quantized`` (int8) table's rows. With
+    ``layer0="full"`` and ``num_nodes`` the layer-0 table build's all-gather
+    is counted too, and the halo plan's boundary rows given
+    ``layer0_partition`` (a :class:`~graphsage_torch.parallel.halo.
+    NodePartition` of ``bounds="equal_nodes"``)."""
     if batch_size % num_shards:
         raise ValueError("batch_size must be divisible by num_shards")
     s = num_shards
@@ -441,8 +500,12 @@ def sharded_comm_stats(
                   masks=tuple(torch.ones(n, dtype=torch.bool) for n in sizes))
     if model.layer0 == "full":
         row_bytes = model.hidden_dims[0] * _itemsize(model.compute_dtype or feature_dtype)
-    elif model.layer0 != "cached" and model.use_project_first(0, model.in_dim):
+    elif model.layer0 == "cached":
+        row_bytes = model.in_dim + 4 if quantized else model.in_dim * _itemsize(feature_dtype)
+    elif model.injected_layer0_project_first(quantized):
         row_bytes = model.hidden_dims[0] * 4
+    elif quantized:
+        row_bytes = model.in_dim + 4
     else:
         row_bytes = model.in_dim * _itemsize(feature_dtype)
     dense = compact = 0
@@ -464,6 +527,17 @@ def sharded_comm_stats(
         "gather_compact_vs_dense": dense / max(compact, 1),
         "sites": site_detail,
     }
+    if model.layer0 == "full" and num_nodes is not None:
+        # The table build all-gathers every rank's [Np, d] rows once a step
+        # (the backward's reduce-scatter moves as much again).
+        np_ = _rows_per_shard(num_nodes, s)
+        d_proj = (model.hidden_dims[0] if model.use_project_first(0, model.in_dim)
+                  else model.in_dim)
+        itemsize = _itemsize(model.compute_dtype or feature_dtype)
+        out["layer0_allgather_bytes_per_chip_step"] = (s - 1) * np_ * d_proj * itemsize
+        if layer0_partition is not None:
+            rows = layer0_partition.comm_stats()["rows_exchanged_per_shard"]
+            out["layer0_halo_bytes_per_chip_step"] = rows * d_proj * itemsize
     if fully_sharded:
         samp = 0
         hop_detail = []
@@ -496,13 +570,14 @@ def hub_request_fraction(degrees: torch.Tensor, num_hub_rows: int) -> float:
     return float(top.sum() / total)
 
 
-def build_hub_cache(features: torch.Tensor, degrees: torch.Tensor, num_hub_rows: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+def build_hub_cache(features, degrees: torch.Tensor, num_hub_rows: int):
     """``(lookup [N] int32, rows [H, F])``: the ``num_hub_rows``
-    highest-degree nodes (a stable sort, ties by id) of a frozen dense
-    table, ``lookup`` each node's hub rank or -1, ``rows`` their rows, on
-    the table's device. Exact for ever: the table is frozen. (JAX's also
-    takes an int8 table, as the int8 sharded store does: item 14e.)"""
+    highest-degree nodes (a stable sort, ties by id) of a frozen table,
+    ``lookup`` each node's hub rank or -1, ``rows`` their rows, on the
+    table's device. Exact for ever: the table is frozen. Over an int8
+    ``QuantizedTable`` the rows stay int8, a ``QuantizedTable`` of their
+    ``q`` rows and scales that rides at the tail of the int8 answer buffer;
+    dequantized they are bitwise JAX's f32 ``q * scale`` rows."""
     deg = degrees.cpu().numpy()
     n = deg.shape[0]
     h = int(num_hub_rows)
@@ -511,8 +586,156 @@ def build_hub_cache(features: torch.Tensor, degrees: torch.Tensor, num_hub_rows:
     top = np.argsort(-deg, kind="stable")[:h].astype(np.int32)
     lookup = np.full(n, -1, np.int32)
     lookup[top] = np.arange(h, dtype=np.int32)
-    rows = features[torch.from_numpy(top.astype(np.int64)).to(features.device)]
-    return torch.from_numpy(lookup).to(features.device), rows.contiguous()
+    pick = torch.from_numpy(top.astype(np.int64)).to(features.device)
+    if is_quantized(features):
+        rows = QuantizedTable(q=features.q[pick].contiguous(),
+                              scale=features.scale[pick].contiguous())
+    else:
+        rows = features[pick].contiguous()
+    return torch.from_numpy(lookup).to(features.device), rows
+
+
+# --------------------------------------------------------------------------
+# The layer-0 table of layer0="full" over the node-sharded store
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardEdgeSlices:
+    """A rank's COO edge slice for the sharded layer-0 table: the edges whose
+    source (the aggregating node) lies in its node range, ``edge_src [Em]``
+    local rows, ``edge_dst [Em]`` global neighbour ids (rows of the
+    all-gathered buffer), ``edge_mask [Em]`` and the true ``degrees [Np]``
+    of its rows; ``Em`` is the largest range's edge count rounded up to
+    128."""
+
+    edge_src: torch.Tensor
+    edge_dst: torch.Tensor
+    edge_mask: torch.Tensor
+    degrees: torch.Tensor
+    num_shards: int
+    rows_per_shard: int
+
+
+def shard_edge_slices(graph: Graph, num_shards: int, index: int,
+                      device=None) -> ShardEdgeSlices:
+    """Rank ``index``'s slice of ``graph``'s CSR edges (the ownership rule of
+    :func:`shard_features`), cut on the host and placed on ``device``
+    (default: the graph's): JAX's ``shard_edge_slices(...)`` at ``index``."""
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    edge_dst = graph.edge_dst.cpu().numpy()
+    edge_mask = graph.edge_mask.cpu().numpy()
+    deg = graph.degrees.cpu().numpy()
+    n = graph.num_nodes
+    rows = _rows_per_shard(n, num_shards)
+    e_max = _round_up(max([1] + [int(indptr[min(s * rows + rows, n)] - indptr[min(s * rows, n)])
+                                 for s in range(num_shards)]), 128)
+    lo, hi = min(index * rows, n), min(index * rows + rows, n)
+    e = int(indptr[hi] - indptr[lo])
+    src = np.zeros(e_max, np.int32)
+    dst = np.zeros(e_max, np.int32)
+    msk = np.zeros(e_max, bool)
+    deg_s = np.zeros(rows, np.int32)
+    deg_s[:hi - lo] = deg[lo:hi]
+    src[:e] = np.repeat(np.arange(hi - lo), np.diff(indptr[lo:hi + 1]))
+    dst[:e] = edge_dst[indptr[lo]:indptr[hi]]
+    msk[:e] = edge_mask[indptr[lo]:indptr[hi]]
+    dev = graph.device if device is None else device
+    place = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return ShardEdgeSlices(edge_src=place(src), edge_dst=place(dst), edge_mask=place(msk),
+                           degrees=place(deg_s), num_shards=num_shards, rows_per_shard=rows)
+
+
+def local_edges_from_adjacency(indptr_local: torch.Tensor, edge_dst_local: torch.Tensor,
+                               rows_per_shard: int
+                               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(e_src, e_dst, e_mask)``, the COO slice of a :class:`ShardedAdjacency`
+    shard's local CSR (``e_src`` local rows, ``e_dst`` its ``edge_dst``
+    itself, global ids), as JAX's: derived, not a second copy of the
+    edges."""
+    pos = torch.arange(edge_dst_local.shape[0], dtype=indptr_local.dtype,
+                       device=indptr_local.device)
+    e_src = (torch.searchsorted(indptr_local, pos, right=True) - 1).clamp(
+        0, rows_per_shard - 1).to(torch.int32)
+    return e_src, edge_dst_local, pos < indptr_local[rows_per_shard]
+
+
+class LocalCSR(NamedTuple):
+    """A rank's edges as kernel 3 reads them over an exchanged buffer (the
+    fields ``halo._BufferMean`` reads of a halo shard): ``indptr [Np + 1]``
+    over ``cols`` (each edge's buffer row, by local row), the transpose
+    ``t_indptr [width + 1]`` over ``t_cols`` (each edge's local row, by
+    buffer row) for the backward, and ``count [Np]`` f32, the rows' edge
+    counts."""
+
+    indptr: torch.Tensor
+    cols: torch.Tensor
+    t_indptr: torch.Tensor
+    t_cols: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self)
+
+
+def local_csr(indptr: np.ndarray, cols: np.ndarray, width: int, device) -> LocalCSR:
+    """The :class:`LocalCSR` of a host CSR ``indptr [R + 1]`` over ``cols``
+    (read up to ``indptr[R]``) into a ``width``-row buffer, on ``device``."""
+    indptr = np.asarray(indptr, np.int64)
+    cols = np.asarray(cols[:int(indptr[-1])], np.int64)
+    rows = np.repeat(np.arange(indptr.shape[0] - 1), np.diff(indptr))
+    by_col = np.argsort(cols, kind="stable")
+    t_indptr = np.concatenate([[0], np.cumsum(np.bincount(cols, minlength=width))])
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return LocalCSR(indptr=put(indptr, torch.int32), cols=put(cols, torch.int32),
+                    t_indptr=put(t_indptr, torch.int32), t_cols=put(rows[by_col], torch.int32),
+                    count=put(np.diff(indptr), torch.float32))
+
+
+def slices_csr(slices: ShardEdgeSlices, device) -> LocalCSR:
+    """The :class:`LocalCSR` of an edge slice's valid edges, into the
+    ``[S * Np]``-row all-gathered buffer."""
+    mask = slices.edge_mask.cpu().numpy()
+    src = slices.edge_src.cpu().numpy()[mask]
+    dst = slices.edge_dst.cpu().numpy()[mask]
+    order = np.argsort(src, kind="stable")
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(src, minlength=slices.rows_per_shard))])
+    return local_csr(indptr, dst[order], slices.num_shards * slices.rows_per_shard, device)
+
+
+def make_sharded_spmm(mesh: DeviceMesh, axis: str, csr: LocalCSR):
+    """The ``spmm`` closure of :meth:`GraphSAGE.layer0_full_table` over the
+    node-sharded store: every rank's (projected) ``[Np, d]`` rows
+    all-gathered into the ``[S * Np, d]`` buffer (backward: the sum
+    reduce-scatter), then Hopper kernel 3 over the rank's CSR, the guarded
+    mean, and over the transposed CSR on ``g / max(deg, 1)`` (rounded to the
+    buffer's dtype) in the backward (``halo._BufferMean``). Returns ``(mean
+    [Np, d], count [Np])``."""
+    group = mesh.get_group(axis)
+
+    def spmm(x_local):
+        buf = collectives.AllGatherRows.apply(x_local, group)
+        return _BufferMean.apply(buf, csr), csr.count
+
+    return spmm
+
+
+def make_sharded_segmax(mesh: DeviceMesh, axis: str, edge_src: torch.Tensor,
+                        edge_dst: torch.Tensor, edge_mask: torch.Tensor, rows_per_shard: int):
+    """The max-pool counterpart of :func:`make_sharded_spmm` (the ``segmax``
+    closure): the pooled ``[Np, pd]`` rows all-gathered, then the guarded
+    segment max of the rank's edge slice (a PyTorch op, as on one
+    device)."""
+    group = mesh.get_group(axis)
+
+    def segmax(pooled_local):
+        buf = collectives.AllGatherRows.apply(pooled_local, group)
+        return segment_max_csr(gather(buf, edge_dst), edge_src, edge_mask, rows_per_shard)
+
+    return segmax
 
 
 # --------------------------------------------------------------------------
@@ -541,6 +764,14 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
     ``hub_cache_rows`` (compact only, frozen tables only) replicates that
     many highest-degree rows (:func:`build_hub_cache`).
 
+    The table may be int8 (a ``QuantizedTable``; a cached model's cache is
+    then built int8 too). ``layer0="full"`` builds the rank's ``[Np, d0]``
+    slice of the layer-0 table every step (see the module docstring):
+    ``layer0_exchange="allgather"`` moves every rank's projected rows,
+    ``"halo"`` only the boundary rows, through the halo plan of
+    ``build_node_partition(graph, S, bounds="equal_nodes",
+    **layer0_halo_kwargs)`` (``sizing``, ``hub_threshold``, ``halo_chunks``).
+
     Pass the graph on the CPU: the device then holds the adjacency, the
     labels and this rank's ``Np`` rows (a graph on the device works too, but
     its table stays where the caller keeps it). Evaluation with
@@ -552,23 +783,33 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
     # Overflow retry ladder: capacity_slack * 2**i for i < _SLACK_RETRIES.
     _SLACK_RETRIES = 4
 
+    # FullyShardedTrainer reads layer 0's edges off its sharded adjacency.
+    _layer0_edges_from_adjacency = False
+
     def __init__(self, model: GraphSAGE, graph: Graph, config, mesh: DeviceMesh,
                  axis: str = "data", gather_mode: str = "dense",
-                 capacity_slack: float = 1.5, feature_store=None,
+                 capacity_slack: float = 1.5, layer0_exchange: str = "allgather",
+                 layer0_halo_kwargs: dict | None = None, feature_store=None,
                  hub_cache_rows: int = 0):
         if gather_mode not in ("dense", "compact"):
             raise ValueError(f"unknown gather_mode {gather_mode!r}")
-        if model.layer0 == "full":
-            raise NotImplementedError(
-                "layer0='full' under the node-sharded store is not ported yet "
-                "(ROADMAP Queue 1 item 14e)")
+        if layer0_exchange not in ("allgather", "halo"):
+            raise ValueError(f"unknown layer0_exchange {layer0_exchange!r}")
+        if layer0_exchange == "halo" and self._layer0_edges_from_adjacency:
+            raise ValueError(
+                "layer0_exchange='halo' is ShardedFeatureTrainer-only: the "
+                "halo plan is a second edge copy, which FullyShardedTrainer "
+                "exists to avoid (it derives layer-0 edges from its sharded "
+                "adjacency)")
         if feature_store is not None:
             raise NotImplementedError(
                 "a prebuilt feature_store (shard_features_from_loader) is not "
                 "ported yet (ROADMAP Queue 1 item 15)")
+        self.layer0_exchange = layer0_exchange
+        self.layer0_halo_kwargs = dict(layer0_halo_kwargs or {})
         self.hub_cache_rows = int(hub_cache_rows)
         if self.hub_cache_rows:
-            _check_hub_cache(model, gather_mode)
+            _check_hub_cache(model, gather_mode, graph)
         self.mesh, self.axis = mesh, axis
         self.gather_mode = gather_mode
         self.capacity_slack = capacity_slack
@@ -587,14 +828,13 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
         and return the device graph without them: the adjacency and the
         labels, with a one-row placeholder table. A cache the graph lacks is
         built on the model's device (Hopper kernel 3 on a card) from a
-        transient copy of the graph, freed once the host copy is made. The
-        hub cache comes from the table the lookups read."""
-        if is_quantized(graph.features):
-            raise NotImplementedError(
-                "ShardedFeatureTrainer over an int8 feature table is not "
-                "ported yet (ROADMAP Queue 1 item 14e)")
+        transient copy of the graph, freed once the host copy is made (int8
+        over an int8 table). The hub cache comes from the table the lookups
+        read; ``layer0="full"``'s edges (:meth:`_layer0_closures`) from the
+        host copy."""
         if model.layer0 == "cached" and graph.layer0_cache is None:
-            graph = with_cached_layer0(graph.to(model.device), self_loop=model.self_loop)
+            graph = with_cached_layer0(graph.to(model.device), self_loop=model.self_loop,
+                                       quantize=is_quantized(graph.features))
         host = graph.to("cpu")
         del graph
         if model.layer0 == "cached":
@@ -609,22 +849,66 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
             table = host.layer0_cache if model.layer0 == "cached" else host.features
             lookup, rows = build_hub_cache(table, host.degrees, self.hub_cache_rows)
             self._hub = (lookup.to(dev), rows.to(dev))
-        return self._device_graph(host, dev)
+        device_graph = self._device_graph(host, dev)
+        self._layer0_edge_bytes, self._layer0_halo = 0, None
+        self._layer0_fns = self._layer0_closures(model, host) if model.layer0 == "full" else None
+        return device_graph
+
+    def _layer0_closures(self, model: GraphSAGE, host: Graph) -> dict:
+        """``layer0="full"``'s ``spmm`` or ``segmax`` closure over this rank's
+        rows (:meth:`GraphSAGE.layer0_full_table`), built once: the halo
+        plan's shard, or the rank's edge slice (as a :class:`LocalCSR` for
+        kernel 3, or as it is for the max-pool layer's segment max). Sets
+        ``_layer0_edge_bytes``, their device bytes."""
+        s, i, dev = self.num_shards, self.shard_index, model.device
+        np_ = self.features.rows_per_shard
+        group = self._group
+        if self.layer0_exchange == "halo":
+            part = build_node_partition(host, s, bounds="equal_nodes",
+                                        **self.layer0_halo_kwargs)
+            if part.nodes_per_shard != np_:
+                raise AssertionError(f"halo plan rows {part.nodes_per_shard} != store rows {np_}")
+            self._layer0_part = part
+            # The store holds the rank's rows: the plan's copy stays on the host.
+            shard = self._layer0_halo = part._replace(h0=part.h0[:, :0]).local(i, dev)
+            self._layer0_edge_bytes = sum(
+                t.numel() * t.element_size() for t in vars(shard).values()
+                if isinstance(t, torch.Tensor))
+            return dict(spmm=lambda x: halo_spmm_mean(shard, x, group),
+                        segmax=lambda p: halo_segment_max(shard, p, group))
+        slices = shard_edge_slices(host, s, i, "cpu")
+        if model.aggregator == "mean":
+            csr = slices_csr(slices, dev)
+            self._layer0_edge_bytes = csr.nbytes
+            return dict(spmm=make_sharded_spmm(self.mesh, self.axis, csr))
+        e_src, e_dst, e_mask = (t.to(dev) for t in (slices.edge_src, slices.edge_dst,
+                                                    slices.edge_mask))
+        self._layer0_edge_bytes = sum(t.numel() * t.element_size() for t in (e_src, e_dst, e_mask))
+        return dict(segmax=make_sharded_segmax(self.mesh, self.axis, e_src, e_dst, e_mask, np_))
 
     def _device_graph(self, host: Graph, device) -> Graph:
         blank = torch.zeros((1, host.num_features), dtype=host.features.dtype)
         return dataclasses.replace(host, features=blank, layer0_cache=None).to(device)
 
     def _injected(self, slack: float | None = None, mode: str | None = None) -> dict:
+        """:meth:`GraphSAGE.forward`'s injected lookups over the store, and
+        its ``layer0_table``: the cache's shard, or ``layer0="full"``'s table
+        slice built here (under autograd when the caller is)."""
         mode = mode or self.gather_mode
         gather_fn, gather_mean_fn = make_sharded_gather_fns(
             self.mesh, self.axis, mode,
             slack=self.capacity_slack if slack is None else slack,
             hub=self._hub if mode == "compact" else None)
-        cache = self._cache_store
-        return dict(gather_fn=gather_fn, gather_mean_fn=gather_mean_fn,
-                    layer0_table=None if cache is None else cache.shard,
-                    exchange_ranks=self.num_shards)
+        shard = self.features.shard
+        if self._layer0_fns is not None:
+            table = self.model.layer0_full_table(shard, None, **self._layer0_fns)
+        else:
+            table = None if self._cache_store is None else self._cache_store.shard
+        # A compact int8 answer row is F + 4 bytes; the dense exchange's 4F.
+        row_bytes = (shard.shape[-1] + 4 if mode == "compact" and is_quantized(shard)
+                     else None)
+        return dict(gather_fn=gather_fn, gather_mean_fn=gather_mean_fn, layer0_table=table,
+                    exchange_ranks=self.num_shards, exchange_row_bytes=row_bytes)
 
     # ------------------------------------------------------------ capacity
     def _local_sites_violated(self, frontier: Frontier, slack: float | None = None,
@@ -741,10 +1025,15 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
             return self.model.predictions(self.model.forward_full_graph(full))[nodes]
         return self.model.predictions(self._sampled_eval(nodes))
 
+    # The memory_stats key of layer0="full"'s edge arrays: the rank's CSR
+    # and its transpose, the halo shard's, or the edge slice.
+    _layer0_edge_key = "layer0_edge_bytes_per_chip"
+
     def memory_stats(self) -> dict:
         """The per-rank layout (JAX's keys) and, on a card, the measured live
         device bytes (``utils.memory.live_device_bytes``): the largest live
-        block below the full table's bytes shows that no rank holds it."""
+        block below the full table's bytes shows that no rank holds it. A
+        ``layer0="full"`` run adds its edge arrays' bytes."""
         hub_bytes = 0 if self._hub is None else sum(t.nbytes for t in self._hub)
         stats = {**self.features.memory_stats(), "hub_cache_rows": self.hub_cache_rows,
                  "hub_cache_bytes_per_chip": hub_bytes}
@@ -753,6 +1042,8 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
             stats["layer0_cache_bytes_per_chip"] = cm["feature_bytes_per_chip"]
             stats["feature_bytes_per_chip"] += cm["feature_bytes_per_chip"]
             stats["feature_bytes_replicated"] += cm["feature_bytes_replicated"]
+        if self._layer0_fns is not None:
+            stats[self._layer0_edge_key] = self._layer0_edge_bytes
         measured = {"total_bytes": None, "largest_buffer_bytes": None,
                     "per_device_bytes": None}
         if self.device.type == "cuda":
@@ -765,13 +1056,25 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
         return stats
 
 
-def _check_hub_cache(model: GraphSAGE, gather_mode: str) -> None:
+def _check_hub_cache(model: GraphSAGE, gather_mode: str, graph: Graph) -> None:
     """JAX's construction checks for ``hub_cache_rows``: the compact mode,
-    and a frozen table behind every lookup the cache would answer."""
+    and a frozen table behind every lookup the cache would answer (JAX's
+    project-first rule for the store's lookups, the bytes rule over an int8
+    table; a dense cache, since hub rows of an int8 cache are not
+    supported)."""
     if gather_mode != "compact":
         raise ValueError(
             "hub_cache_rows only affects the compact exchange "
             "(the dense psum_scatter is exact for any skew)")
+    quantized = is_quantized(graph.features)
+    if model.layer0 == "full" or (model.layer0 != "cached"
+                                  and model.injected_layer0_project_first(quantized)):
+        raise ValueError(
+            "hub_cache_rows requires a frozen gather table: the "
+            "injected project-first and layer0='full' modes gather "
+            "from params-DEPENDENT tables a frozen hub cache "
+            "cannot track (set project_first=False or skip the "
+            "cache)")
     if model.layer0 == "cached":
         if model.concat_self:
             raise ValueError(
@@ -780,13 +1083,13 @@ def _check_hub_cache(model: GraphSAGE, gather_mode: str) -> None:
                 "self-feature gather site that shares the exchange "
                 "closure with the cache-row site — one hub table "
                 "cannot serve both (drop concat_self or the cache)")
-    elif model.use_project_first(0, model.in_dim):
-        raise ValueError(
-            "hub_cache_rows requires a frozen gather table: the "
-            "injected project-first and layer0='full' modes gather "
-            "from params-DEPENDENT tables a frozen hub cache "
-            "cannot track (set project_first=False or skip the "
-            "cache)")
+        cache = graph.layer0_cache
+        if is_quantized(cache) if cache is not None else quantized:
+            raise ValueError(
+                "hub_cache_rows with a QUANTIZED layer0 cache is "
+                "unsupported (hub rows would need their own scale "
+                "plumbing) — build the cache unquantized or skip "
+                "the hub cache")
 
 
 # --------------------------------------------------------------------------
@@ -979,19 +1282,52 @@ class FullyShardedTrainer(ShardedFeatureTrainer):
     draws are laid out by bucket slot, so a retry at another capacity draws
     afresh where sampling is random (as JAX's does). Evaluation is
     distributed too, at ``eval_fanouts`` or the model's (no replicated
-    fallback), with the same retries."""
+    fallback), with the same retries.
+
+    ``layer0="full"`` builds the rank's table slice over its adjacency
+    shard's own CSR (``indptr``/``edge_dst``, global ids into the
+    all-gathered buffer), so the forward holds no second edge copy; the
+    backward's transposed CSR, built once at construction, is the port's
+    one extra edge array (``memory_stats()["layer0_transpose_bytes_per_chip"]``;
+    JAX derives its edges inside the trace). The max-pool layer derives its
+    edge slice per call (:func:`local_edges_from_adjacency`).
+    ``layer0_exchange="halo"`` is refused, as JAX's."""
+
+    _layer0_edges_from_adjacency = True
+    _layer0_edge_key = "layer0_transpose_bytes_per_chip"
 
     def __init__(self, model, graph, config, mesh, axis: str = "data",
-                 capacity_slack: float = 1.5, feature_store=None,
-                 hub_cache_rows: int = 0):
+                 capacity_slack: float = 1.5, layer0_exchange: str = "allgather",
+                 feature_store=None, hub_cache_rows: int = 0):
         if model.sampling == "topk":
             raise ValueError(
                 "FullyShardedTrainer samples through the owner-side CSR "
                 "slice; method='topk' is ELL-only — use 'floyd' (exact) "
                 "or 'windowed'")
         super().__init__(model, graph, config, mesh, axis=axis, gather_mode="compact",
-                         capacity_slack=capacity_slack, feature_store=feature_store,
-                         hub_cache_rows=hub_cache_rows)
+                         capacity_slack=capacity_slack, layer0_exchange=layer0_exchange,
+                         feature_store=feature_store, hub_cache_rows=hub_cache_rows)
+
+    def _layer0_closures(self, model: GraphSAGE, host: Graph) -> dict:
+        """``layer0="full"``'s closure over the adjacency shard (see the class
+        docstring)."""
+        adj, dev = self.adjacency, model.device
+        np_ = adj.rows_per_shard
+        if model.aggregator == "mean":
+            # Only the transpose is new: the forward reads the shard's CSR.
+            csr = local_csr(adj.indptr.cpu().numpy(), adj.edge_dst.cpu().numpy(),
+                            self.num_shards * np_, dev)._replace(indptr=adj.indptr,
+                                                                 cols=adj.edge_dst)
+            self._layer0_edge_bytes = sum(t.numel() * t.element_size()
+                                          for t in (csr.t_indptr, csr.t_cols, csr.count))
+            return dict(spmm=make_sharded_spmm(self.mesh, self.axis, csr))
+
+        def segmax(pooled):
+            e_src, e_dst, e_mask = local_edges_from_adjacency(adj.indptr, adj.edge_dst, np_)
+            return make_sharded_segmax(self.mesh, self.axis, e_src, e_dst, e_mask,
+                                       np_)(pooled)
+
+        return dict(segmax=segmax)
 
     def _device_graph(self, host: Graph, device) -> Graph:
         """Shard the adjacency; the device graph keeps the labels only."""

@@ -405,8 +405,10 @@ def test_fully_sharded_errors(jobs):
     assert errors["topk"] == (
         "ValueError: FullyShardedTrainer samples through the owner-side CSR slice; "
         "method='topk' is ELL-only — use 'floyd' (exact) or 'windowed'")
-    assert errors["layer0_full"].startswith("NotImplementedError: ") and "14e" in errors[
-        "layer0_full"]
+    assert errors["layer0_full"] == (
+        "ValueError: layer0_exchange='halo' is ShardedFeatureTrainer-only: the halo plan "
+        "is a second edge copy, which FullyShardedTrainer exists to avoid (it derives "
+        "layer-0 edges from its sharded adjacency)")
 
 
 # ------------------------------------------------------------ the ladder

@@ -596,6 +596,21 @@ def test_gather_mean_int8_kernel_matches_plain(cuda, n, f, b, k):
     assert torch.equal(got, gm.gather_mean_int8(q, scale, idx, mask))  # fixed order
 
 
+@pytest.mark.parametrize("n,f,b,k", [(1000, 256, 4096, 5), (300, 45, 64, 40)])
+def test_gather_mean_int8_sum_mode_matches_plain(cuda, n, f, b, k):
+    """The int8 route's sum mode (the node-sharded store's owner side over
+    an int8 table): the sums undivided, counted as a sum-mode launch."""
+    q, scale, idx, mask = _int8_case(n, f, b, k, seed=n + 1, dev=cuda)
+    before, before_sum = gm.launches, gm.sum_launches
+    got = gm.gather_mean_int8(q, scale, idx, mask, normalize=False)
+    torch.cuda.synchronize()
+    assert (gm.launches, gm.sum_launches) == (before + 1, before_sum + 1)
+    want = gm.gather_mean_int8_plain(q, scale, idx, mask, normalize=False)
+    torch.testing.assert_close(got, want, **TOL)
+    count = mask.sum(dim=1, keepdim=True).clamp(min=1).float()
+    torch.testing.assert_close(got / count, gm.gather_mean_int8(q, scale, idx, mask), **TOL)
+
+
 def test_gather_mean_int8_rejects_what_the_kernel_does_not_take(cuda):
     q, scale, idx, mask = _int8_case(20, 16, 8, 3, seed=5, dev=cuda)
     with pytest.raises(TypeError):

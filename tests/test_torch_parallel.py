@@ -375,8 +375,9 @@ def test_sharded_trainer_dp_tp_losses_equal_jax_at_covering_fanouts(graphs, job4
                 r"\(the dense psum_scatter is exact for any skew\)"),
     ("hub_cache_rows", "ValueError: hub_cache_rows requires a frozen gather table: the "
                        "injected project-first and layer0='full' modes gather"),
-    ("layer0_full", "NotImplementedError: .*item 14e"),
-    ("int8", "NotImplementedError: .*item 14e"),
+    ("layer0_full", "ValueError: unknown layer0_exchange 'ring'"),
+    ("int8", "ValueError: hub_cache_rows requires a frozen gather table: the "
+             "injected project-first and layer0='full' modes gather"),
     ("feature_store", "NotImplementedError: .*item 15"),
 ])
 def test_feature_trainer_errors(job2, key, match):

@@ -253,7 +253,7 @@ def test_run_cora_quiet(synth_cora_root, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--compilation-cache", "cache"], "not ported"),
-    (["--mode", "sharded", "--layer0", "full"], "Queue 1 item 14"),
+    (["--no-compilation-cache"], "not ported"),
 ])
 def test_cli_rejects_what_is_not_ported(argv, match, synth_cora_root):
     with pytest.raises(NotImplementedError, match=match):
@@ -275,6 +275,21 @@ def test_cli_trains_fully_sharded(synth_cora_root, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("fully-sharded over 1 device(s): ")
     assert [ln.split()[0] for ln in lines[1:3]] == ["0", "1"]
+    assert lines[-2].startswith("Validation F1: ")
+
+
+@pytest.mark.parametrize("argv", [["--layer0", "full"], ["--quantize-features"]])
+def test_cli_trains_sharded_layer0_full_and_int8(synth_cora_root, capsys, argv):
+    """``--mode sharded`` with ``--layer0 full`` (the table built over the
+    rank's rows) or ``--quantize-features`` (an int8 node-sharded store)
+    trains in a world of one."""
+    main(["--preset", "cora", "--data-root", str(synth_cora_root), "--device", "cpu",
+          "--mode", "sharded", "--steps", "2", "--batch-size", "32", "--test-size", "100",
+          "--val-size", "80", *argv])
+    lines = capsys.readouterr().out.splitlines()
+    at = next(i for i, ln in enumerate(lines) if ln.startswith("sharded over 1 device(s): "))
+    losses = [float(ln.split()[1]) for ln in lines[at + 1:-2]]
+    assert losses and np.isfinite(losses).all()
     assert lines[-2].startswith("Validation F1: ")
 
 

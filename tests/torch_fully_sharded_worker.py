@@ -220,7 +220,7 @@ def errors_two(world: int) -> dict:
             mesh)),
         "layer0_full": _error(lambda: FullyShardedTrainer(
             _model(graph, hidden_dims=(8, 8), fanouts=(4, 4), layer0="full"), graph, cfg,
-            mesh)),
+            mesh, layer0_exchange="halo")),
     }
 
 

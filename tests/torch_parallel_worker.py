@@ -219,8 +219,11 @@ def errors_two(world: int, cora_root: str) -> dict:
         "compact": build(hub_cache_rows=8),
         "hub_cache_rows": build(model_kw=dict(hidden_dims=(8, 8)), gather_mode="compact",
                                 hub_cache_rows=8),
-        "layer0_full": build(model_kw=dict(layer0="full")),
-        "int8": build(g=quantize_graph(graph)),
+        # JAX's layer0_exchange check, and its hub_cache_rows check of a
+        # layer0='full' table over an int8 store.
+        "layer0_full": build(model_kw=dict(layer0="full"), layer0_exchange="ring"),
+        "int8": build(model_kw=dict(layer0="full"), g=quantize_graph(graph),
+                      gather_mode="compact", hub_cache_rows=8),
         "feature_store": build(feature_store=object()),
         "run_preset_indivisible": lambda: run_preset(
             "cora", cora_root, log=None, mode="sharded", device="cpu",

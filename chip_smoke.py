@@ -236,7 +236,33 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    ``cora`` over an int8 table (compact) and over its dense twin, 20 steps
    each within ``MODES_TWO_RANK_RTOL`` of one device (``cora`` int8:
    ``MODES_INT8_TWO_RANK_RTOL``).
-17. a ``{"kernels": [...]}`` line (the sum modes, the compact answer-buffer
+17. ingestion: the native loader (built from ``csrc/graph_loader.cpp`` with
+   ``g++`` in phase 2, its build time printed there; the run fails without
+   it): its eager parses of the synthetic Cora and Pubmed files equal the
+   Python engine's bitwise, ``build_csr_native`` equals
+   ``sorted_unique_edges``, and host ms of the Python and native eager
+   parses, the lazy index pass and all rows through each row loader at
+   Pubmed size. In a world of one over NCCL again: lazy ``cora`` and
+   ``pubmed`` (native rows) through ``shard_features_from_loader`` and
+   ``ShardedFeatureTrainer(feature_store=)``, dense and compact, 40 steps
+   each within ``INGEST_RTOL`` of phases 13 and 14's eager runs step for
+   step; ``FullyShardedTrainer(feature_store=)`` at ``cora`` against phase
+   14's and ``pubmed_layer0_full`` from the lazy Pubmed against phase 16's
+   (kernel 3 over the store's slice); the int8 loader store bitwise the
+   eager ``quantize_graph`` store and ``cora`` on each (kernel 1's int8
+   route); host and device ms per step beside the eager runs', the feature
+   bytes per rank and ``max_memory_allocated`` across each store's build;
+   the descriptor guards (``to("cuda")``, ``Trainer``, ``ServingEngine``)
+   and their text; ``pubmed_layer0_cached``'s cache built on the CPU in
+   blocks of ``INGEST_EDGE_BLOCK`` edges against the card's kernel-3 build
+   (``1e-6``), with its host ms and peak traced transient; the port's eight
+   examples, each once with few steps (its last line printed). Every
+   kernel mode of the path (kernel 1 sum and mean, kernel 2 sum and mean,
+   kernel 3) must have launched. Then two ranks of this script
+   (``--ingest-two-rank``) share the card over gloo: each rank's loader is
+   asked for its own rows only, and 20 losses are within ``INGEST_RTOL``
+   of one device.
+18. a ``{"kernels": [...]}`` line (the sum modes, the compact answer-buffer
    mean modes, the halo path's kernels 3 and 2, kernel 3 on the node-sharded
    layer-0 table and kernel 1's int8 route over the compact answer buffer
    as their own entries), then the last line ``{"ok": true, "device":
@@ -280,7 +306,9 @@ from graphsage_torch import (
     load_cora,
     run_preset,
 )
-from graphsage_torch.data.graph import quantize_graph, with_cached_layer0
+from graphsage_torch.data import native
+from graphsage_torch.data.graph import quantize_graph, sorted_unique_edges, with_cached_layer0
+from graphsage_torch.data.loaders import load_cora_lazy, load_pubmed_lazy
 from graphsage_torch.data.synthetic import (
     power_law_graph,
     synth_cora_files,
@@ -309,6 +337,7 @@ from graphsage_torch.parallel.feature_store import (
     request_capacity,
     route_buckets,
     shard_features,
+    shard_features_from_loader,
     sharded_comm_stats,
 )
 from graphsage_torch.parallel import feature_store as fs
@@ -2652,7 +2681,8 @@ def fully_sharded_run(name, root, main_launches, compact_launches) -> dict:
     print(f"   fully sharded {name} memory_stats: {tr.memory_stats()}")
     print(f"   fully sharded {name} sharded_comm_stats at S = 8: "
           f"{sharded_comm_stats(tr.model, cfg.train.batch_size, 8, fully_sharded=True)}")
-    return dict(stats, device_ms=dev, collective_ms=coll, launches=launches)
+    return dict(stats, device_ms=dev, collective_ms=coll, launches=launches,
+                losses=result["losses"])
 
 
 def unsupervised_sharded(root, main_launches, compact_launches) -> None:
@@ -3881,6 +3911,377 @@ def sharded_modes(pg, graphs, roots, results, timings, errs, main_launches,
         modes_two_ranks(roots)
 
 
+# ---------------------------------------------------------- ingestion
+# Phase 17: native and lazy ingestion. The loader-store runs repeat earlier
+# phases' eager runs (same presets, steps and seeds) in this process: the
+# stores are bitwise the eager ones, so the losses differ only by kernel 2's
+# atomic order.
+INGEST_STEPS = 40
+INGEST_RTOL = 1e-6
+INGEST_INT8_STEPS = 20
+INGEST_TWO_RANK_STEPS = 20
+# A small edge block for the CPU cache build: about 22 blocks of the
+# synthetic Pubmed's 88648 edges.
+INGEST_EDGE_BLOCK = 4096
+INGEST_EXAMPLE_STEPS = "10"
+
+
+def host_ms(fn) -> tuple:
+    """``(fn(), its host ms)``."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def native_loader(roots) -> None:
+    """The native eager parses of the synthetic Cora and Pubmed files equal
+    the Python engine's bitwise, ``build_csr_native`` equals
+    ``sorted_unique_edges``; host ms of the five passes at Pubmed size."""
+    from graphsage_torch.data import loaders
+
+    parse = {"cora": (loaders.parse_cora, native.parse_cora_native),
+             "pubmed": (loaders.parse_pubmed, native.parse_pubmed_native)}
+    for name, (py_parse, nat_parse) in parse.items():
+        py, py_ms = host_ms(lambda: py_parse(roots[name]))
+        nat, nat_ms = host_ms(lambda: nat_parse(roots[name]))
+        for field in ("features", "labels", "edges"):
+            a, b = getattr(py, field), getattr(nat, field)
+            if not (a.dtype == b.dtype and np.array_equal(a, b)):
+                raise AssertionError(f"{name}: the native parse's {field} differ")
+        if py.num_classes != nat.num_classes:
+            raise AssertionError(f"{name}: num_classes {py.num_classes} != {nat.num_classes}")
+        n = py.features.shape[0]
+        (indptr, indices), csr_ms = host_ms(lambda: native.build_csr_native(n, py.edges))
+        e, py_csr_ms = host_ms(lambda: sorted_unique_edges(n, py.edges))
+        if not (np.array_equal(np.repeat(np.arange(n), np.diff(indptr)), e[:, 0])
+                and np.array_equal(indices, e[:, 1])):
+            raise AssertionError(f"{name}: build_csr_native != sorted_unique_edges")
+        print(f"   {name}: native parse == Python parse bitwise ({py.features.shape}, "
+              f"{len(py.edges)} edges); build_csr_native == sorted_unique_edges "
+              f"({len(indices)} entries); host ms: Python parse {py_ms:.1f}, native "
+              f"{nat_ms:.1f}; CSR native {csr_ms:.1f}, numpy {py_csr_ms:.1f}")
+    full = py.features  # Pubmed's
+    n = full.shape[0]
+    (_, py_rows), _ = host_ms(lambda: load_pubmed_lazy(roots["pubmed"], engine="python"))
+    (lazy, nat_rows), index_ms = host_ms(lambda: load_pubmed_lazy(roots["pubmed"],
+                                                                  engine="native"))
+    rows_py, rows_py_ms = host_ms(lambda: py_rows(0, n))
+    rows_nat, rows_nat_ms = host_ms(lambda: nat_rows(0, n))
+    if not (np.array_equal(rows_py, full) and np.array_equal(rows_nat, full)):
+        raise AssertionError("pubmed: a row loader's rows differ from the eager parse's")
+    if lazy.features.stride(0) != 0:
+        raise AssertionError(f"the lazy graph's features have strides {lazy.features.stride()}")
+    print(f"   pubmed host ms: Python eager parse {py_ms:.1f}, native eager parse "
+          f"{nat_ms:.1f}, lazy index pass (with build_graph) {index_ms:.1f}, all {n} rows "
+          f"through the Python row_loader {rows_py_ms:.1f}, through the native one "
+          f"{rows_nat_ms:.1f} (both equal to the eager table bitwise)")
+
+
+def loader_store(lazy, rows, quantize=False) -> tuple:
+    """The world of one's store from ``rows`` on the card, its host ms and
+    the allocator's peak across its build (above what was allocated
+    before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    store, ms = host_ms(lambda: shard_features_from_loader(
+        rows, lazy.num_nodes, lazy.num_features, 1, 0, quantize=quantize))
+    torch.cuda.synchronize()
+    return store, ms, torch.cuda.max_memory_allocated() - base
+
+
+def ingest_run(label, make, eager, main_launches, ingest_launches, expect) -> dict:
+    """``make()``'s run counted (:func:`counted_run`), its launches held to
+    ``expect(trainer)``, its losses to ``eager``'s within ``INGEST_RTOL``
+    step for step, the learning bar; prints host and device ms per step
+    beside the eager run's."""
+    tr, res, launches = counted_run(make, main_launches)
+    want = expect(tr)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    for kernel, count in launches.items():
+        ingest_launches[kernel] += count
+    np.testing.assert_allclose(res["losses"], eager["losses"], rtol=INGEST_RTOL,
+                               err_msg=f"{label} != the eager store's run")
+    stats = check_learning(label, res)
+    print(f"   {label}: {len(res['losses'])} losses within "
+          f"{relative_gap(res['losses'], eager['losses']):.3g} (relative) of the eager "
+          f"store's; per step host ms {stats['host_ms_per_step']:.3f} (eager "
+          f"{eager['host_ms_per_step']:.3f}), device ms {stats['device_ms_per_step']:.4f} "
+          f"(eager {eager['device_ms_per_step']:.4f}); launches {launches}")
+    return dict(stats, losses=res["losses"], trainer=tr)
+
+
+def lazy_sharded_runs(roots, results, main_launches, ingest_launches) -> dict:
+    """Lazy ``cora`` and ``pubmed`` (native row loader) through
+    ``ShardedFeatureTrainer(feature_store=)`` in the world of one, dense and
+    compact, against phases 13 and 14's eager runs; ``FullyShardedTrainer(
+    feature_store=)`` at ``cora`` against phase 14's; ``pubmed_layer0_full``
+    from the lazy Pubmed (kernel 3 over the store's slice) against phase
+    16's. Returns the lazy graphs and stores."""
+    mesh = make_mesh({"data": 1})
+    lazy = {}
+    for name, load in (("cora", load_cora_lazy), ("pubmed", load_pubmed_lazy)):
+        graph, rows = load(roots[name], engine="native")
+        store, ms, peak = loader_store(graph, rows)
+        lazy[name] = (graph, rows, store)
+        print(f"   lazy {name}: {graph}, features stride {graph.features.stride()}; the "
+              f"store's build {ms:.1f} host ms, max_memory_allocated across it {peak} "
+              f"bytes; feature bytes per rank {store.memory_stats()['feature_bytes_per_chip']}")
+        cfg = preset_config(name, {"num_steps": INGEST_STEPS})
+        for mode in ("dense", "compact"):
+            expect = (
+                (lambda tr: sharded_step_launches(tr.model, INGEST_STEPS)) if mode == "dense"
+                else (lambda tr: compact_step_launches(
+                    tr.model, tr.features.rows_per_shard, cfg.train.batch_size,
+                    INGEST_STEPS, 1)))
+            ingest_run(f"lazy {name}, {mode}", lambda: ShardedFeatureTrainer(
+                build_model(cfg, graph, "cuda"), graph, cfg.train, mesh, gather_mode=mode,
+                feature_store=store), results[f"{'sharded' if mode == 'dense' else 'compact'} "
+                                              f"{name}"],
+                main_launches, ingest_launches, expect)
+    graph, _, store = lazy["cora"]
+    cfg = preset_config("cora", {"num_steps": FULLY_STEPS})
+    ingest_run("lazy cora, FullyShardedTrainer", lambda: FullyShardedTrainer(
+        build_model(cfg, graph, "cuda"), graph, cfg.train, mesh, feature_store=store),
+        results["fully sharded cora"], main_launches, ingest_launches,
+        lambda tr: compact_step_launches(tr.model, tr.features.rows_per_shard,
+                                         cfg.train.batch_size, FULLY_STEPS, 1))
+    graph, _, store = lazy["pubmed"]
+    cfg = preset_config("pubmed_layer0_full", {"num_steps": MODES_STEPS})
+    ingest_run("lazy pubmed_layer0_full, allgather, dense gathers",
+               lambda: ShardedFeatureTrainer(build_model(cfg, graph, "cuda"), graph,
+                                             cfg.train, mesh, feature_store=store),
+               results["modes pubmed_layer0_full, allgather, dense gathers"], main_launches,
+               ingest_launches, lambda tr: full_sharded_launches(tr, MODES_STEPS))
+    return lazy
+
+
+def lazy_int8(roots, lazy, main_launches, ingest_launches) -> None:
+    """``quantize=True``: the loader store bitwise the eager
+    ``quantize_graph`` store; ``cora`` (dense, aggregating first, so that
+    the owner sums int8 rows: projected first, it would gather f32 rows of
+    the projected table) on each for ``INGEST_INT8_STEPS`` steps, within
+    ``INGEST_RTOL``, through kernel 1's int8 route."""
+    graph, rows, _ = lazy["cora"]
+    store, ms, peak = loader_store(graph, rows, quantize=True)
+    qhost = quantize_graph(load_dataset("cora", roots["cora"], "cpu"))
+    eager = shard_features(qhost.features, 1, 0, store.shard.device)
+    if not (torch.equal(store.shard.q, eager.shard.q)
+            and torch.equal(store.shard.scale, eager.shard.scale)):
+        raise AssertionError("the int8 loader store != the eager quantize_graph store")
+    mesh = make_mesh({"data": 1})
+    cfg = preset_config("cora", {"num_steps": INGEST_INT8_STEPS, "project_first": False})
+    _, eager_res, eager_launches = counted_run(lambda: ShardedFeatureTrainer(
+        build_model(cfg, qhost, "cuda"), qhost, cfg.train, mesh), main_launches)
+    eager_res.update(check_learning("eager cora int8", eager_res))
+    run = ingest_run("lazy cora int8, dense", lambda: ShardedFeatureTrainer(
+        build_model(cfg, graph, "cuda"), graph, cfg.train, mesh, feature_store=store),
+        eager_res, main_launches, ingest_launches, lambda tr: eager_launches)
+    check_bf16_instances(run["trainer"], "gather_mean_kernel<signed char")
+    print(f"   int8 loader store == the eager quantize_graph store bitwise (q and scales); "
+          f"its build {ms:.1f} host ms, max_memory_allocated across it {peak} bytes; "
+          f"feature bytes per rank {store.memory_stats()['feature_bytes_per_chip']}")
+
+
+def descriptor_guards(lazy) -> None:
+    """A lazy graph refuses the card, ``Trainer`` and ``ServingEngine``,
+    naming the loader store and ``feature_store=``."""
+    graph = lazy["cora"][0]
+    cfg = preset_config("cora")
+    model = build_model(cfg, graph, "cuda")
+    for what, fn in (("lazy_graph.to('cuda')", lambda: graph.to("cuda")),
+                     ("Trainer(lazy_graph)", lambda: Trainer(model, graph, cfg.train)),
+                     ("ServingEngine(lazy_graph)", lambda: ServingEngine(model, graph))):
+        try:
+            fn()
+        except ValueError as e:
+            text = str(e)
+            if not ("LAZY descriptor" in text and "shard_features_from_loader" in text
+                    and "feature_store=" in text):
+                raise AssertionError(f"{what} raised another error: {text}") from e
+            print(f"   {what} raises: {text[:96]}...")
+        else:
+            raise AssertionError(f"{what} did not raise")
+
+
+def edge_blocks(indptr: np.ndarray, edge_block: int) -> int:
+    """The number of node-range blocks of the blocked CPU cache build."""
+    n, r0, blocks = len(indptr) - 1, 0, 0
+    while r0 < n:
+        r1 = int(np.searchsorted(indptr, indptr[r0] + edge_block, side="right")) - 1
+        r0, blocks = max(min(r1, n), r0 + 1), blocks + 1
+    return blocks
+
+
+def cache_builds(roots, main_launches, ingest_launches, errs) -> None:
+    """``pubmed_layer0_cached``'s cache built on the CPU in blocks of
+    ``INGEST_EDGE_BLOCK`` edges against the card's kernel-3 build, within
+    ``1e-6``; the CPU build's host ms and peak traced host allocation."""
+    import tracemalloc
+
+    self_loop = preset_config("pubmed_layer0_cached").model.self_loop
+    host = load_dataset("pubmed", roots["pubmed"], "cpu")
+    indptr = host.indptr.numpy().astype(np.int64)
+    f = host.num_features
+    tracemalloc.start()
+    cpu, blocked_ms = host_ms(lambda: with_cached_layer0(host, self_loop=self_loop,
+                                                         edge_block=INGEST_EDGE_BLOCK))
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    _, one_block_ms = host_ms(lambda: with_cached_layer0(host, self_loop=self_loop))
+    dev = host.to("cuda")
+    reset_launches()
+    card = with_cached_layer0(dev, self_loop=self_loop)
+    launches = read_launches()
+    if launches["spmm_mean"] != 1:
+        raise AssertionError(f"the card's cache build: launches {launches}")
+    for kernel, count in launches.items():
+        main_launches[kernel] += count
+        ingest_launches[kernel] += count
+    e = max_err(card.layer0_cache, cpu.layer0_cache.to(dev.device), "blocked CPU cache build",
+                tol=dict(rtol=1e-6, atol=1e-6))
+    errs["spmm_mean"] = max(errs["spmm_mean"], e)
+    out_bytes = host.num_nodes * f * 4
+    print(f"   pubmed_layer0_cached cache (self_loop={self_loop}): the CPU build in "
+          f"{edge_blocks(indptr, INGEST_EDGE_BLOCK)} blocks of at most {INGEST_EDGE_BLOCK} "
+          f"edges equals the card's kernel-3 build (max_abs_err {e:.3g}); CPU host ms "
+          f"{blocked_ms:.1f} (one block: {one_block_ms:.1f}); peak traced host allocation "
+          f"{peak} bytes, of it the [N, F] f32 result {out_bytes}: transient "
+          f"{peak - out_bytes} bytes, against {host.num_edges * f * 4} for one row per edge")
+
+
+def ingest_two_rank_rank(rank: int, port: int, root: str, out: str) -> None:
+    """One of two ranks sharing the card over gloo: lazy ``cora`` (native
+    rows), the store from a loader that records its calls,
+    ``ShardedFeatureTrainer(feature_store=)`` for ``INGEST_TWO_RANK_STEPS``
+    steps. Writes the calls, losses and launches to ``out`` as JSON."""
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         rank=rank, world_size=2)
+    multihost.initialize()
+    graph, rows = load_cora_lazy(root, engine="native")
+    calls = []
+
+    def loader(lo, hi):
+        calls.append((lo, hi))
+        return rows(lo, hi)
+
+    store = shard_features_from_loader(loader, graph.num_nodes, graph.num_features, 2, rank)
+    cfg = preset_config("cora", {"num_steps": INGEST_TWO_RANK_STEPS})
+    reset_launches()
+    tr = ShardedFeatureTrainer(build_model(cfg, graph, "cuda"), graph, cfg.train,
+                               make_mesh({"data": 2}), feature_store=store)
+    res = tr.run(log=None)
+    with open(out, "w") as fh:
+        json.dump(dict(calls=calls, losses=res["losses"], launches=read_launches(),
+                       host_ms=res["mean_step_time"] * 1e3,
+                       feature_bytes=tr.memory_stats()["feature_bytes_per_chip"]), fh)
+    torch.distributed.destroy_process_group()
+
+
+def ingest_two_ranks(root, results) -> None:
+    """Each rank's loader is asked for its own rows and nothing else; the
+    losses within ``INGEST_RTOL`` of the single-device run (phase 13's, from
+    the same seed)."""
+    port = free_port()
+    os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
+    outs = [os.path.join(REPO, "build", "chip_smoke", f"ingest_rank_{r}.json") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ingest-two-rank",
+                               str(r), str(port), root, outs[r]], cwd=REPO) for r in (0, 1)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if rcs != [0, 0]:
+        raise AssertionError(f"ingestion, two ranks on one card: exit codes {rcs}")
+    recs = []
+    for out in outs:
+        with open(out) as fh:
+            recs.append(json.load(fh))
+    want = results["sharded cora"]["single_losses"][:INGEST_TWO_RANK_STEPS]
+    n = 2708
+    np_ = fs._rows_per_shard(n, 2)
+    for r, rec in enumerate(recs):
+        if [tuple(c) for c in rec["calls"]] != [(r * np_, min((r + 1) * np_, n))]:
+            raise AssertionError(f"rank {r}'s loader was asked for {rec['calls']}")
+        np.testing.assert_allclose(rec["losses"], want, rtol=INGEST_RTOL,
+                                   err_msg=f"rank {r} != the single-device run")
+        if rec["launches"]["gather_mean_sum"] == 0:
+            raise AssertionError(f"rank {r}: no owner-side launch: {rec['launches']}")
+    print(f"   two ranks over gloo, lazy cora: loader calls per rank "
+          f"{[r['calls'] for r in recs]} (rows per rank {np_}); {INGEST_TWO_RANK_STEPS} "
+          f"losses {want[0]:.4f} -> {want[-1]:.4f} within "
+          f"{max(relative_gap(r['losses'], want) for r in recs):.3g} (relative) of one "
+          f"device; host ms per step {[round(r['host_ms'], 3) for r in recs]}; feature "
+          f"bytes per rank {[r['feature_bytes'] for r in recs]}; launches per rank "
+          f"{[r['launches'] for r in recs]}")
+
+
+EXAMPLES = ("01_train_cora", "02_unsupervised", "03_distributed", "04_serving",
+            "05_pod_ingestion", "06_inductive", "07_skew_and_samplers", "08_layer0_modes")
+
+
+def run_examples(roots) -> None:
+    """Each of the port's eight examples once on the card, in this process,
+    with ``INGEST_EXAMPLE_STEPS`` steps (Cora from the synthetic files):
+    its host seconds and its last line."""
+    import importlib
+
+    for name in EXAMPLES:
+        module = importlib.import_module(f"graphsage_torch.examples.{name}")
+        argv = ["--steps", INGEST_EXAMPLE_STEPS]
+        if name in ("01_train_cora", "02_unsupervised", "04_serving", "05_pod_ingestion"):
+            argv += ["--data-root", roots["cora"]]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, ms = host_ms(lambda: module.main(argv))
+        lines = buf.getvalue().strip().splitlines()
+        if not lines:
+            raise AssertionError(f"example {name} printed nothing")
+        print(f"   example {name} ({ms / 1e3:.1f} s): {lines[-1]}")
+
+
+def ingestion(roots, results, errs, main_launches, loader_build_ms) -> None:
+    """Phase 17 (see the module docstring)."""
+    import torch.distributed as dist
+
+    ingest_launches = {name: 0 for name in KERNELS}
+    with phase("ingestion: the native loader"):
+        print(f"   {native.library_path()} built in {loader_build_ms:.0f} ms (phase 2)")
+        native_loader(roots)
+    with phase("ingestion: a world of one over NCCL"):
+        multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+    with phase("ingestion: lazy cora and pubmed through feature_store="):
+        lazy = lazy_sharded_runs(roots, results, main_launches, ingest_launches)
+    with phase("ingestion: the int8 loader store"):
+        lazy_int8(roots, lazy, main_launches, ingest_launches)
+    with phase("ingestion: the descriptor guards"):
+        descriptor_guards(lazy)
+    with phase("ingestion: the layer-0 cache, blocked on the CPU and kernel 3"):
+        cache_builds(roots, main_launches, ingest_launches, errs)
+    with phase("ingestion: the port's examples on the card"):
+        run_examples(roots)
+    # The path's kernels and modes: kernel 1's sum mode (dense owner side)
+    # and mean mode (compact answer buffer), kernel 2's sum mode (owner
+    # backward) and mean mode (answer-buffer gradient), kernel 3 (the
+    # layer0="full" slice, the card's cache build).
+    modes = {**ingest_launches, **mean_mode(ingest_launches)}
+    missing = [k for k in ("gather_mean_sum", "gather_mean_compact", "scatter_mean_sum",
+                           "scatter_mean_compact", "spmm_mean") if not modes[k]]
+    if missing:
+        raise AssertionError(f"ingestion: no launch of {missing}: {modes}")
+    print(f"   ingestion path launches: {ingest_launches}, mean modes "
+          f"{mean_mode(ingest_launches)}")
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    with phase("ingestion: two ranks on one card over gloo"):
+        ingest_two_ranks(roots["cora"], results)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3900,6 +4301,10 @@ def main() -> int:
         for line in _build.build_log().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("   " + line.strip())
+        lib, loader_build_ms = host_ms(native.load_library)
+        if lib is None:
+            raise AssertionError(f"the native loader did not build: {native.build_error}")
+        print(f"   native loader (csrc/graph_loader.cpp, g++): {loader_build_ms:.0f} ms")
     with phase("data"):
         data = os.path.join(REPO, "build", "chip_smoke")
         roots = {"cora": synth_cora_files(os.path.join(data, "cora")),
@@ -4061,6 +4466,7 @@ def main() -> int:
     halo_exchange(pg, graphs, roots, timings, errs, main_launches, halo_launches)
     modes_launches = {name: 0 for name in MODES_KERNELS}
     sharded_modes(pg, graphs, roots, results, timings, errs, main_launches, modes_launches)
+    ingestion(roots, results, errs, main_launches, loader_build_ms)
 
     kernels = []
     entries = [(name, meta, main_launches[name]) for name, meta in KERNELS.items()]
@@ -4097,6 +4503,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--modes-two-rank"]:  # a rank of phase 16's two-rank part
         modes_two_rank_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ingest-two-rank"]:  # a rank of phase 17's two-rank part
+        ingest_two_rank_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         sys.exit(0)
     try:
         sys.exit(main())

@@ -9,15 +9,18 @@ It imports neither JAX nor anything of ``graphsage_tpu``.
 Every entry point places its tensors on ``cuda`` unless the caller passes
 ``device="cpu"``, and raises when asked for a card that is not there.
 
-  data    — Graph container, Cora/Pubmed loaders, synthetic generators
+  data    — Graph container, Cora/Pubmed loaders (eager and lazy, Python
+            and native C++ parsers), synthetic generators
   ops     — sampler, aggregators, Hopper kernels
   models  — GraphSAGE layers + supervised classifier
   serve   — table and sampled serving tiers
   train   — configs, presets, the sampled, full-graph and unsupervised
             trainers, the CLI
   parallel — the process group, meshes, edge partitioning, the halo
-            exchange and its node partitions, the DP+TP, node-sharded and
-            fully sharded trainers (``torch.distributed``)
+            exchange and its node partitions, the node-sharded store (from
+            a table or a row loader), the DP+TP, node-sharded and fully
+            sharded trainers (``torch.distributed``)
+  examples — the JAX package's examples 01-08 on the port
   utils   — metrics, checkpoints, logging, diagnostics, profiling, memory
 """
 
@@ -32,7 +35,12 @@ from graphsage_torch.data.graph import (
     with_cached_layer0,
 )
 from graphsage_torch.ops.quantize import QuantizedTable, dequantize, quantize_features
-from graphsage_torch.data.loaders import load_cora, load_pubmed
+from graphsage_torch.data.loaders import (
+    load_cora,
+    load_cora_lazy,
+    load_pubmed,
+    load_pubmed_lazy,
+)
 from graphsage_torch.models.graphsage import Frontier, GraphSAGE
 from graphsage_torch.serve import ServingEngine
 from graphsage_torch.train.config import ExperimentConfig, ModelConfig, PRESETS, TrainConfig
@@ -51,6 +59,7 @@ from graphsage_torch.parallel.feature_store import (
     ShardedFeatureTrainer,
     build_hub_cache,
     hub_request_fraction,
+    shard_features_from_loader,
     sharded_comm_stats,
 )
 from graphsage_torch.parallel.halo import (
@@ -75,7 +84,9 @@ __all__ = [
     "quantize_features",
     "dequantize",
     "load_cora",
+    "load_cora_lazy",
     "load_pubmed",
+    "load_pubmed_lazy",
     "Frontier",
     "GraphSAGE",
     "ServingEngine",
@@ -94,6 +105,7 @@ __all__ = [
     "hub_request_fraction",
     "FullyShardedTrainer",
     "sharded_comm_stats",
+    "shard_features_from_loader",
     "make_mesh",
     "auto_partition_plan",
     "build_node_partition",

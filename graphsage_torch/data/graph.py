@@ -20,6 +20,10 @@ feature table for an int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable`;
 :func:`induced_subgraph` keeps the part of a graph on some of its nodes;
 :func:`relabel_graph` permutes its node ids.
 
+A lazy graph (``load_*_lazy``) carries a zero-strided feature descriptor
+instead of a table (:func:`is_lazy_descriptor`); every function here that
+would read the table refuses it (:func:`reject_lazy_descriptor`).
+
 Indices are int32 throughout, as in the JAX ``Graph``.
 """
 
@@ -86,13 +90,22 @@ class Graph:
     def device(self) -> torch.device:
         return self.features.device
 
+    @property
+    def on_host(self) -> bool:
+        """True when the graph lies on the CPU: the graphs the node-sharded
+        trainers cut their ranks' rows from (the JAX package's host
+        graphs)."""
+        return self.device.type == "cpu"
+
     def _tables(self) -> dict:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
                 if isinstance(getattr(self, f.name), (torch.Tensor, QuantizedTable))}
 
     def to(self, device) -> "Graph":
         """A copy with every tensor (and int8 table) on ``device`` (metadata
-        unchanged)."""
+        unchanged). A lazy graph's descriptor moves to no other device."""
+        if torch.device("cuda" if device is None else device) != self.device:
+            reject_lazy_descriptor(self.features, "Graph.to (it would place N*F zeros)")
         dev = resolve_device(device)
         return dataclasses.replace(
             self, **{name: t.to(dev) for name, t in self._tables().items()})
@@ -102,6 +115,30 @@ class Graph:
         """Device bytes of every array the graph holds (int8 tables count
         their scales)."""
         return sum(t.nbytes for t in self._tables().values())
+
+
+def is_lazy_descriptor(features) -> bool:
+    """True for the zero-strided feature placeholder of a lazy graph
+    (``load_*_lazy``): a 2-D tensor or array of shape ``[N, F]`` (``N >
+    1``) whose rows all alias one row of zeros, ``O(F)`` real bytes: a shape
+    and dtype descriptor, never feature data."""
+    if isinstance(features, torch.Tensor):
+        return features.dim() == 2 and features.shape[0] > 1 and features.stride(0) == 0
+    return (isinstance(features, np.ndarray) and features.ndim == 2
+            and features.shape[0] > 1 and features.strides[0] == 0)
+
+
+def reject_lazy_descriptor(features, what: str) -> None:
+    """Raise when a lazy graph's descriptor is about to be read as data:
+    training or serving on ``N*F`` zeros without an error is the failure the
+    lazy path must never have."""
+    if is_lazy_descriptor(features):
+        raise ValueError(
+            f"this graph's features are a LAZY descriptor (load_*_lazy) — "
+            f"{what} would silently read N*F zeros. Build the sharded "
+            "store with shard_features_from_loader(row_loader, ...) and "
+            "pass it as feature_store=, or load eagerly instead"
+        )
 
 
 def quantize_graph(graph: Graph) -> Graph:
@@ -116,6 +153,8 @@ def quantize_graph(graph: Graph) -> Graph:
     """
     if is_quantized(graph.features):
         return graph
+    reject_lazy_descriptor(graph.features,
+                           "quantize_graph (use shard_features_from_loader(quantize=True))")
     if graph.layer0_cache is not None:
         warnings.warn(
             "quantize_graph: dropping the pre-built layer0_cache (it was "
@@ -130,7 +169,7 @@ def quantize_graph(graph: Graph) -> Graph:
 
 
 def with_cached_layer0(graph: Graph, self_loop: bool = False, dtype=None,
-                       quantize: bool = False) -> Graph:
+                       quantize: bool = False, edge_block: int = 2_000_000) -> Graph:
     """A copy of ``graph`` carrying ``layer0_cache``: ``M = D^-1 A X``, or
     ``(A X + X) / (D + 1)`` with ``self_loop``; zero-degree rows are 0
     (``X`` with ``self_loop``).
@@ -138,11 +177,17 @@ def with_cached_layer0(graph: Graph, self_loop: bool = False, dtype=None,
     The feature table is frozen (quirk Q12) and the mean is linear, so the
     deepest hop's full-neighborhood aggregate is a constant per node: the
     cache is what sampling that hop estimates (the reference's
-    ``num_sample=None``, quirk Q7, at the input-closest layer). It is the
-    CSR SpMM, Hopper kernel 3 on the card (bf16 rows read as they are, f32
-    sums, no per-edge transient), its plain version on the CPU: normalised
-    by the kernel, or summed and then folded with ``X`` for ``self_loop``.
-    An int8 table is dequantized into one f32 transient first.
+    ``num_sample=None``, quirk Q7, at the input-closest layer).
+
+    On the card it is the CSR SpMM, Hopper kernel 3 (bf16 rows read as they
+    are, f32 sums, no per-edge transient, so ``edge_block`` has nothing to
+    bound there): normalised by the kernel, or summed and then folded with
+    ``X`` for ``self_loop``; an int8 table is dequantized into one f32
+    transient first. On the CPU it is built in node-range blocks whose CSR
+    span is at most ``edge_block`` edges (a node wider than that gets a
+    block of its own), each block's neighbour rows gathered, dequantized
+    when int8, and summed in f32 (:func:`_host_layer0_means`): the transient
+    is ``edge_block x F`` f32, not ``E x F``.
 
     ``dtype`` defaults to the dense features' dtype (bf16 features keep a
     bf16 cache; an int8 table gives an f32 one); ``quantize=True`` stores
@@ -165,22 +210,85 @@ def with_cached_layer0(graph: Graph, self_loop: bool = False, dtype=None,
                 "graph (dataclasses.replace(graph, layer0_cache=None)) to switch"
             )
         return graph
-    if is_quantized(graph.features):
-        x = dequantize(graph.features)
-    else:
-        x = graph.features
+    reject_lazy_descriptor(graph.features, "with_cached_layer0")
+    quantized = is_quantized(graph.features)
     if dtype is None:
-        dtype = x.dtype
-    with torch.no_grad():
-        if self_loop:
-            summed = spmm_mean(x, graph.indptr, graph.edge_dst, normalize=False)
-            deg = graph.degrees.to(torch.float32)[:, None]
-            cache = (summed.to(torch.float32) + x.to(torch.float32)) / (deg + 1.0)
-        else:
-            cache = spmm_mean(x, graph.indptr, graph.edge_dst)
+        dtype = torch.float32 if quantized else graph.features.dtype
+    if graph.on_host:
+        cache = torch.from_numpy(_host_layer0_means(graph, self_loop, edge_block))
+    else:
+        x = dequantize(graph.features) if quantized else graph.features
+        with torch.no_grad():
+            if self_loop:
+                summed = spmm_mean(x, graph.indptr, graph.edge_dst, normalize=False)
+                deg = graph.degrees.to(torch.float32)[:, None]
+                cache = (summed.to(torch.float32) + x.to(torch.float32)) / (deg + 1.0)
+            else:
+                cache = spmm_mean(x, graph.indptr, graph.edge_dst)
     cache = quantize_rows(cache) if quantize else cache.to(dtype)
     return dataclasses.replace(
         graph, layer0_cache=cache, layer0_cache_self_loop=bool(self_loop))
+
+
+def _host_layer0_means(graph: Graph, self_loop: bool, edge_block: int) -> np.ndarray:
+    """The layer-0 means ``[N, F]`` f32 of a CPU graph, built as the JAX
+    package's host build is: node ranges ``[r0, r1)`` whose CSR span is at
+    most ``edge_block`` edges (``searchsorted(..., side="right") - 1``, the
+    last node whose span still fits, and at least one node), each block's
+    rows summed per node with ``np.add.reduceat`` in f32. The rows of a block
+    are gathered into one reused buffer, the transient of the build."""
+    feats = graph.features
+    if is_quantized(feats):
+        q, scale = feats.q.numpy(), feats.scale.numpy()
+
+        def rows(idx, out=None):
+            return np.multiply(q[idx], scale[idx], out=out, dtype=np.float32)
+    elif feats.dtype == torch.float32:
+        x = feats.detach().numpy()
+
+        def rows(idx, out=None):
+            # mode="clip": "raise" would buffer the output (the ids are in range)
+            return x[idx] if out is None else np.take(x, idx, axis=0, out=out, mode="clip")
+    else:  # bf16 has no numpy dtype: widen the block's rows in torch
+        def rows(idx, out=None):
+            sel = idx if isinstance(idx, slice) else torch.from_numpy(idx).long()
+            block = feats[sel].to(torch.float32).numpy()
+            if out is None:
+                return block
+            out[:] = block
+            return out
+
+    n, f = graph.num_nodes, graph.num_features
+    indptr = graph.indptr.numpy().astype(np.int64)
+    edge_dst = graph.edge_dst.numpy()
+    deg = graph.degrees.numpy().astype(np.float32)
+    out = np.zeros((n, f), np.float32)
+    buf = np.empty((min(edge_block, graph.num_edges) + 1, f), np.float32)
+    r0 = 0
+    while r0 < n:
+        r1 = int(np.searchsorted(indptr, indptr[r0] + edge_block, side="right")) - 1
+        r1 = max(min(r1, n), r0 + 1)
+        s0, s1 = int(indptr[r0]), int(indptr[r1])
+        if buf.shape[0] < s1 - s0 + 1:  # one node wider than edge_block
+            block = buf = None
+            buf = np.empty((s1 - s0 + 1, f), np.float32)
+        # One zero row past the block's rows keeps the empty trailing
+        # segments in range; reduceat gives an empty segment its start row,
+        # which the zero-degree rows below overwrite.
+        block = buf[:s1 - s0 + 1]
+        rows(edge_dst[s0:s1], out=block[:-1])
+        block[-1] = 0.0
+        starts = np.minimum(indptr[r0:r1] - s0, len(block) - 1)
+        sums = np.add.reduceat(block, starts, axis=0)
+        blk_deg = deg[r0:r1]
+        sums[blk_deg == 0] = 0.0
+        if self_loop:
+            np.add(sums, rows(slice(r0, r1)), out=sums)
+            np.divide(sums, blk_deg[:, None] + 1.0, out=out[r0:r1])
+        else:
+            np.divide(sums, np.maximum(blk_deg[:, None], 1.0), out=out[r0:r1])
+        r0 = r1
+    return out
 
 
 def sorted_unique_edges(
@@ -215,6 +323,14 @@ def sorted_unique_edges(
     return np.stack([src, dst], axis=1)
 
 
+def adjacency_from_edges(num_nodes: int, edges: np.ndarray,
+                         undirected: bool = True) -> list[np.ndarray]:
+    """Per-row sorted neighbor lists (small-graph and test convenience)."""
+    e = sorted_unique_edges(num_nodes, edges, undirected=undirected)
+    counts = np.bincount(e[:, 0], minlength=num_nodes)
+    return np.split(e[:, 1], np.cumsum(counts)[:-1])
+
+
 def build_graph(
     features: np.ndarray,
     labels: np.ndarray,
@@ -235,7 +351,9 @@ def build_graph(
     bounds only the ELL table's width (rows longer than the cap keep their
     full neighbor lists in CSR). ``labels`` are class ids ``[N]`` or
     multi-hot rows ``[N, C]`` (kept 2-D as int8; ``num_classes`` must then
-    equal ``C``).
+    equal ``C``). A lazy descriptor (:func:`is_lazy_descriptor`) stays one:
+    a zero-strided ``[N, F]`` view of one row of zeros in ``feature_dtype``,
+    on the CPU only.
     """
     dev = resolve_device(device)
     features = np.asarray(features)
@@ -302,7 +420,14 @@ def build_graph(
     def put(a):
         return torch.from_numpy(a).to(dev)
 
-    feats = torch.from_numpy(np.asarray(features, dtype=np.float32))
+    if is_lazy_descriptor(features):
+        if dev.type != "cpu":
+            reject_lazy_descriptor(features, f"build_graph(device={str(dev)!r})")
+        feats = torch.zeros((1, num_features), dtype=feature_dtype).expand(
+            num_nodes, num_features)
+    else:
+        feats = torch.from_numpy(np.asarray(features, dtype=np.float32)).to(
+            device=dev, dtype=feature_dtype)
     return Graph(
         neighbors=put(ell),
         degrees=put(true_degrees),
@@ -310,7 +435,7 @@ def build_graph(
         edge_dst=put(edge_dst),
         edge_src=put(edge_src),
         edge_mask=put(edge_mask),
-        features=feats.to(device=dev, dtype=feature_dtype),
+        features=feats,
         labels=put(labels),
         num_nodes=num_nodes,
         num_features=num_features,
@@ -338,6 +463,7 @@ def induced_subgraph(graph: Graph, nodes, device=None, **build_kwargs) -> Graph:
     ``feature_dtype`` says otherwise, as in the JAX package. The subgraph
     lies on the graph's device unless ``device`` says otherwise.
     """
+    reject_lazy_descriptor(graph.features, "induced_subgraph")
     nodes = np.asarray(nodes).reshape(-1)
     feats = dense_host_view(graph.features)[nodes]
     labels = graph.labels.cpu().numpy()[nodes]
@@ -373,6 +499,7 @@ def disjoint_union(graphs: Sequence[Graph], device=None, **build_kwargs) -> Grap
         raise ValueError("disjoint_union of no graphs")
     g0 = graphs[0]
     for g in graphs:
+        reject_lazy_descriptor(g.features, "disjoint_union")
         if g.num_features != g0.num_features:
             raise ValueError("feature widths differ across graphs")
         if g.num_classes != g0.num_classes:
@@ -416,6 +543,7 @@ def relabel_graph(graph: Graph, order, device=None) -> tuple[Graph, np.ndarray]:
     n = graph.num_nodes
     if order.shape[0] != n or len(np.unique(order)) != n:
         raise ValueError("order must be a permutation of all node ids")
+    reject_lazy_descriptor(graph.features, "relabel_graph")
     if is_quantized(graph.features):
         raise ValueError(
             "relabel before quantizing: per-row scales move with their rows, "

@@ -1,6 +1,7 @@
 """The node-sharded feature store: the counterpart of
 ``graphsage_tpu/parallel/feature_store.py`` (``NodeShardedFeatures``,
-``shard_features``, the dense and compact cross-rank gathers, the hub cache,
+``shard_features``, ``shard_features_from_loader``, the dense and compact
+cross-rank gathers, the hub cache,
 the layer-0 table build of ``layer0="full"``, ``ShardedFeatureTrainer``, the
 sharded adjacency with its distributed sampler, and ``FullyShardedTrainer``).
 
@@ -75,8 +76,11 @@ rows are ``d``-wide; the sampled mean layer 0 picks its order by the single
 device's rule over the rank's shard and slots, with the rows the exchange
 moves counted (``GraphSAGE.sampled_layer0_project_first``).
 
-Not ported yet, raising with the ROADMAP Queue 1 item that brings it: a
-prebuilt loader ``feature_store`` (item 15).
+**Lazy ingestion**: :func:`shard_features_from_loader` builds a rank's
+store from a row loader (``load_*_lazy``), reading its own rows only, and
+the trainers take it as ``feature_store=``; the graph's feature leaf is then
+a descriptor that no path reads, so the full-graph evaluation and the hub
+cache, which need the whole table, are refused at construction.
 """
 
 from __future__ import annotations
@@ -90,11 +94,17 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from graphsage_torch.data.graph import Graph, with_cached_layer0
+from graphsage_torch._device import resolve_device
+from graphsage_torch.data.graph import Graph, reject_lazy_descriptor, with_cached_layer0
 from graphsage_torch.models.graphsage import Frontier, GraphSAGE
 from graphsage_torch.ops.aggregate import gather, segment_max_csr
 from graphsage_torch.ops.gather_mean import gather_mean, gather_mean_int8
-from graphsage_torch.ops.quantize import QuantizedTable, gather_dequant, is_quantized
+from graphsage_torch.ops.quantize import (
+    QuantizedTable,
+    gather_dequant,
+    is_quantized,
+    quantize_features,
+)
 from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.ops.scatter_mean import scatter_mean
 from graphsage_torch.parallel import collectives
@@ -153,6 +163,7 @@ def shard_features(features, num_shards: int, index: int, device=None) -> NodeSh
     (default: the table's), cut from a host copy: no full-table buffer is
     made on the device. An int8 ``QuantizedTable`` gives one: ``q`` and
     ``scale`` cut on the same ranges, padding rows of scale 1."""
+    reject_lazy_descriptor(features, "shard_features (the shards would be all-zero copies)")
     n = features.shape[0]
     rows = _rows_per_shard(n, num_shards)
     dev = features.device if device is None else device
@@ -163,6 +174,34 @@ def shard_features(features, num_shards: int, index: int, device=None) -> NodeSh
         shard = _cut_rows(features.detach().cpu(), rows, index).to(dev)
     return NodeShardedFeatures(shard=shard, num_shards=num_shards, rows_per_shard=rows,
                                num_nodes=n)
+
+
+def shard_features_from_loader(row_loader, num_nodes: int, num_feats: int, num_shards: int,
+                               index: int, device=None, dtype=torch.float32,
+                               quantize: bool = False) -> NodeShardedFeatures:
+    """Rank ``index``'s node range of the table, read through ``row_loader(lo,
+    hi) -> np.ndarray [hi - lo, F]`` (e.g. :func:`~graphsage_torch.data.
+    loaders.load_cora_lazy`'s) and placed on ``device`` (``cuda`` unless the
+    caller passes ``device="cpu"``): no process ever holds the ``[N, F]``
+    table. The loader is asked for this rank's rows only, once, with the
+    ownership rule of :func:`shard_features` (padding rows are zero and never
+    asked for); the store equals ``shard_features(table, num_shards, index)``
+    in ``dtype``.
+
+    ``quantize=True`` quantizes the rank's block by rows (the scales are per
+    row, so the owner alone can do it): the store is bitwise
+    ``shard_features(quantize_features(table), num_shards, index)``, its
+    padding rows at scale 1."""
+    rows = _rows_per_shard(num_nodes, num_shards)
+    lo, hi = min(index * rows, num_nodes), min((index + 1) * rows, num_nodes)
+    block = torch.zeros((rows, num_feats), dtype=torch.float32)
+    if hi > lo:
+        block[:hi - lo] = torch.from_numpy(np.asarray(row_loader(lo, hi), np.float32))
+    dev = resolve_device(device)
+    # An all-zero padding row quantizes to scale 1, shard_features' fill.
+    shard = (quantize_features(block) if quantize else block.to(dtype)).to(dev)
+    return NodeShardedFeatures(shard=shard, num_shards=num_shards, rows_per_shard=rows,
+                               num_nodes=num_nodes)
 
 
 # --------------------------------------------------------------------------
@@ -778,7 +817,14 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
     ``eval_fanouts`` runs through the sharded gather (a compact batch that
     would overflow goes through the dense exchange, with a warning); with
     ``None`` it is the full-graph forward over a transient device copy of
-    the graph, freed on return. Rank 0 alone writes checkpoints."""
+    the graph, freed on return. Rank 0 alone writes checkpoints.
+
+    ``feature_store`` is a prebuilt store of this rank's rows
+    (:func:`shard_features_from_loader` over a ``load_*_lazy`` row loader):
+    the graph's feature leaf is then a descriptor that is never read, so
+    evaluation must be sampled (``eval_fanouts``), a cached model needs the
+    graph's prebuilt cache, and ``hub_cache_rows`` is refused, each at
+    construction, as in the JAX package."""
 
     # Overflow retry ladder: capacity_slack * 2**i for i < _SLACK_RETRIES.
     _SLACK_RETRIES = 4
@@ -801,15 +847,8 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
                 "halo plan is a second edge copy, which FullyShardedTrainer "
                 "exists to avoid (it derives layer-0 edges from its sharded "
                 "adjacency)")
-        if feature_store is not None:
-            raise NotImplementedError(
-                "a prebuilt feature_store (shard_features_from_loader) is not "
-                "ported yet (ROADMAP Queue 1 item 15)")
         self.layer0_exchange = layer0_exchange
         self.layer0_halo_kwargs = dict(layer0_halo_kwargs or {})
-        self.hub_cache_rows = int(hub_cache_rows)
-        if self.hub_cache_rows:
-            _check_hub_cache(model, gather_mode, graph)
         self.mesh, self.axis = mesh, axis
         self.gather_mode = gather_mode
         self.capacity_slack = capacity_slack
@@ -821,7 +860,41 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
                 f"batch_size {config.batch_size} must be divisible by the "
                 f"{axis!r} axis size {self.num_shards}"
             )
+        if feature_store is not None:
+            self._check_feature_store(feature_store, model, graph, config)
+        self._external_store = feature_store
+        self.hub_cache_rows = int(hub_cache_rows)
+        if self.hub_cache_rows:
+            _check_hub_cache(model, gather_mode, graph, external_store=feature_store is not None)
         super().__init__(model, graph, config)
+
+    def _check_feature_store(self, store: NodeShardedFeatures, model: GraphSAGE,
+                             graph: Graph, config) -> None:
+        """JAX's construction checks of a prebuilt store: a cached model
+        needs the graph's prebuilt cache (no process holds the table to build
+        one), the store must cover the graph's nodes on this axis's shards,
+        and evaluation must be sampled (``run`` ends in it, and the
+        ``eval_fanouts=None`` full-graph forward needs the table)."""
+        if model.layer0 == "cached" and graph.layer0_cache is None:
+            raise ValueError(
+                "layer0='cached' needs the full feature table to build "
+                "the aggregate cache, but this trainer was given a "
+                "loader feature_store (no host ever held the full "
+                "[N, F] array) — precompute the cache offline and "
+                "attach it to the graph, or use layer0='sampled'")
+        if store.num_nodes != graph.num_nodes:
+            raise ValueError(
+                f"feature_store covers {store.num_nodes} nodes, graph has {graph.num_nodes}")
+        if store.num_shards != self.num_shards:
+            raise ValueError(
+                f"feature_store has {store.num_shards} shards, mesh axis "
+                f"{self.axis!r} has {self.num_shards}")
+        if config.eval_fanouts is None:
+            raise ValueError(
+                "feature_store trainers have no full feature table, so "
+                "the eval_fanouts=None full-graph eval cannot run — set "
+                "TrainConfig(eval_fanouts=...) to evaluate through the "
+                "sharded gather")
 
     def _prepare_graph(self, model: GraphSAGE, graph: Graph) -> Graph:
         """Shard the table (and a cached model's cache) from a host copy,
@@ -841,7 +914,12 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
             model.check_layer0_cache(host)
         self._source_graph = host
         s, i, dev = self.num_shards, self.shard_index, model.device
-        self.features = shard_features(host.features, s, i, dev)
+        store = self._external_store
+        if store is None:
+            self.features = shard_features(host.features, s, i, dev)
+        else:  # the caller's store, on the model's device
+            self.features = (store if store.shard.device == dev
+                             else dataclasses.replace(store, shard=store.shard.to(dev)))
         self._cache_store = (None if host.layer0_cache is None or model.layer0 != "cached"
                              else shard_features(host.layer0_cache, s, i, dev))
         self._hub = None
@@ -864,13 +942,16 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
         np_ = self.features.rows_per_shard
         group = self._group
         if self.layer0_exchange == "halo":
-            part = build_node_partition(host, s, bounds="equal_nodes",
+            # The store holds the rank's rows: the plan is built without the
+            # table (its h0 is zero columns wide).
+            featureless = dataclasses.replace(host, features=torch.zeros((host.num_nodes, 0)),
+                                              num_features=0)
+            part = build_node_partition(featureless, s, bounds="equal_nodes",
                                         **self.layer0_halo_kwargs)
             if part.nodes_per_shard != np_:
                 raise AssertionError(f"halo plan rows {part.nodes_per_shard} != store rows {np_}")
             self._layer0_part = part
-            # The store holds the rank's rows: the plan's copy stays on the host.
-            shard = self._layer0_halo = part._replace(h0=part.h0[:, :0]).local(i, dev)
+            shard = self._layer0_halo = part.local(i, dev)
             self._layer0_edge_bytes = sum(
                 t.numel() * t.element_size() for t in vars(shard).values()
                 if isinstance(t, torch.Tensor))
@@ -1014,6 +1095,20 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
                          **self._injected(mode=mode))
         return collectives.all_gather_rows(out, self._group)[:len(nodes)]
 
+    def _transient_full_graph(self) -> Graph:
+        self._require_full_table("the eval_fanouts=None full-graph eval")
+        return super()._transient_full_graph()
+
+    def _require_full_table(self, what: str) -> None:
+        """A loader-built store has no full table anywhere: the graph's
+        feature leaf is a descriptor, and ``what`` would read zeros."""
+        if self._external_store is not None:
+            raise ValueError(
+                f"{what} needs the full feature table, but this trainer "
+                "was built from a feature_store (no host ever held the "
+                "full [N, F] array); set eval_fanouts to evaluate through "
+                "the sharded gather instead")
+
     @torch.no_grad()
     def predict(self, nodes: np.ndarray) -> np.ndarray:
         """Sampled evaluation through the sharded gather when
@@ -1056,9 +1151,11 @@ class ShardedFeatureTrainer(ShardedLoop, Trainer):
         return stats
 
 
-def _check_hub_cache(model: GraphSAGE, gather_mode: str, graph: Graph) -> None:
-    """JAX's construction checks for ``hub_cache_rows``: the compact mode,
-    and a frozen table behind every lookup the cache would answer (JAX's
+def _check_hub_cache(model: GraphSAGE, gather_mode: str, graph: Graph,
+                     external_store: bool = False) -> None:
+    """JAX's construction checks for ``hub_cache_rows``: the compact mode, the
+    full table (not a loader store) to copy the rows from, and a frozen table
+    behind every lookup the cache would answer (JAX's
     project-first rule for the store's lookups, the bytes rule over an int8
     table; a dense cache, since hub rows of an int8 cache are not
     supported)."""
@@ -1066,6 +1163,10 @@ def _check_hub_cache(model: GraphSAGE, gather_mode: str, graph: Graph) -> None:
         raise ValueError(
             "hub_cache_rows only affects the compact exchange "
             "(the dense psum_scatter is exact for any skew)")
+    if external_store:
+        raise ValueError(
+            "hub_cache_rows needs the full feature table; this "
+            "trainer was built from a loader feature_store")
     quantized = is_quantized(graph.features)
     if model.layer0 == "full" or (model.layer0 != "cached"
                                   and model.injected_layer0_project_first(quantized)):

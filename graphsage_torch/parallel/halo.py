@@ -52,7 +52,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from graphsage_torch.data.graph import Graph, relabel_graph
+from graphsage_torch.data.graph import Graph, reject_lazy_descriptor, relabel_graph
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.aggregate import gather, segment_max_csr
 from graphsage_torch.ops.quantize import dense_host_view, is_quantized
@@ -431,6 +431,10 @@ def build_node_partition(graph: Graph, num_shards: int, halo_chunks: int = 4,
     requires input order). An int8 table is dequantized here, once."""
     if bounds not in ("edges", "equal_nodes"):
         raise ValueError(f"unknown bounds {bounds!r}")
+    reject_lazy_descriptor(
+        graph.features,
+        "build_node_partition (the halo h0 payload would stack N*F zeros; "
+        "the full-graph/halo paths need eagerly loaded features)")
     if bounds == "equal_nodes" and not (order is None or (isinstance(order, str)
                                                           and order == "input")):
         raise ValueError(

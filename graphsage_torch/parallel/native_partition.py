@@ -7,10 +7,9 @@ semantics' oracle (the native results are identical, parity-tested); the
 native ones replace numpy's O(E log E) lexsort sweeps with per-node counting
 passes, seconds instead of minutes at 10^7 edges.
 
-The library is built at first use with ``g++ -O3 -std=c++17 -fPIC -shared``
-into ``build/graphsage_torch/<hash>/`` at the root of the checkout (keyed by
-the source and the flags, as :mod:`graphsage_torch.ops._build` keys the
-CUDA kernels). When it cannot be built or loaded the callers run numpy;
+The library is built at first use with ``g++`` into
+``build/graphsage_torch/<hash>/`` at the root of the checkout
+(:mod:`graphsage_torch._cxx`). When it cannot be built or loaded the callers run numpy;
 :data:`build_error` says why, and :data:`last_impl` records which
 implementation each of the two functions ran last (``"native"`` or
 ``"numpy"``), so that a caller can refuse a run that fell back.
@@ -19,19 +18,14 @@ implementation each of the two functions ran last (``"native"`` or
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from graphsage_torch import _cxx
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "partitioner.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "graphsage_torch"
-FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 LIB_NAME = "libgraphsage_partition.so"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -40,26 +34,7 @@ last_impl: dict[str, str] = {}
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(FLAGS).encode() + SOURCE.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
-
-
-def _build(lib: Path) -> None:
-    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) on PATH")
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    # Build privately and move into place: concurrent builders never load a
-    # half-written library.
-    tmp = Path(tempfile.mkdtemp(dir=lib.parent))
-    try:
-        res = subprocess.run([cxx, *FLAGS, "-o", str(tmp / LIB_NAME), str(SOURCE)],
-                             capture_output=True, text=True, timeout=300)
-        if res.returncode:
-            raise RuntimeError(f"{cxx} failed (rc {res.returncode}):\n{res.stderr}")
-        os.replace(tmp / LIB_NAME, lib)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    return _cxx.library_path(SOURCE, LIB_NAME)
 
 
 def load_library() -> Optional[ctypes.CDLL]:
@@ -69,10 +44,7 @@ def load_library() -> Optional[ctypes.CDLL]:
     if _lib is not None or build_error is not None:
         return _lib
     try:
-        path = library_path()
-        if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
+        lib = _cxx.load(SOURCE, LIB_NAME)
     except Exception as e:  # no compiler, a failed build, a failed load
         build_error = f"{type(e).__name__}: {e}"
         return None

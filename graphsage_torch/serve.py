@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from graphsage_torch._device import resolve_device
-from graphsage_torch.data.graph import Graph
+from graphsage_torch.data.graph import Graph, reject_lazy_descriptor
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.quantize import gather_dequant, is_quantized, quantize_rows
 from graphsage_torch.parallel.halo import build_node_partition, halo_full_graph_logits
@@ -100,6 +100,7 @@ class ServingEngine:
             raise ValueError("batch_buckets must be positive ints")
         if eval_fanouts is not None and len(eval_fanouts) != model.num_layers:
             raise ValueError("eval_fanouts needs one entry per layer")
+        reject_lazy_descriptor(graph.features, "ServingEngine (it would serve N*F zeros)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.mesh, self.axis = mesh, axis

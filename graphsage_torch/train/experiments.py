@@ -333,16 +333,14 @@ def main(argv: Optional[list[str]] = None) -> None:
     for flag in _NOT_PORTED_FLAGS:
         opt = "--" + flag.replace("_", "-")
         if flag == "no_compilation_cache":
-            parser.add_argument(opt, action="store_true", help="not ported yet")
+            parser.add_argument(opt, action="store_true", help="not ported")
         else:
-            parser.add_argument(opt, default=None, help="not ported yet")
+            parser.add_argument(opt, default=None, help="not ported")
     args = parser.parse_args(argv)
 
     for flag, why in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag) not in (None, False):
-            reason = (f"not ported yet (ROADMAP Queue 1 item {why})"
-                      if why[0].isdigit() else f"not ported: {why}")
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is {reason}")
+            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: {why}")
 
     overrides: dict[str, Any] = {}
     for flag, field in (("steps", "num_steps"), ("batch_size", "batch_size"),

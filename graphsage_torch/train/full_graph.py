@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphsage_torch.data.graph import Graph
+from graphsage_torch.data.graph import Graph, reject_lazy_descriptor
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.bucketed_spmm import make_spmm_mean_bucketed, plan_bucketed_spmm
 from graphsage_torch.parallel import collectives
@@ -49,6 +49,7 @@ class FullGraphTrainer(TrainLoop):
 
     def __init__(self, model: GraphSAGE, graph: Graph, config: TrainConfig, mesh=None,
                  axis: str = "graph", partition=None):
+        reject_lazy_descriptor(graph.features, "FullGraphTrainer (it would train on N*F zeros)")
         if mesh is None and model.device != graph.device:
             raise ValueError(
                 f"the model lies on {model.device} and the graph on {graph.device}"

@@ -41,7 +41,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from graphsage_torch.data.graph import Graph, with_cached_layer0
+from graphsage_torch.data.graph import Graph, reject_lazy_descriptor, with_cached_layer0
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.quantize import is_quantized
 from graphsage_torch.train.config import TrainConfig
@@ -286,7 +286,9 @@ class Trainer(TrainLoop):
     def _prepare_graph(self, model: GraphSAGE, graph: Graph) -> Graph:
         """The graph this trainer samples from: ``graph``, with its layer-0
         cache built when a ``layer0="cached"`` model needs one (int8 for an
-        int8 graph) and checked against the model's flavor."""
+        int8 graph) and checked against the model's flavor. A lazy graph's
+        descriptor is refused: it would train on ``N*F`` zeros."""
+        reject_lazy_descriptor(graph.features, "Trainer (it would train on N*F zeros)")
         if model.layer0 == "cached":
             if graph.layer0_cache is None:
                 # An int8 graph keeps an int8 cache: a dense one would be

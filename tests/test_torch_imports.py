@@ -38,7 +38,10 @@ def _env(**extra):
     return env
 
 
-@pytest.mark.parametrize("module", ["parallel/halo.py", "parallel/native_partition.py"])
+@pytest.mark.parametrize("module", ["parallel/halo.py", "parallel/native_partition.py",
+                                    "data/native.py", "data/loaders.py", "_cxx.py",
+                                    *(f"examples/{p.name}" for p in sorted(
+                                        (REPO / "graphsage_torch" / "examples").glob("0*.py")))])
 def test_halo_modules_are_checked_and_stand_alone(module):
     path = REPO / "graphsage_torch" / module
     assert path in PORT_FILES
@@ -56,6 +59,35 @@ def test_partitioner_source_is_the_ports_own_copy():
     assert REPO / "build" / "graphsage_torch" in native_partition.library_path().parents
     text = (REPO / "graphsage_torch" / "parallel" / "native_partition.py").read_text()
     assert '"make"' not in text and "graphsage_tpu/csrc" not in text
+
+
+def test_loader_source_is_the_ports_own_copy():
+    """The native loader builds the port's copy of the C++ source (its code
+    the JAX package's, its header naming the port's bindings) into
+    ``build/`` with ``g++``."""
+    from graphsage_torch.data import native
+
+    source = REPO / "graphsage_torch" / "csrc" / "graph_loader.cpp"
+    assert native.SOURCE == source
+    ours, theirs = source.read_text(), (REPO / "graphsage_tpu" / "csrc" /
+                                        "graph_loader.cpp").read_text()
+    assert ours[ours.index("#include"):] == theirs[theirs.index("#include"):]
+    assert "graphsage_tpu" not in ours
+    assert REPO / "build" / "graphsage_torch" in native.library_path().parents
+
+
+@pytest.mark.parametrize("path", sorted(
+    p for p in (REPO / "graphsage_torch").rglob("*")
+    if p.suffix in (".py", ".cpp", ".cu", ".cuh")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_source_names_the_jax_csrc(path):
+    assert "graphsage_tpu/csrc" not in path.read_text()
+
+
+def test_examples_are_ported_one_for_one():
+    jax_names = sorted(p.name for p in (REPO / "examples").glob("0*.py"))
+    ours = sorted(p.name for p in (REPO / "graphsage_torch" / "examples").glob("0*.py"))
+    assert len(jax_names) == 8 and ours == jax_names
 
 
 def test_port_imports_with_jax_blocked():
@@ -131,6 +163,7 @@ def test_top_level_exports_every_ported_name_of_the_jax_package():
     # The names this slice and the earlier ones brought (a floor, so that
     # the check cannot pass by finding nothing).
     assert {"with_cached_layer0", "run_cora", "run_pubmed", "quantize_graph",
+            "load_cora_lazy", "load_pubmed_lazy", "shard_features_from_loader",
             "QuantizedTable", "quantize_features", "dequantize", "FullGraphTrainer",
             "disjoint_union", "Trainer", "GraphSAGE", "UnsupervisedTrainer",
             "induced_subgraph", "build_node_partition", "locality_relabel",

@@ -378,7 +378,7 @@ def test_sharded_trainer_dp_tp_losses_equal_jax_at_covering_fanouts(graphs, job4
     ("layer0_full", "ValueError: unknown layer0_exchange 'ring'"),
     ("int8", "ValueError: hub_cache_rows requires a frozen gather table: the "
              "injected project-first and layer0='full' modes gather"),
-    ("feature_store", "NotImplementedError: .*item 15"),
+    ("feature_store", "ValueError: feature_store covers 199 nodes, graph has 200"),
 ])
 def test_feature_trainer_errors(job2, key, match):
     import re

@@ -202,6 +202,7 @@ def feature_trainer_cases(world: int) -> dict:
 def errors_two(world: int, cora_root: str) -> dict:
     from graphsage_torch import ShardedFeatureTrainer, TrainConfig, quantize_graph
     from graphsage_torch.data.synthetic import power_law_graph
+    from graphsage_torch.parallel.feature_store import shard_features_from_loader
     from graphsage_torch.parallel.mesh import make_mesh
     from graphsage_torch.train.experiments import run_preset
 
@@ -224,7 +225,10 @@ def errors_two(world: int, cora_root: str) -> dict:
         "layer0_full": build(model_kw=dict(layer0="full"), layer0_exchange="ring"),
         "int8": build(model_kw=dict(layer0="full"), g=quantize_graph(graph),
                       gather_mode="compact", hub_cache_rows=8),
-        "feature_store": build(feature_store=object()),
+        # JAX's check of a prebuilt store against the graph.
+        "feature_store": build(feature_store=shard_features_from_loader(
+            lambda lo, hi: np.zeros((hi - lo, graph.num_features), np.float32),
+            graph.num_nodes - 1, graph.num_features, world, 0, device="cpu")),
         "run_preset_indivisible": lambda: run_preset(
             "cora", cora_root, log=None, mode="sharded", device="cpu",
             overrides={"batch_size": 31, "test_size": 100, "val_size": 80}),

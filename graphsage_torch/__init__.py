@@ -21,8 +21,14 @@ Every entry point places its tensors on ``cuda`` unless the caller passes
             a table or a row loader), the DP+TP, node-sharded and fully
             sharded trainers (``torch.distributed``)
   examples — the JAX package's examples 01-08 on the port
-  utils   — metrics, checkpoints, logging, diagnostics, profiling, memory
+  utils   — metrics, checkpoints, logging, diagnostics, profiling (the span
+            recorder), memory
 """
+
+from time import perf_counter_ns as _perf_counter_ns
+
+# The import's own span (``utils/profiling.py`` exports it): first stamp.
+_IMPORT_START_NS = _perf_counter_ns()
 
 from graphsage_torch._device import resolve_device
 from graphsage_torch.data.graph import (
@@ -116,3 +122,5 @@ __all__ = [
     "params_from_numpy",
     "__version__",
 ]
+
+_IMPORT_END_NS = _perf_counter_ns()

@@ -46,6 +46,7 @@ from graphsage_torch.ops.quantize import (
     quantize_rows,
 )
 from graphsage_torch.ops.spmm import spmm_mean
+from graphsage_torch.utils import profiling
 
 
 def _round_up(x: int, m: int) -> int:
@@ -301,26 +302,27 @@ def sorted_unique_edges(
     Self-loops are kept only if present in the input, duplicates collapse,
     and ``undirected=True`` mirrors every edge.
     """
-    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-    if not len(edges):
-        return np.zeros((0, 2), dtype=np.int64)
-    n = np.int64(num_nodes)
-    k1 = edges[:, 0] * n
-    k1 += edges[:, 1]
-    if undirected:
-        k2 = edges[:, 1] * n
-        k2 += edges[:, 0]
-        keys = np.concatenate([k1, k2])
-    else:
-        keys = k1
-    keys.sort(kind="stable")
-    mask = np.empty(len(keys), bool)
-    mask[0] = True
-    np.not_equal(keys[1:], keys[:-1], out=mask[1:])
-    uniq = keys[mask]
-    src = uniq // n
-    dst = uniq - src * n
-    return np.stack([src, dst], axis=1)
+    with profiling.phase("ingest.sort"):
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        if not len(edges):
+            return np.zeros((0, 2), dtype=np.int64)
+        n = np.int64(num_nodes)
+        k1 = edges[:, 0] * n
+        k1 += edges[:, 1]
+        if undirected:
+            k2 = edges[:, 1] * n
+            k2 += edges[:, 0]
+            keys = np.concatenate([k1, k2])
+        else:
+            keys = k1
+        keys.sort(kind="stable")
+        mask = np.empty(len(keys), bool)
+        mask[0] = True
+        np.not_equal(keys[1:], keys[:-1], out=mask[1:])
+        uniq = keys[mask]
+        src = uniq // n
+        dst = uniq - src * n
+        return np.stack([src, dst], axis=1)
 
 
 def adjacency_from_edges(num_nodes: int, edges: np.ndarray,
@@ -354,99 +356,106 @@ def build_graph(
     equal ``C``). A lazy descriptor (:func:`is_lazy_descriptor`) stays one:
     a zero-strided ``[N, F]`` view of one row of zeros in ``feature_dtype``,
     on the CPU only.
+
+    Its set-up spans (:func:`graphsage_torch.utils.profiling.phase`):
+    ``ingest.build_graph`` around ``ingest.sort`` (inside
+    :func:`sorted_unique_edges`), ``ingest.layout`` (degrees, ELL, CSR and
+    padding on the host) and ``ingest.to_device`` (every copy to ``dev``).
     """
     dev = resolve_device(device)
-    features = np.asarray(features)
-    labels = np.asarray(labels)
-    if labels.ndim == 2 and labels.shape[1] > 1:
-        # Multi-hot [N, C] rows (multilabel / PPI family): kept 2-D, int8.
-        labels = (labels != 0).astype(np.int8)
+    with profiling.phase("ingest.build_graph"):
+        features = np.asarray(features)
+        labels = np.asarray(labels)
+        if labels.ndim == 2 and labels.shape[1] > 1:
+            # Multi-hot [N, C] rows (multilabel / PPI family): kept 2-D, int8.
+            labels = (labels != 0).astype(np.int8)
+            if num_classes is None:
+                num_classes = labels.shape[1]
+            elif num_classes != labels.shape[1]:
+                raise ValueError(
+                    f"num_classes ({num_classes}) != multi-hot label width "
+                    f"({labels.shape[1]})"
+                )
+        else:
+            labels = labels.reshape(-1).astype(np.int32)
+        num_nodes, num_features = features.shape
+        if labels.shape[0] != num_nodes:
+            raise ValueError(f"labels ({labels.shape[0]}) != num_nodes ({num_nodes})")
         if num_classes is None:
-            num_classes = labels.shape[1]
-        elif num_classes != labels.shape[1]:
-            raise ValueError(
-                f"num_classes ({num_classes}) != multi-hot label width "
-                f"({labels.shape[1]})"
+            num_classes = int(labels.max()) + 1 if num_nodes else 0
+
+        edges = np.asarray(list(edges) if not isinstance(edges, np.ndarray) else edges)
+        e = sorted_unique_edges(num_nodes, edges, undirected=undirected)
+        with profiling.phase("ingest.layout"):
+            src, dst = e[:, 0], e[:, 1]
+            counts = np.bincount(src, minlength=num_nodes)
+            starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            rank = np.arange(len(src), dtype=np.int64) - starts[src]  # slot within row
+
+            if max_degree is not None:
+                trunc = max(
+                    _round_up(max(max_degree, 1), degree_pad_multiple), degree_pad_multiple
+                )
+                keep = rank < trunc
+                src, dst, rank = src[keep], dst[keep], rank[keep]
+                counts = np.minimum(counts, trunc)
+            true_degrees = counts.astype(np.int32)
+            graph_max_deg = int(true_degrees.max()) if num_nodes and len(src) else 0
+
+            ell_width = max(
+                _round_up(max(min(graph_max_deg, ell_width_cap), 1), degree_pad_multiple),
+                degree_pad_multiple,
             )
-    else:
-        labels = labels.reshape(-1).astype(np.int32)
-    num_nodes, num_features = features.shape
-    if labels.shape[0] != num_nodes:
-        raise ValueError(f"labels ({labels.shape[0]}) != num_nodes ({num_nodes})")
-    if num_classes is None:
-        num_classes = int(labels.max()) + 1 if num_nodes else 0
+            ell_covers_all = ell_width >= graph_max_deg
 
-    edges = np.asarray(list(edges) if not isinstance(edges, np.ndarray) else edges)
-    e = sorted_unique_edges(num_nodes, edges, undirected=undirected)
-    src, dst = e[:, 0], e[:, 1]
-    counts = np.bincount(src, minlength=num_nodes)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    rank = np.arange(len(src), dtype=np.int64) - starts[src]  # slot within row
+            ell = np.zeros((num_nodes, ell_width), dtype=np.int32)
+            in_ell = rank < ell_width
+            ell[src[in_ell], rank[in_ell]] = dst[in_ell]
 
-    if max_degree is not None:
-        trunc = max(
-            _round_up(max(max_degree, 1), degree_pad_multiple), degree_pad_multiple
-        )
-        keep = rank < trunc
-        src, dst, rank = src[keep], dst[keep], rank[keep]
-        counts = np.minimum(counts, trunc)
-    true_degrees = counts.astype(np.int32)
-    graph_max_deg = int(true_degrees.max()) if num_nodes and len(src) else 0
+            indptr = np.zeros(num_nodes + 1, dtype=np.int32)
+            np.cumsum(true_degrees, out=indptr[1:])
+            num_edges = int(indptr[-1])
+            e_pad = max(_round_up(max(num_edges, 1), edge_pad_multiple), edge_pad_multiple)
+            edge_dst = np.zeros(e_pad, dtype=np.int32)
+            edge_src = np.zeros(e_pad, dtype=np.int32)
+            edge_mask = np.zeros(e_pad, dtype=bool)
+            edge_dst[:num_edges] = dst
+            edge_src[:num_edges] = src
+            edge_mask[:num_edges] = True
+            # Padding edges point at node 0 with src num_nodes-1 so segment ops stay in range.
+            if num_edges < e_pad and num_nodes:
+                edge_src[num_edges:] = num_nodes - 1
 
-    ell_width = max(
-        _round_up(max(min(graph_max_deg, ell_width_cap), 1), degree_pad_multiple),
-        degree_pad_multiple,
-    )
-    ell_covers_all = ell_width >= graph_max_deg
+        def put(a):
+            return torch.from_numpy(a).to(dev)
 
-    ell = np.zeros((num_nodes, ell_width), dtype=np.int32)
-    in_ell = rank < ell_width
-    ell[src[in_ell], rank[in_ell]] = dst[in_ell]
-
-    indptr = np.zeros(num_nodes + 1, dtype=np.int32)
-    np.cumsum(true_degrees, out=indptr[1:])
-    num_edges = int(indptr[-1])
-    e_pad = max(_round_up(max(num_edges, 1), edge_pad_multiple), edge_pad_multiple)
-    edge_dst = np.zeros(e_pad, dtype=np.int32)
-    edge_src = np.zeros(e_pad, dtype=np.int32)
-    edge_mask = np.zeros(e_pad, dtype=bool)
-    edge_dst[:num_edges] = dst
-    edge_src[:num_edges] = src
-    edge_mask[:num_edges] = True
-    # Padding edges point at node 0 with src num_nodes-1 so segment ops stay in range.
-    if num_edges < e_pad and num_nodes:
-        edge_src[num_edges:] = num_nodes - 1
-
-    def put(a):
-        return torch.from_numpy(a).to(dev)
-
-    if is_lazy_descriptor(features):
-        if dev.type != "cpu":
+        if is_lazy_descriptor(features) and dev.type != "cpu":
             reject_lazy_descriptor(features, f"build_graph(device={str(dev)!r})")
-        feats = torch.zeros((1, num_features), dtype=feature_dtype).expand(
-            num_nodes, num_features)
-    else:
-        feats = torch.from_numpy(np.asarray(features, dtype=np.float32)).to(
-            device=dev, dtype=feature_dtype)
-    return Graph(
-        neighbors=put(ell),
-        degrees=put(true_degrees),
-        indptr=put(indptr),
-        edge_dst=put(edge_dst),
-        edge_src=put(edge_src),
-        edge_mask=put(edge_mask),
-        features=feats,
-        labels=put(labels),
-        num_nodes=num_nodes,
-        num_features=num_features,
-        num_classes=int(num_classes),
-        max_degree=ell_width,
-        num_edges=num_edges,
-        ell_covers_all=bool(ell_covers_all),
-        # Per-row truncation drops (u,v) without dropping (v,u).
-        symmetric=bool(undirected and max_degree is None),
-    )
-
+        with profiling.phase("ingest.to_device"):
+            if is_lazy_descriptor(features):
+                feats = torch.zeros((1, num_features), dtype=feature_dtype).expand(
+                    num_nodes, num_features)
+            else:
+                feats = torch.from_numpy(np.asarray(features, dtype=np.float32)).to(
+                    device=dev, dtype=feature_dtype)
+            return Graph(
+                neighbors=put(ell),
+                degrees=put(true_degrees),
+                indptr=put(indptr),
+                edge_dst=put(edge_dst),
+                edge_src=put(edge_src),
+                edge_mask=put(edge_mask),
+                features=feats,
+                labels=put(labels),
+                num_nodes=num_nodes,
+                num_features=num_features,
+                num_classes=int(num_classes),
+                max_degree=ell_width,
+                num_edges=num_edges,
+                ell_covers_all=bool(ell_covers_all),
+                # Per-row truncation drops (u,v) without dropping (v,u).
+                symmetric=bool(undirected and max_degree is None),
+            )
 
 def induced_subgraph(graph: Graph, nodes, device=None, **build_kwargs) -> Graph:
     """The subgraph induced on ``nodes``, ids relabeled to ``0..len-1`` in

@@ -77,6 +77,8 @@ from graphsage_torch.ops.quantize import (
 )
 from graphsage_torch.ops.sampling import METHODS as SAMPLING_METHODS
 from graphsage_torch.ops.sampling import sample_neighbors
+from graphsage_torch.ops.spmm import spmm_mean_bytes
+from graphsage_torch.utils import profiling
 
 
 class Frontier(NamedTuple):
@@ -185,16 +187,17 @@ class GraphSAGE(nn.Module):
         self.gather_impl = gather_impl
         self.spmm_impl = spmm_impl
         self.project_first = project_first
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        layers, d_in = [], in_dim
-        for d_out in self.hidden_dims:
-            layers.append(SAGELayer(d_in, d_out, concat_self, generator=generator,
-                                    aggregator=aggregator, pool_dim=pool_dim))
-            d_in = d_out
-        self.layers = nn.ModuleList(layers)
-        self.head = nn.Parameter(glorot_uniform((d_in, num_classes), generator))
-        self.to(dev)
+        with profiling.phase("model.init"):
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            layers, d_in = [], in_dim
+            for d_out in self.hidden_dims:
+                layers.append(SAGELayer(d_in, d_out, concat_self, generator=generator,
+                                        aggregator=aggregator, pool_dim=pool_dim))
+                d_in = d_out
+            self.layers = nn.ModuleList(layers)
+            self.head = nn.Parameter(glorot_uniform((d_in, num_classes), generator))
+            self.to(dev)
 
     @classmethod
     def from_config(cls, cfg, in_dim: int, num_classes: int, **kwargs) -> "GraphSAGE":
@@ -295,7 +298,8 @@ class GraphSAGE(nn.Module):
         """Expand seed nodes into per-hop frontiers (static shapes).
         ``fanouts`` overrides the model's own (serving's ``eval_fanouts``).
         With ``layer0="full"`` or ``"cached"`` the deepest hop is skipped:
-        layer 0 reads a per-node table there."""
+        layer 0 reads a per-node table there. Counts ``sample.hops`` and
+        ``sample.slots`` (each hop's parents times its width)."""
         fanouts = self.fanouts if fanouts is None else tuple(fanouts)
         seeds = seeds.reshape(-1)
         ids = [seeds]
@@ -310,6 +314,9 @@ class GraphSAGE(nn.Module):
                 indptr=graph.indptr, edge_dst=graph.edge_dst,
                 ell_covers_all=graph.ell_covers_all,
             )
+            if profiling.recording():
+                profiling.count("sample.hops", 1)
+                profiling.count("sample.slots", nids.numel())
             nmask = nmask & parent_mask[:, None]
             if self.concat_self or self.self_loop:
                 # Column 0 carries the parent: concat_self splits it off for
@@ -324,11 +331,15 @@ class GraphSAGE(nn.Module):
     def _spmm(self, graph: Graph):
         """The full-graph mean over ``graph``'s CSR: ``x -> (mean, degrees)``."""
         def spmm(x):
-            mean = spmm_mean(
-                x, graph.edge_src, graph.edge_dst, graph.edge_mask,
-                graph.num_nodes, indptr=graph.indptr, impl=self.spmm_impl,
-                symmetric=graph.symmetric,
-            )
+            with profiling.span("agg.spmm_mean", device=x.device):
+                if profiling.recording():
+                    profiling.count("agg.spmm_mean.bytes", spmm_mean_bytes(
+                        graph.num_nodes, x.shape[1], x.element_size(), graph.num_edges))
+                mean = spmm_mean(
+                    x, graph.edge_src, graph.edge_dst, graph.edge_mask,
+                    graph.num_nodes, indptr=graph.indptr, impl=self.spmm_impl,
+                    symmetric=graph.symmetric, num_edges=graph.num_edges,
+                )
             return mean, graph.degrees
         return spmm
 

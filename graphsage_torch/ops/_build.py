@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from graphsage_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "graphsage_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -73,6 +75,7 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    profiling.count("kernels.builds", 1)
     # Build in a private directory and move the result into place, so that
     # processes building at the same time never load a half-written library.
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
@@ -118,12 +121,14 @@ def build_log() -> str:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    """The loaded kernel library (built on first call; the span
+    ``kernels.load``, with a count of ``kernels.builds`` when ``nvcc`` ran)."""
+    with profiling.phase("kernels.load"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

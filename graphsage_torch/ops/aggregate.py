@@ -164,15 +164,18 @@ def spmm_mean(
     indptr: torch.Tensor | None = None,
     impl: str = "auto",
     symmetric: bool = True,
+    num_edges: int | None = None,
 ) -> torch.Tensor:
     """Full-graph mean aggregation ``out[v] = mean_{(v,u) in E} features[u]``
     (the row-normalized SpMM ``D^-1 A X``) in the features' dtype, summed in
     f32, as JAX's ``"auto"`` (``"xla"``) returns it. ``symmetric``
-    (``Graph.symmetric``) picks the kernel route's backward."""
+    (``Graph.symmetric``) picks the kernel route's backward; ``num_edges``
+    (``Graph.num_edges``) lets it count its bytes."""
     if impl in ("auto", "pallas_vmem"):
         if indptr is None:
             raise ValueError(f"spmm_mean impl={impl!r} requires indptr")
-        return _spmm_mean_kernel(features, indptr, edge_dst, symmetric=symmetric)
+        return _spmm_mean_kernel(features, indptr, edge_dst, symmetric=symmetric,
+                                 num_edges=num_edges)
     if impl == "xla":
         return segment_mean_csr(gather(features, edge_dst), edge_src, edge_mask, num_nodes)
     raise ValueError(f"unknown spmm_mean impl {impl!r}")

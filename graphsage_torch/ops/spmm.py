@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from graphsage_torch.ops import _build
+from graphsage_torch.utils import profiling
 
 # Kernel launches since the last reset (a run sets it to 0 and reads it back
 # to show that its path went through the kernel).
@@ -74,6 +75,14 @@ def spmm_transpose_plain(
     return torch.zeros((n if num_rows is None else num_rows, g.shape[1]), dtype=torch.float32,
                        device=g.device).index_add_(0, edge_dst[:e].long(),
                                                    g.to(torch.float32)[src])
+
+
+def spmm_mean_bytes(rows: int, cols: int, elem: int, num_edges: int) -> int:
+    """The bytes one call must move, from sizes the host knows: ``rows`` input
+    rows of ``cols`` elements of ``elem`` bytes once, ``indptr`` and the
+    column ids of the ``num_edges`` edges in use (int32), and the output once
+    (in the input's dtype). The recorder's counter ``agg.spmm_mean.bytes``."""
+    return 2 * rows * cols * elem + 4 * (rows + 1) + 4 * num_edges
 
 
 # The C entry point for each table dtype.
@@ -154,32 +163,37 @@ def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
 
 
 class _SpmmMean(torch.autograd.Function):
-    """``forward(features, indptr, edge_dst, normalize, symmetric, fwd)``
-    runs ``fwd`` (the kernel wrapper or the plain version); see the module
-    docstring for the backward."""
+    """``forward(features, indptr, edge_dst, normalize, symmetric, fwd,
+    num_edges=None)`` runs ``fwd`` (the kernel wrapper or the plain
+    version); see the module docstring for the backward."""
 
     @staticmethod
-    def forward(ctx, features, indptr, edge_dst, normalize, symmetric, fwd):
+    def forward(ctx, features, indptr, edge_dst, normalize, symmetric, fwd, num_edges=None):
         ctx.save_for_backward(indptr, edge_dst)
         ctx.normalize, ctx.symmetric, ctx.fwd = normalize, symmetric, fwd
-        ctx.dtype = features.dtype
+        ctx.dtype, ctx.num_edges = features.dtype, num_edges
         return fwd(features, indptr, edge_dst, normalize)
 
     @staticmethod
     def backward(ctx, grad):
+        rest = (None,) * (len(ctx.needs_input_grad) - 1)
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None, None, None
-        indptr, edge_dst = ctx.saved_tensors
-        gs = grad.to(torch.float32)
-        if ctx.normalize:
-            deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(torch.float32)
-            gs = gs / deg[:, None]
-        gs = gs.to(ctx.dtype).contiguous()
-        if ctx.symmetric:
-            dx = ctx.fwd(gs, indptr, edge_dst, False)
-        else:
-            dx = spmm_transpose_plain(gs, indptr, edge_dst).to(ctx.dtype)
-        return dx, None, None, None, None, None
+            return None, *rest
+        with profiling.span("agg.spmm_mean.backward", device=grad.device):
+            indptr, edge_dst = ctx.saved_tensors
+            if ctx.num_edges is not None and profiling.recording():
+                profiling.count("agg.spmm_mean.bytes", spmm_mean_bytes(
+                    indptr.numel() - 1, grad.shape[1], grad.element_size(), ctx.num_edges))
+            gs = grad.to(torch.float32)
+            if ctx.normalize:
+                deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(torch.float32)
+                gs = gs / deg[:, None]
+            gs = gs.to(ctx.dtype).contiguous()
+            if ctx.symmetric:
+                dx = ctx.fwd(gs, indptr, edge_dst, False)
+            else:
+                dx = spmm_transpose_plain(gs, indptr, edge_dst).to(ctx.dtype)
+        return dx, *rest
 
 
 def spmm_mean(
@@ -188,10 +202,13 @@ def spmm_mean(
     edge_dst: torch.Tensor,
     normalize: bool = True,
     symmetric: bool = True,
+    num_edges: int | None = None,
 ) -> torch.Tensor:
     """CSR (mean-)SpMM ``[N, F]`` in the features' dtype (see module
     docstring). ``symmetric``
-    says that the adjacency equals its transpose, which picks the backward."""
+    says that the adjacency equals its transpose, which picks the backward.
+    ``num_edges`` (``indptr[N]``, where the caller knows it on the host)
+    lets the backward count its bytes into ``agg.spmm_mean.bytes``."""
     _check(features, indptr, edge_dst)
     if features.device.type == "cpu":
         fwd = spmm_mean_plain
@@ -199,7 +216,7 @@ def spmm_mean(
         fwd = _launch
     else:
         raise ValueError(f"no spmm_mean for device {features.device}")
-    return _SpmmMean.apply(features, indptr, edge_dst, normalize, symmetric, fwd)
+    return _SpmmMean.apply(features, indptr, edge_dst, normalize, symmetric, fwd, num_edges)
 
 
 def spmm_block_sum(

@@ -45,6 +45,7 @@ from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.quantize import gather_dequant, is_quantized, quantize_rows
 from graphsage_torch.parallel.halo import build_node_partition, halo_full_graph_logits
 from graphsage_torch.parallel.mesh import axis_index, axis_size
+from graphsage_torch.utils import profiling
 
 
 class ServingEngine:
@@ -168,25 +169,34 @@ class ServingEngine:
 
     @torch.no_grad()
     def _logits(self, nodes) -> tuple[torch.Tensor, torch.Tensor, int]:
-        ids_np, n = self._pad(nodes)
-        ids = torch.from_numpy(ids_np).to(self.device)
-        if self.mesh is not None:
-            # (feature_store imports the trainers, which import this module.)
-            from graphsage_torch.parallel.feature_store import sharded_row_gather
+        """The padded request's representations and logits, and its length;
+        spans ``serve.pad``, ``serve.copy_in``, ``serve.sample`` (sampled
+        mode) and ``serve.forward`` (the rows, the head included)."""
+        dev = self.device
+        with profiling.span("serve.pad"):
+            ids_np, n = self._pad(nodes)
+        with profiling.span("serve.copy_in", device=dev):
+            ids = torch.from_numpy(ids_np).to(dev)
+        if self.mode == "sampled":
+            with profiling.span("serve.sample", device=dev):
+                gen = torch.Generator(device=dev).manual_seed(self.seed + 7)
+                frontier = self.model.sample(gen, self.graph, ids, self.eval_fanouts)
+        with profiling.span("serve.forward", device=dev):
+            if self.mesh is not None:
+                # (feature_store imports the trainers, which import this module.)
+                from graphsage_torch.parallel.feature_store import sharded_row_gather
 
-            pos = torch.from_numpy(self.partition.stacked_index[ids_np]).to(self.device)
-            rows = sharded_row_gather(self.mesh, self.axis, self._table, pos)
-        elif self.mode == "table":
-            rows = (gather_dequant(self._table, ids) if is_quantized(self._table)
-                    else self._table[ids.long()])
-        else:
-            gen = torch.Generator(device=self.device).manual_seed(self.seed + 7)
-            frontier = self.model.sample(gen, self.graph, ids, self.eval_fanouts)
-            rows = self.model.forward(
-                self.graph.features, frontier, return_embeddings=True,
-                graph=self.graph,
-            )
-        return rows, rows @ self.model.head, n
+                pos = torch.from_numpy(self.partition.stacked_index[ids_np]).to(dev)
+                rows = sharded_row_gather(self.mesh, self.axis, self._table, pos)
+            elif self.mode == "table":
+                rows = (gather_dequant(self._table, ids) if is_quantized(self._table)
+                        else self._table[ids.long()])
+            else:
+                rows = self.model.forward(
+                    self.graph.features, frontier, return_embeddings=True,
+                    graph=self.graph,
+                )
+            return rows, rows @ self.model.head, n
 
     def memory_stats(self) -> dict:
         """Capacity-planning numbers: the resident table's bytes per rank and,
@@ -202,9 +212,12 @@ class ServingEngine:
         return out
 
     def logits(self, nodes) -> np.ndarray:
-        """``[B, C]`` class scores for the requested nodes."""
-        _, logits, n = self._logits(nodes)
-        return logits[:n].cpu().numpy()
+        """``[B, C]`` class scores for the requested nodes; the span
+        ``serve.logits`` holds :meth:`_logits`'s spans and ``serve.copy_out``."""
+        with profiling.span("serve.logits", device=self.device):
+            _, logits, n = self._logits(nodes)
+            with profiling.span("serve.copy_out", device=self.device):
+                return logits[:n].cpu().numpy()
 
     def predict(self, nodes) -> np.ndarray:
         """``[B]`` class predictions (argmax), or ``[B, C]`` multi-hot rows

@@ -29,6 +29,7 @@ from graphsage_torch.train.config import PRESETS, ExperimentConfig
 from graphsage_torch.train.full_graph import FullGraphTrainer
 from graphsage_torch.train.trainer import Trainer
 from graphsage_torch.train.unsupervised import UnsupervisedTrainer
+from graphsage_torch.utils import profiling
 from graphsage_torch.utils.checkpoint import restore_checkpoint
 from graphsage_torch.utils.diagnostics import diagnose
 from graphsage_torch.utils.logging import MetricsLogger
@@ -325,6 +326,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--diagnostics-dir", default=None,
                         help="collect fault and hang stack traces here during "
                         "the run (faulthandler)")
+    parser.add_argument("--spans", default=None, metavar="PATH",
+                        help="record the program's spans and counters "
+                        "(utils/profiling.py) and write them to PATH at the "
+                        "end, a Chrome trace (a sharded run's ranks other "
+                        "than 0 write PATH.rank<r>)")
     parser.add_argument("--debug-nans", action="store_true",
                         help="fail fast on NaN: autograd anomaly detection, "
                         "and a FloatingPointError when a step's loss is not "
@@ -355,6 +361,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     if args.quiet:
         overrides["log_every"] = 0
 
+    if args.spans:
+        profiling.enable()
     with contextlib.ExitStack() as scope:
         if args.debug_nans:
             scope.enter_context(torch.autograd.set_detect_anomaly(True))
@@ -367,10 +375,15 @@ def main(argv: Optional[list[str]] = None) -> None:
             checkpoint_every=args.checkpoint_every, device=args.device,
             hub_cache_rows=args.hub_cache_rows,
         )
+    spans_path = args.spans
     if args.mode in _SHARDED_MODES:
         import torch.distributed as dist
 
+        if spans_path and dist.get_rank():
+            spans_path += f".rank{dist.get_rank()}"
         dist.destroy_process_group()
+    if spans_path:
+        profiling.export(spans_path)
     if args.log_jsonl:
         with MetricsLogger(args.log_jsonl, stdout=False, run_name=args.preset) as ml:
             for i, loss in enumerate(result["losses"]):

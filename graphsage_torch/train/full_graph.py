@@ -38,6 +38,7 @@ from graphsage_torch.parallel.mesh import axis_index, axis_size
 from graphsage_torch.parallel.multihost import is_primary
 from graphsage_torch.train.config import TrainConfig
 from graphsage_torch.train.trainer import TrainLoop, make_optimizer, reference_splits
+from graphsage_torch.utils import profiling
 from graphsage_torch.utils.metrics import macro_f1, micro_f1
 
 
@@ -50,52 +51,53 @@ class FullGraphTrainer(TrainLoop):
     def __init__(self, model: GraphSAGE, graph: Graph, config: TrainConfig, mesh=None,
                  axis: str = "graph", partition=None):
         reject_lazy_descriptor(graph.features, "FullGraphTrainer (it would train on N*F zeros)")
-        if mesh is None and model.device != graph.device:
-            raise ValueError(
-                f"the model lies on {model.device} and the graph on {graph.device}"
+        with profiling.phase("trainer.init"):
+            if mesh is None and model.device != graph.device:
+                raise ValueError(
+                    f"the model lies on {model.device} and the graph on {graph.device}"
+                )
+            self.model = model
+            self.graph = graph
+            self.cfg = config
+            self.mesh = mesh
+            self.device = model.device
+            self.optimizer = make_optimizer(model.parameters(), config)
+            self.test_nodes, self.val_nodes, self.train_nodes = reference_splits(
+                graph.num_nodes, config.seed, config.test_size, config.val_size
             )
-        self.model = model
-        self.graph = graph
-        self.cfg = config
-        self.mesh = mesh
-        self.device = model.device
-        self.optimizer = make_optimizer(model.parameters(), config)
-        self.test_nodes, self.val_nodes, self.train_nodes = reference_splits(
-            graph.num_nodes, config.seed, config.test_size, config.val_size
-        )
-        weight = torch.zeros(graph.num_nodes, dtype=torch.float32)
-        weight[torch.from_numpy(self.train_nodes).long()] = 1.0
-        self._train_count = float(weight.sum())
-        self._spmm_override = None
-        if mesh is not None:
-            if model.aggregator == "lstm":
-                raise ValueError(
-                    "FullGraphTrainer's halo mesh path supports mean and "
-                    "maxpool only (lstm aggregation is not a per-edge "
-                    "segment reduction); use the sampled trainers for lstm"
-                )
-            self.axis = axis
-            self._group = mesh.get_group(axis)
-            self.partition = (partition if partition is not None else
-                              build_node_partition(graph, axis_size(mesh, axis), order="auto"))
-            self.shard = self.partition.local(axis_index(mesh, axis), self.device)
-            # The rank's train weights in stacked order (0 on padding rows).
-            np_ = self.partition.nodes_per_shard
-            stacked = torch.zeros(self.partition.num_shards * np_)
-            stacked[torch.from_numpy(self.partition.stacked_index.astype(np.int64))] = weight
-            self._train_weight = stacked[self.shard.rank * np_:][:np_].to(self.device)
-            return
-        self._train_weight = weight.to(self.device)
-        if model.aggregator == "mean" and model.spmm_impl == "bucketed_ell":
-            if not graph.symmetric:
-                # The bucketed backward relies on A == A^T.
-                raise ValueError(
-                    "spmm_impl='bucketed_ell' requires symmetric adjacency "
-                    "(graph.symmetric is False, e.g. built with max_degree "
-                    "truncation); use spmm_impl='auto' or 'xla'"
-                )
-            bucketed = make_spmm_mean_bucketed(plan_bucketed_spmm(graph))
-            self._spmm_override = lambda x: (bucketed(x), graph.degrees)
+            weight = torch.zeros(graph.num_nodes, dtype=torch.float32)
+            weight[torch.from_numpy(self.train_nodes).long()] = 1.0
+            self._train_count = float(weight.sum())
+            self._spmm_override = None
+            if mesh is not None:
+                if model.aggregator == "lstm":
+                    raise ValueError(
+                        "FullGraphTrainer's halo mesh path supports mean and "
+                        "maxpool only (lstm aggregation is not a per-edge "
+                        "segment reduction); use the sampled trainers for lstm"
+                    )
+                self.axis = axis
+                self._group = mesh.get_group(axis)
+                self.partition = (partition if partition is not None else
+                                  build_node_partition(graph, axis_size(mesh, axis), order="auto"))
+                self.shard = self.partition.local(axis_index(mesh, axis), self.device)
+                # The rank's train weights in stacked order (0 on padding rows).
+                np_ = self.partition.nodes_per_shard
+                stacked = torch.zeros(self.partition.num_shards * np_)
+                stacked[torch.from_numpy(self.partition.stacked_index.astype(np.int64))] = weight
+                self._train_weight = stacked[self.shard.rank * np_:][:np_].to(self.device)
+                return
+            self._train_weight = weight.to(self.device)
+            if model.aggregator == "mean" and model.spmm_impl == "bucketed_ell":
+                if not graph.symmetric:
+                    # The bucketed backward relies on A == A^T.
+                    raise ValueError(
+                        "spmm_impl='bucketed_ell' requires symmetric adjacency "
+                        "(graph.symmetric is False, e.g. built with max_degree "
+                        "truncation); use spmm_impl='auto' or 'xla'"
+                    )
+                bucketed = make_spmm_mean_bucketed(plan_bucketed_spmm(graph))
+                self._spmm_override = lambda x: (bucketed(x), graph.degrees)
 
     def _logits(self, stacked: bool = False) -> torch.Tensor:
         """Full-graph logits ``[N, C]`` under the current parameters (with
@@ -118,9 +120,14 @@ class FullGraphTrainer(TrainLoop):
 
     def step(self) -> torch.Tensor:
         """One full-batch optimizer step; returns the loss as a 0-d tensor on
-        the device (reading it waits for the step)."""
-        loss = self._update(self._loss())
-        return loss if self.mesh is None else collectives.all_reduce(loss, self._group)
+        the device (reading it waits for the step). Spans: ``step`` around
+        ``step.forward`` (the logits and the loss), ``step.backward`` and
+        ``step.optimizer``."""
+        with profiling.span("step", device=self.device):
+            with profiling.span("step.forward", device=self.device):
+                loss = self._loss()
+            loss = self._update(loss)
+            return loss if self.mesh is None else collectives.all_reduce(loss, self._group)
 
     def _reduce_gradients(self) -> None:
         if self.mesh is not None:

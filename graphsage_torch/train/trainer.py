@@ -45,6 +45,7 @@ from graphsage_torch.data.graph import Graph, reject_lazy_descriptor, with_cache
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.ops.quantize import is_quantized
 from graphsage_torch.train.config import TrainConfig
+from graphsage_torch.utils import profiling
 from graphsage_torch.utils.checkpoint import save_checkpoint
 from graphsage_torch.utils.metrics import macro_f1, micro_f1
 
@@ -158,14 +159,20 @@ class TrainLoop:
         """Backward and one optimizer update from ``loss``; returns it
         detached. Under ``torch.autograd.set_detect_anomaly`` (the CLI's
         ``--debug-nans``) a loss that is not finite raises
-        ``FloatingPointError`` first (reading it waits for the step)."""
+        ``FloatingPointError`` first (reading it waits for the step).
+
+        Spans: ``step.backward`` (the gradients set to ``None``, which
+        launches nothing, then the backward) and ``step.optimizer`` (the
+        gradients' reduction across ranks and the update)."""
         if torch.is_anomaly_enabled() and not bool(torch.isfinite(loss)):
             raise FloatingPointError(
                 f"loss is {float(loss.detach())} at step {self.step_count} (--debug-nans)")
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self._reduce_gradients()
-        self.optimizer.step()
+        with profiling.span("step.backward", device=loss.device):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with profiling.span("step.optimizer", device=loss.device):
+            self._reduce_gradients()
+            self.optimizer.step()
         self.step_count += 1
         return loss.detach()
 
@@ -261,27 +268,28 @@ class Trainer(TrainLoop):
                 f"config asks for {config.objective!r}: objective='unsupervised' "
                 "trains with UnsupervisedTrainer (run_preset dispatches to it)"
             )
-        graph = self._prepare_graph(model, graph)
-        if model.device != graph.device:
-            raise ValueError(
-                f"the model lies on {model.device} and the graph on {graph.device}"
+        with profiling.phase("trainer.init"):
+            graph = self._prepare_graph(model, graph)
+            if model.device != graph.device:
+                raise ValueError(
+                    f"the model lies on {model.device} and the graph on {graph.device}"
+                )
+            self.model = model
+            self.graph = graph
+            self.cfg = config
+            self.device = graph.device
+            self.optimizer = make_optimizer(model.parameters(), config)
+            self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+            self.test_nodes, self.val_nodes, self.train_nodes = reference_splits(
+                graph.num_nodes, config.seed, config.test_size, config.val_size
             )
-        self.model = model
-        self.graph = graph
-        self.cfg = config
-        self.device = graph.device
-        self.optimizer = make_optimizer(model.parameters(), config)
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
-        self.test_nodes, self.val_nodes, self.train_nodes = reference_splits(
-            graph.num_nodes, config.seed, config.test_size, config.val_size
-        )
-        if len(self.train_nodes) == 0:
-            raise ValueError(
-                f"empty train split: graph has {graph.num_nodes} nodes but "
-                f"test_size={config.test_size} + val_size={config.val_size} "
-                f"consume them all"
-            )
-        self._labels = graph.labels.cpu().numpy()
+            if len(self.train_nodes) == 0:
+                raise ValueError(
+                    f"empty train split: graph has {graph.num_nodes} nodes but "
+                    f"test_size={config.test_size} + val_size={config.val_size} "
+                    f"consume them all"
+                )
+            self._labels = graph.labels.cpu().numpy()
 
     def _prepare_graph(self, model: GraphSAGE, graph: Graph) -> Graph:
         """The graph this trainer samples from: ``graph``, with its layer-0
@@ -301,12 +309,17 @@ class Trainer(TrainLoop):
     # ------------------------------------------------------------------- step
     def step(self, seeds: np.ndarray) -> torch.Tensor:
         """One optimizer step on the seed ids ``seeds``; returns the batch
-        loss as a 0-d tensor on the device (reading it waits for the step)."""
-        ids = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(self.device)
-        frontier = self.model.sample(self.generator, self.graph, ids)
-        return self._update(self.model.loss(
-            self.graph.features, frontier, self.graph.labels[ids.long()],
-            graph=self.graph))
+        loss as a 0-d tensor on the device (reading it waits for the step).
+        Spans: ``step`` around ``step.sample``, ``step.forward`` (the
+        logits and the loss), ``step.backward`` and ``step.optimizer``."""
+        with profiling.span("step", device=self.device):
+            with profiling.span("step.sample", device=self.device):
+                ids = torch.from_numpy(np.asarray(seeds, dtype=np.int32)).to(self.device)
+                frontier = self.model.sample(self.generator, self.graph, ids)
+            with profiling.span("step.forward", device=self.device):
+                loss = self.model.loss(self.graph.features, frontier,
+                                       self.graph.labels[ids.long()], graph=self.graph)
+            return self._update(loss)
 
     def _steps(self):
         for seeds in self.batches(start_step=self.step_count):

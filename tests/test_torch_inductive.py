@@ -4,9 +4,11 @@
 bf16 and int8 tables); the inductive protocol of ``tests/test_inductive.py``
 (train on the subgraph of the first 70% of nodes, evaluate the same model
 on the held-out 30% of the full graph) runs through the port with that
-file's bars. The utilities (``utils/profiling.py``, ``utils/memory.py``)
-are held to JAX's formulas and to their CPU contract.
+file's bars. The utilities (``utils/profiling.py``: its trace and the span
+recorder's file; ``utils/memory.py``) are held to their CPU contract.
 """
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,6 @@ import torch
 from graphsage_tpu.data.graph import induced_subgraph as jax_induced_subgraph
 from graphsage_tpu.data.graph import quantize_graph as jax_quantize_graph
 from graphsage_tpu.data.synthetic import power_law_graph as jax_power_law_graph
-from graphsage_tpu.utils import profiling as jax_profiling
 from graphsage_torch import (
     GraphSAGE,
     ServingEngine,
@@ -114,20 +115,23 @@ def test_unsupervised_embeddings_transfer(setup):
 
 
 # --------------------------------------------------------------- utilities
-def test_profiling_formulas_match_jax(tmp_path):
-    for args in ((1000, 0.5), (1000, 0.0), (7, 1e-3)):
-        assert profiling.edges_per_second(*args) == jax_profiling.edges_per_second(*args)
-    for args in ((100.0, 350.0, 4), (0.0, 1.0, 4), (100.0, 350.0, 0)):
-        assert profiling.scaling_efficiency(*args) == jax_profiling.scaling_efficiency(*args)
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer:
-            x = torch.ones(64, 64) @ torch.ones(64, 64)
-            timer.stop(x)
-    assert len(timer.times) == 3 and timer.mean == float(np.mean(timer.times[1:])) > 0
+def test_profiling_trace_and_span_export(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
         torch.ones(8).sum()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    profiling.reset()
+    profiling.enable()
+    try:
+        with profiling.span("outer"):
+            profiling.count("rows", 8)
+        written = profiling.export(str(tmp_path / "spans.json"))
+    finally:
+        profiling.disable()
+        profiling.reset()
+    with open(tmp_path / "spans.json") as f:
+        assert json.load(f) == written
+    names = [e["name"] for e in written["traceEvents"]]
+    assert names[-2:] == ["outer", "rows"] and "import.graphsage_torch" in names
 
 
 def test_memory_accounting_refuses_the_cpu():

@@ -115,7 +115,11 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    step's card gradients against the CPU's (kernel 3 and the bucketed
    pass). Kernel 3 timed forward and backward (on ``g / deg``) at the
    ``fullbatch`` and ``reddit`` full-graph layer-0 shapes beside
-   ``torch.sparse.mm`` and the bucketed pass. The PPI protocol at the
+   ``torch.sparse.mm`` and the bucketed pass, and at the published Reddit
+   model's f32 rows ([232965, 128] over a graph of Reddit's size and degree,
+   drawn on the card), with the column panels each shape takes
+   (``ops/spmm.py:panels``; 1 at Pubmed, printed with every kernel-3 row)
+   and its rows against the plain version on the first 4000. The PPI protocol at the
    paper's shape (24 graphs of 2372 nodes, 121 labels): train on the union
    of 20, sampled and full-batch, each over the bars of
    ``tests/test_multilabel.py`` on the 4 held out; one held-out graph
@@ -509,6 +513,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def spmm_panels(x: torch.Tensor) -> int:
+    """The column panels kernel 3 walks over table ``x`` on this card."""
+    return spmm_kernel.panels(x.shape[0], x.shape[1], x.element_size(),
+                              spmm_kernel.l2_bytes(x.device.index),
+                              x.data_ptr() % spmm_kernel.LINE == 0)[0]
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor, what: str, tol=TOL,
             magnitude: torch.Tensor | None = None) -> float:
     """Largest |got - want|, after checking it against ``tol``. A sum of
@@ -874,10 +885,11 @@ def scatter_record(label, what, table, idx, mask, st, normalize=True) -> dict:
 def print_records(records) -> None:
     for name, recs in records.items():
         for r in recs:
+            panels = f", {r['panels']} panel(s)" if "panels" in r else ""
             print(f"   {name} [{r['shape']}]: device ms: kernel {r['ms']:.4f}, "
                   f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
                   f"bound {r['bound_ms']:.4f} ({r['bound_by']}); per call "
-                  f"through the wrapper {r['call_ms']:.4f} ms")
+                  f"through the wrapper {r['call_ms']:.4f} ms{panels}")
 
 
 def time_kernels(models, graphs) -> dict:
@@ -956,7 +968,7 @@ def time_kernels(models, graphs) -> dict:
             plain_ms=device_ms(
                 lambda: spmm_kernel.spmm_mean_plain(x, g.indptr, g.edge_dst)),
             library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
-            call_ms=call_ms(kernel),
+            call_ms=call_ms(kernel), panels=spmm_panels(x),
         ))
         # The layer-0 cache's build: the unnormalised sum over the raw
         # features (F = 1433 or 500). Library: sparse.mm with values 1.
@@ -981,7 +993,7 @@ def time_kernels(models, graphs) -> dict:
             plain_ms=device_ms(lambda: spmm_kernel.spmm_mean_plain(
                 raw, g.indptr, g.edge_dst, False)),
             library_ms=device_ms(lib), bound_ms=bd, bound_by=by,
-            call_ms=call_ms(kernel),
+            call_ms=call_ms(kernel), panels=spmm_panels(raw),
         ))
     print_records(out)
     return out
@@ -1657,17 +1669,18 @@ def time_precision_kernels(pg) -> dict:
             label=label, shape=f"{label}, E={e}", ms=device_ms(kernel, "spmm_mean_kernel"),
             plain_ms=device_ms(lambda: spmm_kernel.spmm_mean_plain(x, g.indptr, g.edge_dst)),
             library_ms=lib[0], library_note=lib[1], bound_ms=bd, bound_by=by,
-            bound_row_per_edge_ms=per_edge, call_ms=call_ms(kernel)))
+            bound_row_per_edge_ms=per_edge, call_ms=call_ms(kernel), panels=spmm_panels(x)))
         del a32, a16, rows, vals
         torch.cuda.empty_cache()
     for name, recs in out.items():
         for r in recs:
             extra = (f", one row per edge {r['bound_row_per_edge_ms']:.4f}"
                      if "bound_row_per_edge_ms" in r else "")
+            panels = f", {r['panels']} panel(s)" if "panels" in r else ""
             print(f"   {name} [{r['shape']}]: device ms: kernel {r['ms']:.4f}, "
                   f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
                   f"({r['library_note']}), bound {r['bound_ms']:.4f} ({r['bound_by']})"
-                  f"{extra}; per call through the wrapper {r['call_ms']:.4f} ms")
+                  f"{extra}; per call through the wrapper {r['call_ms']:.4f} ms{panels}")
     return out
 
 
@@ -1961,10 +1974,11 @@ def time_full_graph_spmm(fb_graph, reddit, reddit_model) -> list:
                 call_ms=call_ms(kernel, iters=20),
                 bucketed_ms=device_ms(lambda: bucketed(arg, normalize), iters=5),
                 bucketed_call_ms=call_ms(lambda: bucketed(arg, normalize), iters=5, warmup=1),
-                bucketed_plan_s=plan_s,
+                bucketed_plan_s=plan_s, panels=spmm_panels(arg),
             )
             out.append(rec)
-            print(f"   spmm_mean [{rec['shape']}]: device ms: kernel {rec['ms']:.4f}, plain "
+            print(f"   spmm_mean [{rec['shape']}] ({rec['panels']} panel(s)): device ms: "
+                  f"kernel {rec['ms']:.4f}, plain "
                   f"{rec['plain_ms']:.4f}, sparse.mm {rec['library_ms']:.4f} "
                   f"({rec['library_note']}), bucketed pass {rec['bucketed_ms']:.4f} (per "
                   f"call {rec['bucketed_call_ms']:.4f}; plan built in {plan_s:.2f} s on the "
@@ -2057,6 +2071,80 @@ def ppi_runs(main_launches) -> None:
           f"1e-4 of 0 left out); micro-F1 {got_f1:.4f} against evaluate's {want_f1:.4f}")
 
 
+# The published Reddit graph's size (perfbench/configs/reddit.json): 232,965
+# nodes, 57,307,946 undirected pairs, 114,615,892 edge slots, degree 492.
+REDDIT_NODES, REDDIT_PAIRS = 232_965, 57_307_946
+
+
+def reddit_degree_csr(seed: int = 17) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(indptr, edge_dst)`` of a graph of the published Reddit graph's size
+    and degree, drawn on the card: one end of each pair Zipf-like (exponent
+    0.75 over a random order of the nodes), the other uniform, as the
+    benchmark's generator draws half its ends; repeated pairs kept."""
+    dev = torch.device("cuda")
+    n = REDDIT_NODES
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cdf = torch.cumsum((torch.randperm(n, generator=g, device=dev).double() + 1).pow(-0.75), 0)
+    cdf /= cdf[-1].clone()
+    a = torch.searchsorted(cdf, torch.rand(REDDIT_PAIRS, generator=g, device=dev,
+                                           dtype=torch.float64)).clamp_(max=n - 1)
+    b = torch.randint(0, n, (REDDIT_PAIRS,), generator=g, device=dev)
+    src, dst = torch.cat([a, b]), torch.cat([b, a])
+    del a, b, cdf
+    edge_dst = dst[torch.argsort(src * n + dst)].to(torch.int32)
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(src, minlength=n), 0)
+    return indptr, edge_dst
+
+
+def time_published_reddit_spmm(check_rows: int = 4000) -> list:
+    """Kernel 3 forward (normalised) and backward (unnormalised, on
+    ``g / deg``) at the published Reddit model's f32 rows: X [232965, 128]
+    (119 MB, 2.4x the L2) over ``reddit_degree_csr``, with its column
+    panels, beside ``torch.sparse.mm`` and the bound (X once, and one row
+    per edge). The plain version would gather 58.7 GB: it checks the first
+    ``check_rows`` rows only, and is not timed."""
+    indptr, edge_dst = reddit_degree_csr()
+    n, f, e = REDDIT_NODES, 128, 2 * REDDIT_PAIRS
+    rng = np.random.default_rng(53)
+    x = torch.from_numpy(rng.standard_normal((n, f), dtype=np.float32)).cuda()
+    deg = (indptr[1:] - indptr[:-1]).long()
+    grad = torch.from_numpy(rng.standard_normal((n, f), dtype=np.float32)).cuda()
+    gs = grad / deg.clamp(min=1)[:, None]
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device), deg)
+    out = []
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        mean = torch.sparse_csr_tensor(indptr.long(), edge_dst.long(),
+                                       (1.0 / deg.clamp(min=1).float())[rows], size=(n, n))
+        ones = torch.sparse_csr_tensor(indptr.long(), edge_dst.long(),
+                                       torch.ones(e, device=x.device), size=(n, n))
+    del rows
+    head = indptr[:check_rows + 1]
+    for direction, normalize, arg, lib in (("forward", True, x, mean),
+                                           ("backward on g/deg", False, gs, ones)):
+        kernel = lambda: spmm_kernel.spmm_mean(arg, indptr, edge_dst, normalize)  # noqa: E731
+        got = kernel()[:check_rows]
+        max_err(got, spmm_kernel.spmm_mean_plain(arg, head, edge_dst, normalize),
+                f"spmm_mean published reddit {direction}", TOL,
+                magnitude=spmm_kernel.spmm_mean_plain(arg.abs(), head, edge_dst, normalize))
+        bd, by = bound(2 * n * f * 4 + (n + 1) * 4 + e * 4, e * f + n * f * normalize)
+        per_edge, _ = bound(e * f * 4 + n * f * 4 + (n + 1) * 4 + e * 4, 0)
+        rec = dict(
+            label=f"published reddit {direction}",
+            shape=f"published reddit model's rows, {direction}: X [{n},{f}] f32, E={e}",
+            ms=device_ms(kernel, "spmm_mean_kernel", iters=10), plain_ms=None,
+            library_ms=device_ms(lambda: torch.sparse.mm(lib, arg), iters=10),
+            bound_ms=bd, bound_by=by, bound_row_per_edge_ms=per_edge,
+            call_ms=call_ms(kernel, iters=10, warmup=2), panels=spmm_panels(arg))
+        out.append(rec)
+        print(f"   spmm_mean [{rec['shape']}] ({rec['panels']} panel(s)): device ms: kernel "
+              f"{rec['ms']:.4f}, sparse.mm {rec['library_ms']:.4f}, bound {bd:.4f} ({by}), "
+              f"one row per edge {per_edge:.4f}; per call through the wrapper "
+              f"{rec['call_ms']:.4f} ms")
+    return out
+
+
 def samplers_full_batch_multilabel(pg, pubmed, pubmed_root, results, timings,
                                    main_launches) -> None:
     """The phases of the windowed sampler, full-batch training and the
@@ -2093,6 +2181,9 @@ def samplers_full_batch_multilabel(pg, pubmed, pubmed_root, results, timings,
         timings["spmm_mean"] += time_full_graph_spmm(
             fb_graph, pg["reddit"], results["reddit full-graph"]["trainer"].model)
     del fb_graph
+    torch.cuda.empty_cache()
+    with phase("timings, kernel 3 at the published reddit model's rows"):
+        timings["spmm_mean"] += time_published_reddit_spmm()
     torch.cuda.empty_cache()
     with phase("multilabel: PPI, sampled and full-batch"):
         ppi_runs(main_launches)

@@ -7,6 +7,8 @@ a machine that has only PyTorch:
     python -m pytest -m gpu --noconftest tests/test_torch_kernels.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ import graphsage_torch.ops.gather_mean as gm
 import graphsage_torch.ops.scatter_mean as sm
 import graphsage_torch.ops.spmm as sp
 from graphsage_torch.ops.aggregate import gather_mean, spmm_mean
+from graphsage_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -678,6 +681,127 @@ def test_spmm_bf16_gradient_matches_plain(cuda, n, f):
     sp._SpmmMean.apply(x_plain, indptr, edge_dst, True, True,
                        sp.spmm_mean_plain).backward(g.to(torch.bfloat16))
     torch.testing.assert_close(x_kern.grad.float(), x_plain.grad.float(), **BF16_TOL)
+
+
+# ------------------------------------------------- kernel 3's column panels
+# A table larger than ``sp.L2_SHARE`` of the card's L2 is walked one column
+# panel at a time (``sp.panels``). First tables that engage the panels on the
+# card's own L2 (f32 [250000, 128] is 128 MB, one line a row 32 MB); then
+# the small graphs above with the L2 size patched, so that the panel pass
+# meets every kind of chunk boundary.
+PANEL_N = 250_000
+
+
+def _panel_plan(x):
+    return sp.panels(x.shape[0], x.shape[1], x.element_size(), sp.l2_bytes(x.device.index),
+                     x.data_ptr() % sp.LINE == 0)
+
+
+def _panel_csr(dev, seed=5):
+    """About 2.5M edges over PANEL_N rows, every seventh row empty, and row 1 a
+    hub of 60000 edges that many chunks cut."""
+    deg = np.random.default_rng(seed).poisson(10, PANEL_N)
+    deg[::7] = 0
+    deg[1] = 60_000
+    return _csr_from_degrees(deg, seed=seed, dev=dev)
+
+
+def _spmm_counted(x, indptr, edge_dst, normalize):
+    """Two launches with the recorder on: both results, the launches and the
+    panels counted."""
+    profiling.reset()
+    profiling.enable()
+    try:
+        before = sp.launches
+        got = sp.spmm_mean(x, indptr, edge_dst, normalize)
+        again = sp.spmm_mean(x, indptr, edge_dst, normalize)
+        torch.cuda.synchronize()
+        counts = {e["name"]: e["args"]["value"]
+                  for e in profiling.export()["traceEvents"] if e["ph"] == "C"}
+    finally:
+        profiling.disable()
+        profiling.reset()
+    return got, again, sp.launches - before, counts.get("agg.spmm_mean.panels")
+
+
+def _assert_spmm_bf16_close(got, x, indptr, edge_dst, normalize):
+    want = sp.spmm_mean_plain(x, indptr, edge_dst, normalize).float()
+    magnitude = sp.spmm_mean_plain(x.abs(), indptr, edge_dst, normalize).float()
+    tol = BF16_TOL["atol"] + BF16_TOL["rtol"] * magnitude
+    assert ((got.float() - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype,num_panels", [(torch.float32, 4), (torch.bfloat16, 2)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_spmm_panels_above_the_l2_budget(cuda, dtype, num_panels, normalize):
+    indptr, edge_dst = _panel_csr(cuda)
+    x = torch.randn(PANEL_N, 128, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    assert _panel_plan(x) == (num_panels, 128 // num_panels)
+    got, again, launches, panels = _spmm_counted(x, indptr, edge_dst, normalize)
+    assert launches == 2 and panels == 2 * num_panels  # one launch a call, P panels each
+    assert torch.equal(got, again)  # no atomics: bitwise repeatable
+    assert got.dtype == dtype and (got[::7] == 0).all()
+    if dtype == torch.float32:
+        _assert_spmm_close(got, x, indptr, edge_dst, normalize)
+    else:
+        _assert_spmm_bf16_close(got, x, indptr, edge_dst, normalize)
+
+
+def test_spmm_panels_gradient_matches_plain(cuda):
+    indptr, edge_dst = _symmetric_csr(PANEL_N, 1_000_000, seed=7, dev=cuda)
+    x = torch.randn(PANEL_N, 128, generator=torch.Generator().manual_seed(1)).to(cuda)
+    g = torch.randn(PANEL_N, 128, generator=torch.Generator().manual_seed(2)).to(cuda)
+    assert _panel_plan(x)[0] > 1
+    x_kern = x.clone().requires_grad_(True)
+    before = sp.launches
+    sp.spmm_mean(x_kern, indptr, edge_dst).backward(g)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 2  # the forward, and the transpose on g / deg
+    x_plain = x.clone().requires_grad_(True)
+    sp._SpmmMean.apply(x_plain, indptr, edge_dst, True, True,
+                       sp.spmm_mean_plain).backward(g)
+    torch.testing.assert_close(x_kern.grad, x_plain.grad, **TOL)
+
+
+# 1 element in: single-element loads; 4 (16 bytes): 16-byte loads, but each
+# row's line is split in two.
+@pytest.mark.parametrize("offset", [1, 4])
+def test_spmm_table_off_the_line_takes_one_pass(cuda, offset):
+    indptr, edge_dst = _panel_csr(cuda)
+    flat = torch.randn(PANEL_N * 128 + offset, generator=torch.Generator().manual_seed(4))
+    x = flat.to(cuda)[offset:].view(PANEL_N, 128)
+    assert x.is_contiguous() and _panel_plan(x) == (1, 128)
+    got, again, launches, panels = _spmm_counted(x, indptr, edge_dst, True)
+    assert launches == 2 and panels == 2
+    assert torch.equal(got, again)
+    _assert_spmm_close(got, x, indptr, edge_dst, True)
+
+
+@pytest.mark.parametrize("dtype,f,panel_bytes", [
+    (torch.float32, 128, 128),   # 4 panels, 4 edges a load
+    (torch.float32, 128, 256),   # 2 panels, 2 edges a load
+    (torch.float32, 96, 128),    # 3 panels
+    (torch.float32, 512, 1024),  # 2 panels of two warp-wide pieces a row
+    (torch.bfloat16, 128, 128),  # 2 panels, 4 edges a load
+])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("graph", list(SPMM_GRAPHS))
+def test_spmm_panels_at_chunk_boundaries(cuda, monkeypatch, graph, dtype, f, panel_bytes,
+                                         normalize):
+    indptr, edge_dst = _csr_from_degrees(SPMM_GRAPHS[graph], seed=f, dev=cuda)
+    n = indptr.numel() - 1
+    x = torch.randn(n, f, generator=torch.Generator().manual_seed(f)).to(cuda, dtype)
+    # An L2 whose budget holds exactly one panel of panel_bytes a row.
+    monkeypatch.setattr(sp, "l2_bytes", lambda index: math.ceil(n * panel_bytes / sp.L2_SHARE))
+    num_panels = f * x.element_size() // panel_bytes
+    assert _panel_plan(x) == (num_panels, f // num_panels)
+    got, again, launches, panels = _spmm_counted(x, indptr, edge_dst, normalize)
+    assert launches == 2 and panels == 2 * num_panels
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        _assert_spmm_close(got, x, indptr, edge_dst, normalize)
+    else:
+        _assert_spmm_bf16_close(got, x, indptr, edge_dst, normalize)
 
 
 @pytest.mark.parametrize("n,f,b,k", [

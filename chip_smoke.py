@@ -69,13 +69,14 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    forward and backward, kernels 1 and 2 never), again on the heavy-tailed
    stand-in at lr 0.1, ``pubmed_layer0_cached`` (the cache built once, at
    construction: one launch of kernel 3; its steps launch no kernel),
-   ``cora_pool`` and ``cora_lstm`` (100 steps each, no kernel), counters set
-   to 0 just before each and read just after; the learning bar, host and
+   ``cora_pool`` and ``cora_lstm`` (100 steps each, no kernel in a step;
+   ``cora_pool``'s full-graph evaluation launches the segment max once per
+   layer), counters set to 0 just before each and read just after; the learning bar, host and
    device ms per step and the idle share. Card-against-CPU gradients of
    fresh ``pubmed_layer0_full`` (kernel 3 in the backward), ``cora_pool`` and
    ``cora_lstm`` models. Serving a ``pubmed_layer0_full`` and a
-   ``cora_pool`` model through both tiers, sampled == table at covering
-   fanouts. One line per Pubmed-sized graph with the step times of the
+   ``cora_pool`` model through both tiers (``cora_pool``'s table tier
+   launches the segment max), sampled == table at covering fanouts. One line per Pubmed-sized graph with the step times of the
    three layer-0 modes (``pubmed``, ``pubmed_layer0_full``,
    ``pubmed_layer0_cached``) on that graph, and the device time of
    ``pubmed_layer0_full``'s table gather by indexing against ``gather``.
@@ -124,6 +125,14 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    of 20, sampled and full-batch, each over the bars of
    ``tests/test_multilabel.py`` on the 4 held out; one held-out graph
    served through the table tier with the trainer's multi-hot predictions.
+   Then the segment max at the ``reddit-pool`` cell's shape (pooled rows
+   [232965, 512] f32 over a Reddit-sized graph drawn on the card, with full
+   ties, ties at 0 and above it planted): the forward in the planner's
+   panels bitwise equal to one pass and, on the first 1000 rows, to the
+   plain version, with ``agg.segment_max.panels`` counted; the backward
+   through both routes against the plain one (``TOL`` of the terms'
+   magnitude); device ms and per call of each beside the bound. This shape
+   is the segment max's row on the kernels line.
 12. unsupervised training, checkpoints, inductive serving: ``run_preset`` of
    ``cora_unsup`` at full width (150 steps of 3072 group seeds: kernels 1
    and 2 once per step, kernel 3 once per layer in the probe's evaluation)
@@ -297,6 +306,7 @@ import torch.nn.functional as F
 import graphsage_torch.ops.gather_dma as dma_kernel
 import graphsage_torch.ops.gather_mean as gm_kernel
 import graphsage_torch.ops.scatter_mean as sm_kernel
+import graphsage_torch.ops.segment_max as smax_kernel
 import graphsage_torch.ops.spmm as spmm_kernel
 from graphsage_torch import (
     PRESETS,
@@ -361,7 +371,7 @@ from graphsage_torch.train.unsupervised import (
     UnsupervisedFullyShardedTrainer,
     UnsupervisedShardedTrainer,
 )
-from graphsage_torch.utils import memory
+from graphsage_torch.utils import memory, profiling
 from graphsage_torch.utils.checkpoint import restore_checkpoint
 from graphsage_torch.utils.metrics import micro_f1
 
@@ -433,6 +443,15 @@ KERNELS = {
         replaces="graphsage_tpu/ops/pallas_onehot.py:127",
         module=sm_kernel,
         counter="sum_launches",
+    ),
+    # Port-only: the JAX package's full-graph max is an XLA scatter-max. Its
+    # kernels line reads the reddit-pool cell's shape ("head"), not Pubmed's.
+    "segment_max": dict(
+        route="cuda",
+        source="graphsage_torch/csrc/segment_max.cu",
+        replaces="none (graphsage_tpu/ops/aggregate.py:239 segment_max_csr, XLA)",
+        module=smax_kernel,
+        head="reddit-pool cell forward",
     ),
 }
 
@@ -1043,9 +1062,12 @@ def serve_tier(model, graph, requests, mode, **kw) -> tuple[list, dict, dict]:
 
 def tier_kernels(model) -> tuple[str | None, str | None]:
     """The kernel the table tier and the sampled tier of ``model`` launch
-    (``None``: none of the four): the full-graph mean runs kernel 3; the
-    sampled mean layer 0 kernel 1, or kernel 3 under ``layer0="full"``;
-    maxpool and lstm are plain PyTorch ops."""
+    (``None``: none): the full-graph mean runs kernel 3, the full-graph
+    maxpool the segment max; the sampled mean layer 0 kernel 1, or kernel 3
+    under ``layer0="full"``; the sampled maxpool and lstm are plain PyTorch
+    ops."""
+    if model.aggregator == "maxpool":
+        return "segment_max", None
     if model.aggregator != "mean":
         return None, None
     if model.layer0 == "full":
@@ -1156,9 +1178,11 @@ def step_launches(model, num_nodes: int, batch: int) -> dict:
 
 def eval_launches(model, train_cfg) -> dict:
     """Kernel launches of the run's one evaluation: the sampled forward with
-    ``eval_fanouts``, else the full-graph forward (kernel 3 per mean
-    layer)."""
+    ``eval_fanouts``, else the full-graph forward (kernel 3 per mean layer,
+    the segment max per maxpool layer)."""
     want = {name: 0 for name in KERNELS}
+    if model.aggregator == "maxpool" and train_cfg.eval_fanouts is None:
+        want["segment_max"] = model.num_layers
     if model.aggregator != "mean":
         return want
     if train_cfg.eval_fanouts is None:
@@ -2143,6 +2167,137 @@ def time_published_reddit_spmm(check_rows: int = 4000) -> list:
               f"one row per edge {per_edge:.4f}; per call through the wrapper "
               f"{rec['call_ms']:.4f} ms")
     return out
+
+
+# The reddit-pool cell's pooled width (MaxPoolingAggregator, model_size
+# small), and the columns planted as one value on every node: the cell's
+# model leaves 53-54 of layer 1's 512 pooled columns so.
+POOL_WIDTH = 512
+POOL_CONSTANT_COLS = 48
+
+
+@contextlib.contextmanager
+def l2_of(nbytes: int):
+    """The panel planner reads an L2 of ``nbytes`` for a while (``1 << 40``:
+    every table takes one pass)."""
+    saved = spmm_kernel.l2_bytes
+    spmm_kernel.l2_bytes = lambda index: nbytes
+    try:
+        yield
+    finally:
+        spmm_kernel.l2_bytes = saved
+
+
+def segment_max_panels(fn) -> int:
+    """The counter ``agg.segment_max.panels`` over one call of ``fn``."""
+    profiling.reset()
+    profiling.enable()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        counts = {e["name"]: e["args"]["value"] for e in profiling.export()["traceEvents"]
+                  if e["ph"] == "C"}
+    finally:
+        profiling.disable()
+        profiling.reset()
+    return counts.get("agg.segment_max.panels", 0)
+
+
+def pool_rows(n: int, f: int, seed: int) -> torch.Tensor:
+    """ReLU outputs ``[n, f]`` f32 on the card with the cell's kinds of tie:
+    the first ``POOL_CONSTANT_COLS`` columns one value on every node (every
+    row ties with all its neighbours), the next column 0 everywhere (every
+    max is 0), a third of the rest in quarter steps (ties above 0), the
+    others Gaussians through the ReLU."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.relu(torch.randn((n, f), generator=g, device="cuda"))
+    k = POOL_CONSTANT_COLS
+    x[:, :k] = 0.5
+    x[:, k] = 0.0
+    q = slice(k + 1, k + 1 + (f - k - 1) // 3)
+    x[:, q] = torch.round(x[:, q] * 4) / 4
+    return x
+
+
+def time_pool_cell_segment_max(check_rows: int = 1000) -> tuple[list, float]:
+    """The segment max at the reddit-pool cell's shape: pooled rows [232965,
+    512] f32 (``pool_rows``) over ``reddit_degree_csr``, symmetric as the
+    cell's graph. The forward in the planner's panels and in one pass:
+    bitwise equal (values and record), and on the first ``check_rows`` rows
+    to the plain version (the whole plain gather is 234.7 GB); the counter
+    ``agg.segment_max.panels`` of each. The backward on a gradient that is 0
+    past those rows, through both routes (full ties through kernel 3, and
+    through the tie pass's atomics) against the plain backward, each element
+    within ``TOL`` of its terms' magnitude. Device ms (profiler) and per call
+    (CUDA events) of the forward in both plans and of the backward as the
+    model runs it, beside the bound (``segment_max_bytes``,
+    ``segment_max_backward_bytes``) and one row read per edge. Returns the
+    records and the backward's largest error."""
+    indptr, edge_dst = reddit_degree_csr()
+    n, f, e = REDDIT_NODES, POOL_WIDTH, 2 * REDDIT_PAIRS
+    x = pool_rows(n, f, seed=59)
+    head = indptr[:check_rows + 1]
+    want, want_rec = smax_kernel.segment_max_plain(x, head, edge_dst)
+    forward = lambda: smax_kernel._launch(x, indptr, edge_dst)  # noqa: E731
+    out, rec = forward()
+    panels = segment_max_panels(forward)
+    with l2_of(1 << 40):
+        out_1, rec_1 = forward()
+        one_pass = segment_max_panels(forward)
+    if panels != spmm_panels(x) or one_pass != 1:
+        raise AssertionError(f"segment max panels {panels} and {one_pass}, want "
+                             f"{spmm_panels(x)} and 1")
+    for what, got, ref in (("one pass == panels", (out_1, rec_1), (out, rec)),
+                           (f"panels == plain, first {check_rows} rows",
+                            (out[:check_rows], rec[:check_rows]), (want, want_rec))):
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"segment max at the reddit-pool cell: {what} not bitwise")
+    del out_1, rec_1
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    g = torch.zeros_like(x)
+    g[:check_rows] = torch.randn((check_rows, f), generator=gen, device="cuda")
+    plain = smax_kernel.segment_max_backward_plain(g[:check_rows], x, want, want_rec, head,
+                                                   edge_dst)
+    size = smax_kernel.segment_max_backward_plain(g[:check_rows].abs(), x, want, want_rec,
+                                                  head, edge_dst)
+    err = 0.0
+    for symmetric in (True, False):
+        got = smax_kernel._launch_backward(g, x, out, rec, indptr, edge_dst, symmetric=symmetric)
+        route = "full ties through kernel 3" if symmetric else "full ties in the tie pass"
+        err = max(err, max_err(got, plain, f"segment max backward at the reddit-pool cell, "
+                               f"{route}", TOL, magnitude=size))
+    del plain, size, want, want_rec, got
+    g = torch.randn((n, f), generator=gen, device="cuda")
+    backward = functools.partial(smax_kernel._launch_backward, g, x, out, rec, indptr, edge_dst,
+                                 symmetric=True)
+    fwd_bound = bound(smax_kernel.segment_max_bytes(n, f, 4, e), e * f)
+    per_edge, _ = bound(e * f * 4 + smax_kernel.segment_max_bytes(n, f, 4, e) - n * f * 4, 0)
+    records = []
+    for label, l2, fn, (bd, by), row_per_edge in (
+            ("reddit-pool cell forward", None, forward, fwd_bound, per_edge),
+            ("reddit-pool cell forward, one pass", 1 << 40, forward, fwd_bound, per_edge),
+            ("reddit-pool cell backward", None, backward,
+             bound(smax_kernel.segment_max_backward_bytes(n, f, 4), 0), None)):
+        with l2_of(l2) if l2 is not None else contextlib.nullcontext():
+            rec_ = dict(
+                label=label, shape=f"{label}: X [{n},{f}] f32, E={e}, "
+                f"{POOL_CONSTANT_COLS} columns tied in full",
+                ms=device_ms(fn, None if "backward" in label else "segment_max_kernel",
+                             iters=10),
+                plain_ms=None, library_ms=None, bound_ms=bd, bound_by=by,
+                bound_row_per_edge_ms=row_per_edge, call_ms=call_ms(fn, iters=10, warmup=2),
+                panels=one_pass if l2 is not None else panels)
+        records.append(rec_)
+        print(f"   segment_max [{rec_['shape']}] ({rec_['panels']} panel(s)): device ms "
+              f"{rec_['ms']:.4f}, per call (CUDA events) {rec_['call_ms']:.4f}, bound "
+              f"{bd:.4f} ({by})" + (f", one row per edge {row_per_edge:.4f}"
+                                   if row_per_edge is not None else ""))
+    print(f"   segment max at the reddit-pool cell: forward bitwise in {panels} panels and "
+          f"in one pass, and the plain version's on {check_rows} rows; backward within "
+          f"{TOL} of the terms' magnitude on both routes (largest error {err:.3g})")
+    del x, g, out, rec, indptr, edge_dst
+    torch.cuda.empty_cache()
+    return records, err
 
 
 def samplers_full_batch_multilabel(pg, pubmed, pubmed_root, results, timings,
@@ -4550,6 +4705,10 @@ def main() -> int:
                             batch_scales=(1, 2, 4, 8, 16))
     samplers_full_batch_multilabel(pg, graphs["pubmed"], roots["pubmed"], results,
                                    timings, main_launches)
+    with phase("the segment max at the reddit-pool cell's shape"):
+        recs, e = time_pool_cell_segment_max()
+        timings["segment_max"] += recs
+        errs["segment_max"] = max(errs["segment_max"], e)
     unsupervised_checkpoint_inductive(graphs, roots, results, timings, main_launches)
     compact_launches = {name: 0 for name in COMPACT_KERNELS}
     parallel(graphs, roots, results, timings, errs, main_launches, compact_launches)
@@ -4569,7 +4728,7 @@ def main() -> int:
                 for name, base in MODES_KERNELS.items()]
     for name, meta, launches in entries:
         recs = timings[name]
-        head = next(r for r in recs if r["label"] == "pubmed")
+        head = next(r for r in recs if r["label"] == meta.get("head", "pubmed"))
         kernels.append(dict(
             name=name, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], launches=launches,

@@ -73,6 +73,12 @@
 // shuffles, in a fixed order (the result stays bitwise repeatable, and
 // differs from one pass's in rounding only). At Reddit the rows arrive at
 // 7.2 TB/s again: 8.0-8.2 ms a call.
+//
+// Live columns: given `live`, a column count on the card (null: all), the
+// panels that start at or past it return at once and the fix-up leaves their
+// columns, which stay unwritten. The segment max's backward
+// (segment_max.cu) sums its full ties' columns, compacted to the front on
+// the card, without reading their number back to the host.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,77 +86,21 @@
 
 #include <type_traits>
 
+#include "merge_path.cuh"
 #include "rows.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using merge_path::evict_last_policy;
+using merge_path::kFull;
+using merge_path::kLine;
+using merge_path::kWarp;
+using merge_path::load_kept;
+using merge_path::merge_search;
+using merge_path::store_streaming;
+
 constexpr int kWarpsPerBlock = 8;
 constexpr int kDepth = 4;  // row loads in flight per lane
-constexpr int kLine = 128;  // bytes of an L2 line: a panel is a whole number of them a row
-constexpr unsigned kFull = 0xffffffffu;
-
-// An L2 policy that keeps the lines it loads ahead of others (the panel's
-// rows, against the streams of a pass).
-__device__ __forceinline__ uint64_t evict_last_policy() {
-  uint64_t policy;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, %1;" : "=l"(policy) : "f"(1.0f));
-  return policy;
-}
-
-// 16 bytes of a panel's row under `policy`, not kept in L1 (rows are rarely
-// read twice by one SM).
-__device__ __forceinline__ uint4 load_kept(const void* p, uint64_t policy) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "l"(policy));
-  return v;
-}
-
-// VEC f32 values rounded to T and written in 16-byte pieces, evict-first.
-template <typename T, int VEC>
-__device__ __forceinline__ void store_streaming(T* p, const float* v) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
-  static_assert(VEC % kPer == 0);
-#pragma unroll
-  for (int i = 0; i < VEC / kPer; ++i) {
-    alignas(16) T e[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) e[j] = rows::from_f32<T>(v[i * kPer + j]);
-    __stcs(reinterpret_cast<uint4*>(p) + i, *reinterpret_cast<const uint4*>(e));
-  }
-}
-
-// The first x in [lo, hi) with ptr[x+1-base] > d - x - 1, else hi: the row
-// coordinate where diagonal d of the merge path crosses indptr (ptr holds
-// indptr from row `base` on). The predicate is monotone in x, so each round
-// the block's threads (or one warp's lanes) probe evenly spaced points and
-// the count of probes below the path narrows the range.
-template <int kProbes>
-__device__ __forceinline__ int merge_search(const int32_t* ptr, int base, int d,
-                                            int lo, int hi, int* s_count) {
-  const int t = kProbes == kWarp ? threadIdx.x % kWarp : threadIdx.x;
-  while (lo < hi) {  // uniform: every probe sees the same lo and hi
-    const int step = (hi - lo + kProbes - 1) / kProbes;
-    const int p = lo + t * step;
-    const bool below = p < hi && ptr[p + 1 - base] <= d - p - 1;
-    int m = __popc(__ballot_sync(kFull, below));
-    if constexpr (kProbes > kWarp) {  // sum the warps' counts
-      if (t % kWarp == 0) s_count[t / kWarp] = m;
-      __syncthreads();
-      m = 0;
-#pragma unroll
-      for (int w = 0; w < kProbes / kWarp; ++w) m += s_count[w];
-      __syncthreads();
-    }
-    if (m == 0) return lo;
-    const int last = lo + (m - 1) * step;  // the last probe below the path
-    lo = last + 1;
-    hi = min(last + step, hi);
-  }
-  return lo;
-}
 
 // One pass over columns [blockIdx.y * panel_cols, + panel_cols) (all of
 // them when panel_cols = F). carry and head: one f32 row per chunk each, ld
@@ -166,7 +116,7 @@ spmm_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ indptr,
                  const int32_t* __restrict__ edge_dst, T* __restrict__ out,
                  float* __restrict__ carry, float* __restrict__ head,
                  int32_t* __restrict__ carry_row, int N, int F, int ld, int normalize,
-                 int chunk, int num_chunks, int panel_cols) {
+                 int chunk, int num_chunks, int panel_cols, const int32_t* __restrict__ live) {
   using V = rows::Vec<T, VEC>;
   static_assert(!kOdd || (std::is_same_v<T, __nv_bfloat16> && VEC == 2));
   static_assert(!kPanels || (!kOdd && V::kBytes == 16));
@@ -175,6 +125,8 @@ spmm_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ indptr,
   constexpr int kLanes = kWarp / kGroups;  // lanes on one edge's row piece
   extern __shared__ int32_t smem[];  // window of indptr, then of edge_dst
   __shared__ int s_count[kWarpsPerBlock];
+  // A panel past the live columns does nothing (uniform across the block).
+  if (live != nullptr && static_cast<int>(blockIdx.y) * panel_cols >= *live) return;
   const int lane = threadIdx.x % kWarp;
   const int group = lane / kLanes;
   const bool first_panel = blockIdx.y == 0;
@@ -323,17 +275,20 @@ spmm_mean_kernel(const T* __restrict__ x, const int32_t* __restrict__ indptr,
 
 // One warp per chunk; the first chunk that carries row r sums the carries of
 // r in chunk order, adds the head piece of the chunk where r ends (the first
-// after the run that does not carry r), scales and writes row r.
+// after the run that does not carry r), scales and writes row r: its columns
+// up to the end of the last live panel.
 template <typename T, int VEC, bool kOdd>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 spmm_mean_kernel_fixup(const int32_t* __restrict__ indptr, T* __restrict__ out,
                        const float* __restrict__ carry, const float* __restrict__ head,
                        const int32_t* __restrict__ carry_row, int F, int ld, int normalize,
-                       int num_chunks) {
+                       int num_chunks, int panel_cols, const int32_t* __restrict__ live) {
   using V = rows::Vec<float, VEC>;
   const int lane = threadIdx.x % kWarp;
   const int c = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (c >= num_chunks) return;
+  const int f_end =
+      live == nullptr ? F : min(F, (*live + panel_cols - 1) / panel_cols * panel_cols);
+  if (c >= num_chunks || f_end == 0) return;  // no live panel wrote carry_row
   const int r = carry_row[c];
   if (r < 0 || (c > 0 && carry_row[c - 1] == r)) return;
   // The chunks carrying r are consecutive: find where the run ends.
@@ -347,9 +302,9 @@ spmm_mean_kernel_fixup(const int32_t* __restrict__ indptr, T* __restrict__ out,
   }
   const float denom = normalize
       ? static_cast<float>(max(indptr[r + 1] - indptr[r], 1)) : 1.f;
-  for (int c0 = 0; c0 < F; c0 += kWarp * VEC) {
+  for (int c0 = 0; c0 < f_end; c0 += kWarp * VEC) {
     const int col = c0 + lane * VEC;
-    if (col >= F) break;
+    if (col >= f_end) break;
     float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
@@ -374,7 +329,7 @@ spmm_mean_kernel_fixup(const int32_t* __restrict__ indptr, T* __restrict__ out,
 template <typename T, int VEC, bool kOdd = false, int kGroups = 1, bool kPanels = false>
 int launch(const void* x, const void* indptr, const void* edge_dst, void* out,
            void* scratch, int N, int F, int normalize, int chunk, int num_chunks,
-           int panels, void* stream) {
+           int panels, const void* live, void* stream) {
   const int ld = F + F % 2;  // scratch row stride, as the wrapper sizes it
   const int threads = kWarp * kWarpsPerBlock;
   const int blocks = (num_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -388,11 +343,12 @@ int launch(const void* x, const void* indptr, const void* edge_dst, void* out,
   spmm_mean_kernel<T, VEC, kOdd, kGroups, kPanels><<<dim3(blocks, panels), threads, smem, s>>>(
       static_cast<const T*>(x), ip, static_cast<const int32_t*>(edge_dst),
       static_cast<T*>(out), carry, head, carry_row, N, F, ld, normalize, chunk,
-      num_chunks, F / panels);
+      num_chunks, F / panels, static_cast<const int32_t*>(live));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   spmm_mean_kernel_fixup<T, VEC, kOdd><<<blocks, threads, 0, s>>>(
-      ip, static_cast<T*>(out), carry, head, carry_row, F, ld, normalize, num_chunks);
+      ip, static_cast<T*>(out), carry, head, carry_row, F, ld, normalize, num_chunks,
+      F / panels, static_cast<const int32_t*>(live));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,19 +361,19 @@ bool aligned(const void* p, size_t bytes) {
 template <typename T, int VEC>
 int launch_panels(const void* x, const void* indptr, const void* edge_dst, void* out,
                   void* scratch, int N, int F, int normalize, int chunk, int num_chunks,
-                  int panels, void* stream) {
+                  int panels, const void* live, void* stream) {
   static_assert(VEC * sizeof(T) == 16);
   const size_t bytes = static_cast<size_t>(F) * sizeof(T) / panels;  // a panel's row
   if (F % panels != 0 || bytes % kLine != 0 || !aligned(x, kLine))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bytes == kLine)
     return launch<T, VEC, false, 4, true>(x, indptr, edge_dst, out, scratch, N, F, normalize,
-                                          chunk, num_chunks, panels, stream);
+                                          chunk, num_chunks, panels, live, stream);
   if (bytes == 2 * kLine)
     return launch<T, VEC, false, 2, true>(x, indptr, edge_dst, out, scratch, N, F, normalize,
-                                          chunk, num_chunks, panels, stream);
+                                          chunk, num_chunks, panels, live, stream);
   return launch<T, VEC, false, 1, true>(x, indptr, edge_dst, out, scratch, N, F, normalize,
-                                        chunk, num_chunks, panels, stream);
+                                        chunk, num_chunks, panels, live, stream);
 }
 
 }  // namespace
@@ -426,38 +382,42 @@ int launch_panels(const void* x, const void* indptr, const void* edge_dst, void*
 // up to even), then num_chunks int32 row ids; chunk * num_chunks >= N + indptr[N] (the
 // wrapper sizes both). out has X's type. panels: 1 for one pass over whole
 // rows, with the widest load that every row start permits; more for column
-// panels (see above).
+// panels (see above). live: an int32 column count on the card, or null for
+// all columns (see above).
 extern "C" int gsage_spmm_mean_f32(const void* x, const void* indptr,
                                    const void* edge_dst, void* out, void* scratch,
                                    int N, int F, int normalize, int chunk,
-                                   int num_chunks, int panels, void* stream) {
+                                   int num_chunks, int panels, const void* live,
+                                   void* stream) {
   if (panels != 1)
     return panels > 1 ? launch_panels<float, 4>(x, indptr, edge_dst, out, scratch, N, F,
-                                                normalize, chunk, num_chunks, panels, stream)
+                                                normalize, chunk, num_chunks, panels, live,
+                                                stream)
                       : static_cast<int>(cudaErrorInvalidValue);
   if (F % 4 == 0 && aligned(x, 16))
     return launch<float, 4>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
-                            num_chunks, 1, stream);
+                            num_chunks, 1, live, stream);
   return launch<float, 1>(x, indptr, edge_dst, out, scratch, N, F, normalize, chunk,
-                          num_chunks, 1, stream);
+                          num_chunks, 1, live, stream);
 }
 
 extern "C" int gsage_spmm_mean_bf16(const void* x, const void* indptr,
                                     const void* edge_dst, void* out, void* scratch,
                                     int N, int F, int normalize, int chunk,
-                                    int num_chunks, int panels, void* stream) {
+                                    int num_chunks, int panels, const void* live,
+                                    void* stream) {
   if (panels != 1)
     return panels > 1 ? launch_panels<__nv_bfloat16, 8>(x, indptr, edge_dst, out, scratch,
                                                         N, F, normalize, chunk, num_chunks,
-                                                        panels, stream)
+                                                        panels, live, stream)
                       : static_cast<int>(cudaErrorInvalidValue);
   if (F % 8 == 0 && aligned(x, 16))
     return launch<__nv_bfloat16, 8>(x, indptr, edge_dst, out, scratch, N, F, normalize,
-                                    chunk, num_chunks, 1, stream);
+                                    chunk, num_chunks, 1, live, stream);
   if (F % 2 == 0 && aligned(x, 4))
     return launch<__nv_bfloat16, 2>(x, indptr, edge_dst, out, scratch, N, F, normalize,
-                                    chunk, num_chunks, 1, stream);
+                                    chunk, num_chunks, 1, live, stream);
   // An odd width, or X at a 2-byte offset: pairs from any 2-byte address.
   return launch<__nv_bfloat16, 2, true>(x, indptr, edge_dst, out, scratch, N, F,
-                                        normalize, chunk, num_chunks, 1, stream);
+                                        normalize, chunk, num_chunks, 1, live, stream);
 }

@@ -20,7 +20,7 @@ Layer 0 runs in one of three modes (``layer0``):
   card); maxpool and lstm gather the raw feature rows of the deepest hop.
 * ``"full"`` — layer 0 runs once per step over every node with complete
   neighborhoods (:meth:`GraphSAGE.layer0_full_table`: the CSR mean-SpMM,
-  Hopper kernel 3, forward and backward, or the per-edge segment max), and
+  Hopper kernel 3, forward and backward, or the CSR segment max), and
   the upper layers gather its rows; the deepest hop is not sampled.
 * ``"cached"`` — mean only: the full-neighborhood feature means are a
   constant per node (the features are frozen), built once by
@@ -32,8 +32,8 @@ layer's fanout governs the first expansion. With ``concat_self`` or
 ``self_loop`` each frontier row carries the parent in column 0.
 
 ``forward_full_graph`` runs the same layers over every node with complete
-neighborhoods (the mean through the CSR mean-SpMM, maxpool through a
-per-edge segment max, lstm over the ELL rows in adjacency order) — the
+neighborhoods (the mean through the CSR mean-SpMM, maxpool through the CSR
+segment max, lstm over the ELL rows in adjacency order) — the
 deterministic inference path behind the serving table tier and evaluation
 with ``eval_fanouts=None``.
 
@@ -77,6 +77,7 @@ from graphsage_torch.ops.quantize import (
 )
 from graphsage_torch.ops.sampling import METHODS as SAMPLING_METHODS
 from graphsage_torch.ops.sampling import sample_neighbors
+from graphsage_torch.ops.segment_max import segment_max, segment_max_bytes
 from graphsage_torch.ops.spmm import spmm_mean_bytes
 from graphsage_torch.utils import profiling
 
@@ -345,11 +346,22 @@ class GraphSAGE(nn.Module):
 
     @staticmethod
     def _segmax(graph: Graph):
-        """The full-graph guarded max over ``graph``'s edges: a per-edge
-        gather, then the segment max by source."""
+        """The full-graph guarded max over ``graph``'s CSR: on the card the
+        segment-max kernel (:mod:`graphsage_torch.ops.segment_max`, no
+        per-edge tensor; ``pooled`` is a ReLU output, so a max of 0 sends no
+        gradient), elsewhere a per-edge gather, then the segment max by
+        source."""
         def segmax(pooled):
-            return segment_max_csr(gather(pooled, graph.edge_dst), graph.edge_src,
-                                   graph.edge_mask, graph.num_nodes)
+            with profiling.span("agg.segment_max", device=pooled.device):
+                if pooled.device.type != "cuda":
+                    return segment_max_csr(gather(pooled, graph.edge_dst), graph.edge_src,
+                                           graph.edge_mask, graph.num_nodes)
+                if profiling.recording():
+                    profiling.count("agg.segment_max.bytes", segment_max_bytes(
+                        graph.num_nodes, pooled.shape[1], pooled.element_size(),
+                        graph.num_edges))
+                return segment_max(pooled, graph.indptr, graph.edge_dst,
+                                   symmetric=graph.symmetric)
         return segmax
 
     def layer0_full_table(self, features, graph: Graph | None, *, spmm=None,

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from graphsage_torch.ops.aggregate import masked_max, masked_mean
+from graphsage_torch.utils import profiling
 
 AGGREGATORS = ("mean", "maxpool", "lstm")
 
@@ -261,11 +262,13 @@ def apply_full_graph_maxpool_layer(
     activation=torch.relu,
 ) -> torch.Tensor:
     """One full-graph max-pooling layer over every node, in ``h``'s dtype:
-    the pooling MLP once per node, then ``segmax`` (0 on rows without
-    neighbors); ``activation=None`` leaves the output linear."""
+    the pooling MLP once per node (the span ``agg.pool``), then ``segmax``
+    (0 on rows without neighbors); ``activation=None`` leaves the output
+    linear."""
     if activation is None:
         activation = _identity
-    pooled = pool(layer, h, h.dtype)
+    with profiling.span("agg.pool", device=h.device):
+        pooled = pool(layer, h, h.dtype)
     agg = segmax(pooled).to(h.dtype)
     if self_loop:
         # pooled >= 0 (ReLU) and empty rows give 0, so an elementwise max

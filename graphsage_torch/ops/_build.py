@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``graphsage_torch/csrc/*.cu``).
 
 At first use every source is compiled with ``nvcc`` for ``sm_90a``, one
-process per source, all started together (``rows.cuh``, included by three of
-them, holds the row loads they share), and the objects are linked into one
+process per source, all started together (``rows.cuh``, included by four of
+them, holds the row loads they share; ``merge_path.cuh`` the CSR walk of the
+mean and max kernels), and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The library
 lives under ``build/graphsage_torch/<hash>/`` at the root of the checkout,
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and an
@@ -38,11 +39,19 @@ SIGNATURES = {
     "gsage_gather_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gsage_gather_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gsage_gather_mean_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gsage_spmm_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gsage_spmm_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gsage_spmm_mean_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "gsage_spmm_mean_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "gsage_scatter_mean_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsage_gather_mean_dma_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsage_gather_mean_dma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gsage_segment_max_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsage_segment_max_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsage_segment_max_backward_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P],
+    "gsage_segment_max_backward_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _P],
+    "gsage_segment_max_full_cols_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gsage_segment_max_full_cols_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

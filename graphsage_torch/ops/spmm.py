@@ -171,7 +171,8 @@ def l2_bytes(index: int) -> int:
     return torch.cuda.get_device_properties(index).L2_cache_size
 
 
-def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
+def _launch(features, indptr, edge_dst, normalize: bool,
+            live_cols: torch.Tensor | None = None) -> torch.Tensor:
     global launches
     n, f = indptr.numel() - 1, features.shape[1]
     out = torch.empty((n, f), dtype=features.dtype, device=features.device)
@@ -198,7 +199,8 @@ def _launch(features, indptr, edge_dst, normalize: bool) -> torch.Tensor:
         err = getattr(_build.library(), _ENTRIES[features.dtype])(
             features.data_ptr(), indptr.data_ptr(), edge_dst.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), n, f, int(normalize), chunk,
-            num_chunks, num_panels, stream,
+            num_chunks, num_panels, None if live_cols is None else live_cols.data_ptr(),
+            stream,
         )
     _build.check(err, "spmm_mean kernel")
     launches += 1
@@ -264,7 +266,7 @@ def spmm_mean(
 
 def spmm_block_sum(
     features: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor,
-    normalize: bool = False,
+    normalize: bool = False, live_cols: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The CSR sum over the rows that ``indptr`` covers, ``[R, F]`` in the
     features' dtype: ``out[r] = sum_{e in [indptr[r], indptr[r+1])}
@@ -273,10 +275,15 @@ def spmm_block_sum(
     ``max(deg, 1)`` before the one rounding. Kernel 3 on the card, its plain
     version on the CPU; no autograd (the edge-partitioned path,
     :mod:`graphsage_torch.parallel.distributed`, and the halo exchange,
-    :mod:`graphsage_torch.parallel.halo`, have their own backwards)."""
+    :mod:`graphsage_torch.parallel.halo`, have their own backwards).
+
+    ``live_cols``, an int32 ``[1]`` tensor on the card: only the columns
+    before that count are wanted. The kernel passes over the column panels
+    that start at or past it and leaves their columns unwritten, without
+    the host reading the count; the plain version computes every column."""
     _check(features, indptr, edge_dst, square=False)
     if features.device.type == "cpu":
         return spmm_mean_plain(features, indptr, edge_dst, normalize=normalize)
     if features.device.type != "cuda":
         raise ValueError(f"no spmm_mean for device {features.device}")
-    return _launch(features, indptr, edge_dst, normalize)
+    return _launch(features, indptr, edge_dst, normalize, live_cols)

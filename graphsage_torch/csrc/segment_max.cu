@@ -22,23 +22,32 @@
 // pass would otherwise walk every edge of that column with an atomic add
 // apiece.
 //
-// Forward, and what bounds it: bytes. Each edge reads one F-wide row and
-// compares it (no arithmetic to speak of); the rows arrive from L2 or from
-// memory at the rate kernel 3 (spmm_mean.cu) is built for, and this kernel
-// walks the CSR the same way: merge path over the N + E row ends and edges,
-// one warp per equal chunk (ops/spmm.py:chunking), so a hub of 10^5 edges is
-// shared by hundreds of warps; column panels of whole L2 lines a row, the
-// fewest whose rows fit a share of L2 (ops/spmm.py:panels: Reddit's pooled
-// f32 [232965, 512], 477 MB, goes in 16 panels of 32 columns, 29.8 MB each),
-// with the panel's rows kept in L2 (evict-last) and the rest streamed past.
-// A lane keeps, for each of its columns, the largest value so far and a
-// state in rec's encoding (-1: no edge yet; u; -k). The lanes' partial
-// results over disjoint edges combine exactly (the larger value wins; equal
-// values add their counts), so where groups of lanes share a warp's edges
-// (panels of one or two lines) and where a chunk boundary cuts a row (the
-// carry and head pieces, finished by segment_max_fixup in chunk order) the
-// result does not depend on the split: no atomics, bitwise repeatable.
+// Forward. Each edge reads one F-wide row and compares it; this kernel walks
+// the CSR as kernel 3 (spmm_mean.cu) does: merge path over the N + E row
+// ends and edges, one warp per equal chunk (ops/spmm.py:chunking), so a hub
+// of 10^5 edges is shared by hundreds of warps; column panels of whole L2
+// lines a row, the fewest whose rows fit a share of L2 (ops/spmm.py:panels:
+// Reddit's pooled f32 [232965, 512], 477 MB, goes in 16 panels of 32
+// columns, 29.8 MB each), with the panel's rows kept in L2 (evict-last) and
+// the rest streamed past. A lane keeps, for each of its columns, the largest
+// value so far, the chunk slot that first held it and the count of slots
+// that hold it (visit), and turns them into a state in rec's encoding (-1:
+// no edge; u; -k) once a row piece ends. The lanes' partial results over
+// disjoint edges combine exactly (the larger value wins; equal values add
+// their counts), so where groups of lanes share a warp's edges (panels of
+// one or two lines) and where a chunk boundary cuts a row (the carry and
+// head pieces, finished by segment_max_fixup in chunk order) the result does
+// not depend on the split: no atomics, bitwise repeatable.
 //
+// What bounds the forward: L2's rate for rows. With a branchy update of the
+// state, the path of a step in which no row ends ran 25.6 instructions
+// an (edge, column), 10.6 on the ALU pipe (SASS of the 1-line-panel
+// instance), and the kernel read Reddit's pooled rows at 4.1 TB/s on an
+// H100, where kernel 3's walk reads its rows at 7.2. visit puts 3 of its 6
+// instructions on the FMA pipe, and a step whose edges all lie in the open
+// row skips the row-end and range tests: 9.1 instructions an (edge,
+// column), 4.1 on the ALU pipe, and the rows arrive at 7.1 TB/s.
+
 // Backward (the even split of the scatter-max's gradient): dX[u, c] +=
 // g[v, c] where rec[v, c] = u, and g[v, c] / k to each of the k tied slots
 // where rec[v, c] = -k; rows without an edge send nothing. dX is summed in
@@ -65,6 +74,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -86,14 +96,27 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kDepth = 4;  // row loads in flight per lane
 constexpr int kEmpty = -1;  // rec's state of a row (or a piece of one) with no edge
 
-// Adds one edge (value x of neighbour u) to a column's (best, state).
-__device__ __forceinline__ void visit(float& best, int32_t& state, float x, int32_t u) {
-  if (state == kEmpty || x > best) {
-    best = x;
-    state = u;
-  } else if (x == best) {
-    state = state >= 0 ? -2 : state - 1;
-  }
+// Adds one edge slot (value x, at slot `at` of the chunk) to a column's
+// running (best, slot, count): the max so far, the first slot that held it
+// and how many slots hold it. From best = -inf and count = 0 the first edge
+// always wins, so there is no test for an empty state and no branch. slot
+// and count are small whole numbers, exact in f32 (a lane sees the slots of
+// one chunk, at most ops/spmm.py:MAX_CHUNK), so with the compares' 0 or 1
+// they update by FMAs: two compares and a max run on the ALU pipe, three
+// operations on the FMA pipe. Exact for finite values (a ReLU output's).
+__device__ __forceinline__ void visit(float& best, float& slot, float& count, float x,
+                                      float at) {
+  const float le = x <= best ? 1.f : 0.f;  // 0 where x is a new max
+  count = fmaf(count, le, x >= best ? 1.f : 0.f);
+  slot = fmaf(le, slot - at, at);
+  best = fmaxf(best, x);
+}
+
+// A running (slot, count) in rec's encoding: -1 for no edge, the neighbour
+// at the slot (dst: the chunk's edge ids) alone, -k for k tied slots.
+__device__ __forceinline__ int32_t state_of(float slot, float count, const int32_t* dst) {
+  const int32_t k = static_cast<int32_t>(count);
+  return k > 1 ? -k : k == 1 ? dst[static_cast<int32_t>(slot)] : kEmpty;
 }
 
 // Combines (best, state) with another partial result over disjoint edges.
@@ -208,15 +231,19 @@ segment_max_kernel(const T* __restrict__ x, const int32_t* __restrict__ indptr,
     const int col = c0 + lane % kLanes * VEC;
     const bool active = col < col_end;
     const bool writes = active && group == 0;
-    float best[VEC];
-    int32_t state[VEC];
+    float best[VEC], slot[VEC], count[VEC];
+    auto open_row = [&]() {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      best[i] = 0.f;
-      state[i] = kEmpty;
-    }
+      for (int i = 0; i < VEC; ++i) {
+        best[i] = -CUDART_INF_F;
+        slot[i] = 0.f;
+        count[i] = 0.f;
+      }
+    };
+    open_row();
     int r = i0, rstart = first_start;
-    auto load = [&](const T* p) {
+    auto load = [&](int32_t u) {  // neighbour u's piece of the row
+      const T* p = x + static_cast<size_t>(u) * F + col;
       if constexpr (kPanels) {
         typename V::Raw v;
         v.p[0] = load_kept(p, policy);
@@ -225,87 +252,105 @@ segment_max_kernel(const T* __restrict__ x, const int32_t* __restrict__ indptr,
         return V::load(p);
       }
     };
-    auto add = [&](const typename V::Raw& v, int32_t u) {
-      const T* e = reinterpret_cast<const T*>(&v);
+    // The values of the edge at slot `at` of the chunk (edge j0 + at).
+    auto add = [&](const typename V::Raw& v, float at) {
+      const T* p = reinterpret_cast<const T*>(&v);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) visit(best[i], state[i], rows::to_f32(e[i]), u);
+      for (int i = 0; i < VEC; ++i) visit(best[i], slot[i], count[i], rows::to_f32(p[i]), at);
     };
-    // The groups' partial results of the row so far, in every lane.
-    auto reduce = [&]() {
+    // The piece of the row so far as (value, state in rec's encoding), the
+    // groups' partial results combined, in every lane.
+    auto reduce = [&](float* v, int32_t* s) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        v[i] = best[i];
+        s[i] = state_of(slot[i], count[i], s_dst + (j0 - J0));
+      }
 #pragma unroll
       for (int m = kLanes; m < kWarp; m *= 2)
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          const float ob = __shfl_xor_sync(kFull, best[i], m);
-          const int32_t os = __shfl_xor_sync(kFull, state[i], m);
-          combine(best[i], state[i], ob, os);
+          const float ob = __shfl_xor_sync(kFull, v[i], m);
+          const int32_t os = __shfl_xor_sync(kFull, s[i], m);
+          combine(v[i], s[i], ob, os);
         }
     };
-    auto store_piece = [&](float* pv, int32_t* ps) {
-      if constexpr (kPanels) store_streaming<float, VEC>(pv, best);
-      else rows::store<float, VEC>(pv, best);
-      store_i32<VEC, kPanels>(ps, state);
+    auto store_piece = [&](float* pv, int32_t* ps, const float* v, const int32_t* s) {
+      if constexpr (kPanels) store_streaming<float, VEC>(pv, v);
+      else rows::store<float, VEC>(pv, v);
+      store_i32<VEC, kPanels>(ps, s);
     };
 
     // Write row r (its end item lies in this chunk) and move to row r + 1.
     auto flush = [&]() {
       const int rend = s_ptr[r + 1 - I0];
-      reduce();
+      float v[VEC];
+      int32_t s[VEC];
+      reduce(v, s);
       if (writes) {
         if (r == i0 && first_cut) {  // the fix-up combines it with the carries
           const size_t at = static_cast<size_t>(c) * F + col;
-          store_piece(head_v + at, head_s + at);
+          store_piece(head_v + at, head_s + at, v, s);
         } else {
-          float v[VEC];
-          int32_t s[VEC];
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) final_entry(best[i], state[i], v[i], s[i]);
+          for (int i = 0; i < VEC; ++i) final_entry(v[i], s[i], v[i], s[i]);
           const size_t at = static_cast<size_t>(r) * F + col;
           if constexpr (kPanels) store_streaming<T, VEC>(out + at, v);
           else rows::store<T, VEC>(out + at, v);
           store_i32<VEC, kPanels>(rec + at, s);
         }
       }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) state[i] = kEmpty;
+      open_row();
       rstart = rend;
       ++r;
     };
 
     // Each step t loads edges e0 + t * kGroups .. + kGroups - 1, one a group.
-    for (int e0 = j0; e0 < j1; e0 += kGroups * kDepth) {
+    constexpr int kStep = kGroups * kDepth;
+    for (int e0 = j0; e0 < j1; e0 += kStep) {
       typename V::Raw v[kDepth];
-      int32_t u[kDepth];
+      if (min(s_ptr[r + 1 - I0], j1) >= e0 + kStep) {
+        // Every edge of the step lies in row r, the open row (most steps:
+        // Reddit's rows average 492 slots): no row end and no group's range
+        // of edges to test.
+        if (active) {
+#pragma unroll
+          for (int t = 0; t < kDepth; ++t) v[t] = load(s_dst[e0 + t * kGroups + group - J0]);
+          const float at = static_cast<float>(e0 + group - j0);
+#pragma unroll
+          for (int t = 0; t < kDepth; ++t) add(v[t], at + static_cast<float>(t * kGroups));
+        }
+        continue;
+      }
 #pragma unroll
       for (int t = 0; t < kDepth; ++t) {
         const int e = e0 + t * kGroups + group;
-        u[t] = 0;
-        if (e < j1 && active) {
-          u[t] = s_dst[e - J0];
-          v[t] = load(x + static_cast<size_t>(u[t]) * F + col);
-        }
+        if (e < j1 && active) v[t] = load(s_dst[e - J0]);
       }
 #pragma unroll
       for (int t = 0; t < kDepth; ++t) {
         const int b = e0 + t * kGroups;
         if (b < j1) {
           const int e = b + group, b_end = min(b + kGroups, j1);
+          const float at = static_cast<float>(e - j0);
           while (s_ptr[r + 1 - I0] < b_end) {  // row r ends before edge b_end
             if constexpr (kGroups > 1)
-              if (active && e >= rstart && e < s_ptr[r + 1 - I0]) add(v[t], u[t]);
+              if (active && e >= rstart && e < s_ptr[r + 1 - I0]) add(v[t], at);
             flush();
           }
-          if (active && (kGroups == 1 || (e >= rstart && e < b_end))) add(v[t], u[t]);
+          if (active && (kGroups == 1 || (e >= rstart && e < b_end))) add(v[t], at);
         }
       }
     }
     while (r < i1) flush();
     carries = i1 < N && rstart < j1;  // here r == i1 and rstart == indptr[i1]
     if (carries) {
-      reduce();
+      float v[VEC];
+      int32_t s[VEC];
+      reduce(v, s);
       if (writes) {
         const size_t at = static_cast<size_t>(c) * F + col;
-        store_piece(carry_v + at, carry_s + at);
+        store_piece(carry_v + at, carry_s + at, v, s);
       }
     }
   }

@@ -229,13 +229,36 @@ GRAPHS = {
     "about a chunk": [CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 5] * 6 + [1] * 9,
     "empty runs": [3] * 5 + [0] * 100 + [2 * CHUNK] + [0] * 70 + [CHUNK + 3, 0, 0, 4] + [0] * 40,
     "poisson with hubs": None,
+    "tied hub": None,
 }
+# "tied hub": row 0 holds TIED_HUB slots (a tie count past any 16- or 17-bit
+# field) and row 2 TIED_ROW slots (at least 3 chunks of at most MAX_CHUNK
+# items), each over nodes whose rows the test sets to one positive value, so
+# every slot of both rows ties in every column.
+TIED_HUB, TIED_ROW = 2**17 + 3, 3 * sp.MAX_CHUNK + 7
+HUB_NODES, ROW_NODES = slice(10, 74), slice(80, 100)
+
+
+def _tied_hub_csr(dev):
+    n = 20000
+    rng = np.random.default_rng(5)
+    deg = rng.poisson(3, n).astype(np.int32)
+    deg[0], deg[1], deg[2] = TIED_HUB, 0, TIED_ROW
+    indptr = np.zeros(n + 1, np.int32)
+    np.cumsum(deg, out=indptr[1:])
+    edge_dst = np.full(int(indptr[-1]) + 128, 2**30, np.int32)
+    edge_dst[:indptr[-1]] = rng.integers(0, n, int(indptr[-1]))
+    for row, nodes in ((0, HUB_NODES), (2, ROW_NODES)):
+        edge_dst[indptr[row]:indptr[row + 1]] = rng.integers(nodes.start, nodes.stop, deg[row])
+    return torch.from_numpy(indptr).to(dev), torch.from_numpy(edge_dst).to(dev)
 
 
 def _graph(name, dev):
     if name == "symmetric with a hub":  # both directions of each pair
         _, indptr, edge_dst = _csr(20000, _pairs(20000, 100000, seed=4), dev)
         return indptr, edge_dst
+    if name == "tied hub":
+        return _tied_hub_csr(dev)
     if name == "poisson with hubs":
         deg = np.random.default_rng(1).poisson(12, 20000)
         deg[::7], deg[1], deg[5] = 0, 30000, 3000
@@ -284,11 +307,16 @@ def _counted(fn):
     (torch.bfloat16, 128, 128),   # 2 panels, 4 edges a load
 ])
 @pytest.mark.parametrize("graph", list(GRAPHS))
-def test_kernel_forward_equals_segment_max_csr(cuda, monkeypatch, graph, dtype, f, panel_bytes):
+@pytest.mark.parametrize("values", list(VALUES))
+def test_kernel_forward_equals_segment_max_csr(cuda, monkeypatch, values, graph, dtype, f,
+                                               panel_bytes):
     indptr, edge_dst = _graph(graph, cuda)
     n = indptr.numel() - 1
     g = torch.Generator().manual_seed(f)
-    x = VALUES["ties at 0"](g, (n, f)).to(cuda, dtype)
+    x = VALUES[values](g, (n, f))
+    if graph == "tied hub":
+        x[HUB_NODES], x[ROW_NODES] = 2.5, 1.25
+    x = x.to(cuda, dtype)
     if panel_bytes is None:
         monkeypatch.setattr(sp, "l2_bytes", lambda index: 1 << 40)
         num_panels = 1
@@ -302,6 +330,8 @@ def test_kernel_forward_equals_segment_max_csr(cuda, monkeypatch, graph, dtype, 
     assert torch.equal(rec, smx.segment_max_plain(x, indptr, edge_dst)[1])
     again, rec_again = smx._launch(x, indptr, edge_dst)
     assert torch.equal(out, again) and torch.equal(rec, rec_again)  # no atomics: repeatable
+    if graph == "tied hub":  # every slot ties: the whole count, across chunks and groups
+        assert (rec[0] == -TIED_HUB).all() and (rec[2] == -TIED_ROW).all()
 
 
 @pytest.mark.gpu

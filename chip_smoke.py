@@ -113,12 +113,11 @@ Phases, in order (any failure ends the run with a non-zero exit code and no
    validation micro-F1 above 0.5): kernel 3 once per layer in the forward
    and once per layer whose input needs a gradient in the backward, every
    step; host and device ms per step and the idle share. One full-batch
-   step's card gradients against the CPU's (kernel 3 and the bucketed
-   pass). Kernel 3 timed forward and backward (on ``g / deg``) at the
-   ``fullbatch`` and ``reddit`` full-graph layer-0 shapes beside
-   ``torch.sparse.mm`` and the bucketed pass, and at the published Reddit
-   model's f32 rows ([232965, 128] over a graph of Reddit's size and degree,
-   drawn on the card), with the column panels each shape takes
+   step's card gradients against the CPU's (kernel 3). Kernel 3 timed
+   forward and backward (on ``g / deg``) at the ``fullbatch`` and
+   ``reddit`` full-graph layer-0 shapes beside ``torch.sparse.mm``, and at
+   the published Reddit model's f32 rows ([232965, 128] over a graph of
+   Reddit's size and degree, drawn on the card), with the column panels each shape takes
    (``ops/spmm.py:panels``; 1 at Pubmed, printed with every kernel-3 row)
    and its rows against the plain version on the first 4000. The PPI protocol at the
    paper's shape (24 graphs of 2372 nodes, 121 labels): train on the union
@@ -333,8 +332,6 @@ from graphsage_torch.data.synthetic import (
 from graphsage_torch.ops import _build
 from graphsage_torch.ops import quantize as tq
 from graphsage_torch.ops.aggregate import gather
-from graphsage_torch.ops.bucketed_spmm import _Pass as BucketedPass
-from graphsage_torch.ops.bucketed_spmm import plan_bucketed_spmm
 from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.models.unsupervised import context_groups, frontier_loss
 from graphsage_torch.ops.walks import negative_cdf
@@ -1813,10 +1810,9 @@ def full_graph_step_launches(model) -> dict:
     """Kernel 3's launches in one full-batch step of a mean model: one per
     layer in the forward, and one per layer whose SpMM input needs a
     gradient in the backward (layer 0's only when it projects first: the
-    features are frozen); none on the bucketed route or for maxpool and
-    lstm."""
+    features are frozen); none for maxpool and lstm."""
     want = {name: 0 for name in KERNELS}
-    if model.aggregator == "mean" and model.spmm_impl != "bucketed_ell":
+    if model.aggregator == "mean":
         backward = sum(1 for l in range(model.num_layers)
                        if l > 0 or model.use_project_first(0, model.in_dim))
         want["spmm_mean"] = model.num_layers + backward
@@ -1842,7 +1838,7 @@ def train_full_graph(label, main_launches, model=None, graph=None, cfg=None,
     model, steps = trainer.model, trainer.cfg.num_steps
     per_step = full_graph_step_launches(model)
     want = {k: steps * v for k, v in per_step.items()}
-    if model.aggregator == "mean" and model.spmm_impl != "bucketed_ell":
+    if model.aggregator == "mean":
         want["spmm_mean"] += model.num_layers  # the evaluation's forward
     losses = np.asarray(result["losses"])
     print(f"   {label}: {steps} full-batch steps, launches {launches} "
@@ -1917,26 +1913,25 @@ def windowed_runs(pg, results, main_launches) -> None:
 
 def check_full_graph_gradients() -> None:
     """One full-batch step's parameter gradients on the card against the
-    CPU's, for the ``fullbatch`` model on a 2000-node power-law graph, with
-    kernel 3 (``"auto"``) and with the bucketed pass."""
+    CPU's, for the ``fullbatch`` model on a 2000-node power-law graph
+    (kernel 3)."""
     g = power_law_graph(**{**FULLBATCH_GRAPH, "num_nodes": 2000, "num_edges": 20000})
     cfg = TrainConfig(num_steps=1, test_size=200, val_size=100, log_every=0)
-    for impl in ("auto", "bucketed_ell"):
-        model = GraphSAGE(128, 16, (128, 128), (None, None), spmm_impl=impl,
-                          generator=torch.Generator().manual_seed(0))
-        launches = card_vs_cpu_grads(
-            f"fullbatch step, spmm_impl={impl!r} (N=2000)", model,
-            lambda m, graph: FullGraphTrainer(m, graph, cfg)._loss(), g)
-        if launches != full_graph_step_launches(model):
-            raise AssertionError(f"full-batch step {impl}: launched {launches}")
+    model = GraphSAGE(128, 16, (128, 128), (None, None),
+                      generator=torch.Generator().manual_seed(0))
+    launches = card_vs_cpu_grads(
+        "fullbatch step (N=2000)", model,
+        lambda m, graph: FullGraphTrainer(m, graph, cfg)._loss(), g)
+    if launches != full_graph_step_launches(model):
+        raise AssertionError(f"full-batch step: launched {launches}")
 
 
 def time_full_graph_spmm(fb_graph, reddit, reddit_model) -> list:
     """Kernel 3 forward (normalised) and backward (unnormalised, on
     ``g / deg``) at the full-batch shapes: the ``fullbatch`` graph's layers
     (X [100000,128] f32) and ``reddit``'s full-graph layer 0 (its projected
-    rows, [232965,128] bf16); beside the plain version, ``torch.sparse.mm``
-    and the bucketed pass (``ops/bucketed_spmm.py``, forward and backward).
+    rows, [232965,128] bf16); beside the plain version and
+    ``torch.sparse.mm``.
     Bounds as in ``time_kernels``: X and the output once, indptr, the used
     ids; operations one add per edge and element (and one scale per row);
     and, as for the cache build, with one row read per edge."""
@@ -1963,21 +1958,6 @@ def time_full_graph_spmm(fb_graph, reddit, reddit_model) -> list:
             ones = torch.sparse_csr_tensor(g.indptr.long(), g.edge_dst[:e].long(),
                                            torch.ones(e, device=g.device, dtype=x.dtype),
                                            size=(n, n))
-        t0 = time.perf_counter()
-        plan = plan_bucketed_spmm(g)
-        plan_s = time.perf_counter() - t0
-        # The bucketed pass, normalised (the forward) and not (the backward
-        # on g / deg, as make_spmm_mean_bucketed's backward runs it).
-        bucketed = BucketedPass(plan)
-        for normalize, arg in ((True, x), (False, gs)):
-            # Sums of up to 8016 terms in two orders: each element held to
-            # the tolerance of its terms' magnitude, as in check_kernels.
-            max_err(bucketed(arg, normalize).float(),
-                    spmm_kernel.spmm_mean(arg, g.indptr, g.edge_dst, normalize).float(),
-                    f"bucketed pass {label} normalize={normalize}",
-                    BF16_TOL if elt == 2 else TOL,
-                    magnitude=spmm_kernel.spmm_mean_plain(
-                        arg.abs(), g.indptr, g.edge_dst, normalize).float())
         for direction, normalize, arg, lib in (("forward", True, x, mean),
                                                ("backward on g/deg", False, gs, ones)):
             kernel = lambda: spmm_kernel.spmm_mean(arg, g.indptr, g.edge_dst, normalize)  # noqa: E731
@@ -1995,20 +1975,16 @@ def time_full_graph_spmm(fb_graph, reddit, reddit_model) -> list:
                     arg, g.indptr, g.edge_dst, normalize)),
                 library_ms=library[0], library_note=library[1],
                 bound_ms=bd, bound_by=by, bound_row_per_edge_ms=per_edge,
-                call_ms=call_ms(kernel, iters=20),
-                bucketed_ms=device_ms(lambda: bucketed(arg, normalize), iters=5),
-                bucketed_call_ms=call_ms(lambda: bucketed(arg, normalize), iters=5, warmup=1),
-                bucketed_plan_s=plan_s, panels=spmm_panels(arg),
+                call_ms=call_ms(kernel, iters=20), panels=spmm_panels(arg),
             )
             out.append(rec)
             print(f"   spmm_mean [{rec['shape']}] ({rec['panels']} panel(s)): device ms: "
                   f"kernel {rec['ms']:.4f}, plain "
                   f"{rec['plain_ms']:.4f}, sparse.mm {rec['library_ms']:.4f} "
-                  f"({rec['library_note']}), bucketed pass {rec['bucketed_ms']:.4f} (per "
-                  f"call {rec['bucketed_call_ms']:.4f}; plan built in {plan_s:.2f} s on the "
-                  f"host), bound {rec['bound_ms']:.4f} ({rec['bound_by']}), one row per edge "
+                  f"({rec['library_note']}), bound {rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']}), one row per edge "
                   f"{per_edge:.4f}; per call through the wrapper {rec['call_ms']:.4f} ms")
-        del mean, ones, rows, vals, plan, bucketed
+        del mean, ones, rows, vals
         torch.cuda.empty_cache()
     return out
 

@@ -67,7 +67,7 @@ from graphsage_torch.models.layers import (
     glorot_uniform,
     split_mean_weight,
 )
-from graphsage_torch.ops.aggregate import gather, gather_mean, segment_max_csr, spmm_mean
+from graphsage_torch.ops.aggregate import SPMM_IMPLS, gather, gather_mean, spmm_mean
 from graphsage_torch.ops.quantize import (
     dequantize,
     gather_dequant,
@@ -171,6 +171,8 @@ class GraphSAGE(nn.Module):
             raise ValueError(f"unknown sampling method {sampling!r}")
         if final_activation not in ("relu", "linear"):
             raise ValueError(f"unknown final_activation {final_activation!r}")
+        if spmm_impl not in SPMM_IMPLS:
+            raise ValueError(f"unknown spmm_impl {spmm_impl!r}")
         dev = resolve_device(device)
         self.in_dim = in_dim
         self.num_classes = num_classes
@@ -346,16 +348,12 @@ class GraphSAGE(nn.Module):
 
     @staticmethod
     def _segmax(graph: Graph):
-        """The full-graph guarded max over ``graph``'s CSR: on the card the
-        segment-max kernel (:mod:`graphsage_torch.ops.segment_max`, no
-        per-edge tensor; ``pooled`` is a ReLU output, so a max of 0 sends no
-        gradient), elsewhere a per-edge gather, then the segment max by
-        source."""
+        """The full-graph guarded max over ``graph``'s CSR:
+        :func:`graphsage_torch.ops.segment_max.segment_max`, which picks its
+        route from the device (``pooled`` is a ReLU output, so a max of 0
+        sends no gradient)."""
         def segmax(pooled):
             with profiling.span("agg.segment_max", device=pooled.device):
-                if pooled.device.type != "cuda":
-                    return segment_max_csr(gather(pooled, graph.edge_dst), graph.edge_src,
-                                           graph.edge_mask, graph.num_nodes)
                 if profiling.recording():
                     profiling.count("agg.segment_max.bytes", segment_max_bytes(
                         graph.num_nodes, pooled.shape[1], pooled.element_size(),
@@ -638,9 +636,9 @@ class GraphSAGE(nn.Module):
         an ELL table that covers every neighbor.
 
         ``spmm_override`` (``x -> (neighbor mean, valid count)``) replaces
-        the mean aggregator's SpMM, as the full-graph trainer's bucketed
-        pass does, and ``segmax_override`` (``pooled -> guarded per-node
-        max``) maxpool's segment max, as the edge-partitioned path
+        the mean aggregator's SpMM and ``segmax_override`` (``pooled ->
+        guarded per-node max``) maxpool's segment max, as the
+        edge-partitioned path
         (:func:`graphsage_torch.parallel.distributed.distributed_full_graph_logits`)
         does; lstm rejects both."""
         if self.aggregator == "lstm" and (spmm_override is not None

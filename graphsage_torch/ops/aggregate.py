@@ -33,6 +33,9 @@ from graphsage_torch.ops.gather_dma import gather_mean_dma as _gather_mean_dma_k
 from graphsage_torch.ops.gather_mean import gather_mean as _gather_mean_kernel
 from graphsage_torch.ops.spmm import spmm_mean as _spmm_mean_kernel
 
+# The routes of spmm_mean.
+SPMM_IMPLS = ("auto", "pallas_vmem", "xla")
+
 
 class _Gather(torch.autograd.Function):
     """``index_select`` forward; backward ``index_add_`` into f32 zeros, cast

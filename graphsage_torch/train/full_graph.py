@@ -6,9 +6,8 @@ full-neighborhood forward over all nodes (the reference's
 ``num_sample=None``, quirk Q7) and takes the classification loss over every
 node, weighted by the train split's mask. A mean model's full-graph SpMM is
 kernel 3 on the card (``ops/spmm.py``), forward and, on a symmetric graph,
-backward; ``spmm_impl="bucketed_ell"`` runs the degree-bucketed PyTorch pass
-(``ops/bucketed_spmm.py``) instead. The JAX package's ``"auto"`` picks the
-bucketed pass from TPU measurements; here ``"auto"`` stays kernel 3.
+backward, and a max-pool model's segment max is ``ops/segment_max.py``;
+each op picks its route from the device.
 
 With ``mesh=`` the same loss runs through the halo exchange
 (:mod:`graphsage_torch.parallel.halo`) over the mesh's ``axis``: each rank
@@ -31,7 +30,6 @@ import torch
 
 from graphsage_torch.data.graph import Graph, reject_lazy_descriptor
 from graphsage_torch.models.graphsage import GraphSAGE
-from graphsage_torch.ops.bucketed_spmm import make_spmm_mean_bucketed, plan_bucketed_spmm
 from graphsage_torch.parallel import collectives
 from graphsage_torch.parallel.halo import build_node_partition, halo_full_graph_logits
 from graphsage_torch.parallel.mesh import axis_index, axis_size
@@ -68,7 +66,6 @@ class FullGraphTrainer(TrainLoop):
             weight = torch.zeros(graph.num_nodes, dtype=torch.float32)
             weight[torch.from_numpy(self.train_nodes).long()] = 1.0
             self._train_count = float(weight.sum())
-            self._spmm_override = None
             if mesh is not None:
                 if model.aggregator == "lstm":
                     raise ValueError(
@@ -88,22 +85,12 @@ class FullGraphTrainer(TrainLoop):
                 self._train_weight = stacked[self.shard.rank * np_:][:np_].to(self.device)
                 return
             self._train_weight = weight.to(self.device)
-            if model.aggregator == "mean" and model.spmm_impl == "bucketed_ell":
-                if not graph.symmetric:
-                    # The bucketed backward relies on A == A^T.
-                    raise ValueError(
-                        "spmm_impl='bucketed_ell' requires symmetric adjacency "
-                        "(graph.symmetric is False, e.g. built with max_degree "
-                        "truncation); use spmm_impl='auto' or 'xla'"
-                    )
-                bucketed = make_spmm_mean_bucketed(plan_bucketed_spmm(graph))
-                self._spmm_override = lambda x: (bucketed(x), graph.degrees)
 
     def _logits(self, stacked: bool = False) -> torch.Tensor:
         """Full-graph logits ``[N, C]`` under the current parameters (with
         ``stacked`` on a mesh: this rank's ``[Np, C]`` rows)."""
         if self.mesh is None:
-            return self.model.forward_full_graph(self.graph, spmm_override=self._spmm_override)
+            return self.model.forward_full_graph(self.graph)
         return halo_full_graph_logits(self.model, self.partition, self.mesh, self.axis,
                                       stacked=stacked, shard=self.shard)
 

@@ -1,9 +1,10 @@
 """The port's full-batch training against the JAX package on the CPU: the
-degree-bucketed SpMM (``ops/bucketed_spmm.py``: its plan bitwise, its
-forward and gradient), ``FullGraphTrainer`` (five steps from the same
-parameters give JAX's loss trajectory: full-batch training samples nothing,
-so the whole path is deterministic), and ``mode="full-graph"`` through
-``run_preset`` and the CLI."""
+port's full-graph SpMM against JAX's degree-bucketed pass (forward and
+gradient), ``FullGraphTrainer`` on kernel 3's route (five steps from the
+same parameters give the loss trajectory of JAX's trainer, whose SpMM is
+the bucketed pass on a symmetric graph: full-batch training samples
+nothing, so the whole path is deterministic), and ``mode="full-graph"``
+through ``run_preset`` and the CLI."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +25,6 @@ from graphsage_torch import FullGraphTrainer, GraphSAGE, TrainConfig, params_fro
 from graphsage_torch.convert import LAYER_FIELDS
 from graphsage_torch.data.graph import build_graph
 from graphsage_torch.data.synthetic import power_law_graph
-from graphsage_torch.ops.bucketed_spmm import make_spmm_mean_bucketed, plan_bucketed_spmm
 from graphsage_torch.train.experiments import main, run_preset
 
 torch.set_num_threads(1)
@@ -61,29 +61,12 @@ def graphs():
     return out
 
 
-# ------------------------------------------------------------------- plan
-@pytest.mark.parametrize("hub_cap", [16, 40, 256])
-def test_plan_equals_jax(graphs, hub_cap):
-    jg, tg = graphs["symmetric"]
-    max_deg = int(tg.degrees.max())
-    got, want = plan_bucketed_spmm(tg, hub_cap=hub_cap), jax_plan(jg, hub_cap=hub_cap)
-    assert got.widths == want.widths
-    assert (got.hub_deg is None) == (hub_cap >= max_deg)
-    for name in ("inv_perm", "hub_edge_src", "hub_edge_row", "hub_deg"):
-        a, b = getattr(got, name), getattr(want, name)
-        assert (a is None) == (b is None), name
-        if a is not None:
-            assert a.numpy().dtype == np.asarray(b).dtype, name
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
-    for name in ("ell", "deg"):
-        for a, b in zip(getattr(got, name), getattr(want, name), strict=True):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
-    assert int((got.deg[0] == 0).sum()) == ISOLATED  # the zero-degree rows
-
-
 # ------------------------------------------------------------ the pass
 @pytest.mark.parametrize("hub_cap", [16, 256])
 def test_bucketed_forward_and_gradient_equal_jax_and_spmm(graphs, hub_cap):
+    """JAX's degree-bucketed pass (its ``"auto"`` full-graph SpMM) against the
+    port's full-graph SpMM (kernel 3's plain version on the CPU), forward and
+    gradient."""
     jg, tg = graphs["symmetric"]
     rng = np.random.default_rng(hub_cap)
     x = rng.normal(size=(tg.num_nodes, 7)).astype(np.float32)
@@ -91,33 +74,25 @@ def test_bucketed_forward_and_gradient_equal_jax_and_spmm(graphs, hub_cap):
     want, vjp = jax.vjp(jax.jit(jax_make_bucketed(jax_plan(jg, hub_cap=hub_cap))),
                         jnp.asarray(x))
     (want_grad,) = vjp(jnp.asarray(w))
-    f = make_spmm_mean_bucketed(plan_bucketed_spmm(tg, hub_cap=hub_cap))
-    xt = torch.from_numpy(x).requires_grad_(True)
-    out = f(xt)
+    xs = torch.from_numpy(x).requires_grad_(True)
+    out = sp.spmm_mean(xs, tg.indptr, tg.edge_dst)
     (out * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_grad), rtol=1e-6, atol=1e-6)
-    # The port's own full-graph SpMM (kernel 3's plain version on the CPU).
-    xs = torch.from_numpy(x).requires_grad_(True)
-    ref = sp.spmm_mean(xs, tg.indptr, tg.edge_dst)
-    (ref * torch.from_numpy(w)).sum().backward()
-    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(xt.grad.numpy(), xs.grad.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(xs.grad.numpy(), np.asarray(want_grad), rtol=1e-6, atol=1e-6)
     assert not out[-ISOLATED:].any()  # isolated rows aggregate to 0
 
 
 def test_bucketed_bf16_within_a_rounding_of_f32_and_near_jax(graphs):
-    """bf16 rows: the port sums in f32 and rounds once, so the result is the
-    f32 pass rounded to bf16, within one bf16 step of 2**-8 of its largest
-    entry; JAX sums its ELL buckets in bf16, the port's documented bf16
-    divergence, held at 2e-2 of the largest entry."""
+    """bf16 rows: the port's SpMM sums in f32 and rounds once, so the result
+    is the f32 SpMM rounded to bf16, within one bf16 step of 2**-8 of its
+    largest entry; JAX sums its ELL buckets in bf16, the port's documented
+    bf16 divergence, held at 2e-2 of the largest entry."""
     jg, tg = graphs["symmetric"]
-    f = make_spmm_mean_bucketed(plan_bucketed_spmm(tg, hub_cap=16))
     x32 = np.random.default_rng(5).normal(size=(tg.num_nodes, 9)).astype(np.float32)
     x = torch.from_numpy(x32).to(torch.bfloat16)
-    got = f(x)
+    got = sp.spmm_mean(x, tg.indptr, tg.edge_dst)
     assert got.dtype == torch.bfloat16
-    want = f(x.float())
+    want = sp.spmm_mean(x.float(), tg.indptr, tg.edge_dst)
     scale = float(want.abs().max())
     assert float((got.float() - want).abs().max()) <= 2.0**-8 * scale
     jax_out = jax.jit(jax_make_bucketed(jax_plan(jg, hub_cap=16)))(
@@ -127,14 +102,13 @@ def test_bucketed_bf16_within_a_rounding_of_f32_and_near_jax(graphs):
 
 
 # ----------------------------------------------------------------- trainer
-def _models(spmm_impl, **kw):
-    """JAX's model and the port's, the port's parameters drawn with numpy
-    and carried across."""
+def _models(jax_spmm_impl, **kw):
+    """JAX's model, on its ``jax_spmm_impl`` route, and the port's, the
+    port's parameters drawn with numpy and carried across."""
     common = dict(hidden_dims=(16, 12), fanouts=(None, None), **kw)
     jm = JaxGraphSAGE(in_dim=GRAPH["num_feats"], num_classes=GRAPH["num_classes"],
-                      matmul_precision="highest", spmm_impl=spmm_impl, **common)
-    tm = GraphSAGE(GRAPH["num_feats"], GRAPH["num_classes"], device="cpu",
-                   spmm_impl=spmm_impl, **common)
+                      matmul_precision="highest", spmm_impl=jax_spmm_impl, **common)
+    tm = GraphSAGE(GRAPH["num_feats"], GRAPH["num_classes"], device="cpu", **common)
     rng = np.random.default_rng(0)
 
     def draw(p):
@@ -162,6 +136,7 @@ def _jax_losses(jm, params, jg, cfg, steps):
     return losses, tr
 
 
+# ``spmm_impl`` is JAX's route; the port's is kernel 3's in every case.
 @pytest.mark.parametrize("graph,spmm_impl,optimizer,lr,kw", [
     ("symmetric", "auto", "sgd", 0.5, {}),
     ("symmetric", "auto", "adam", 0.01, dict(concat_self=True)),
@@ -180,17 +155,17 @@ def test_five_steps_match_jax(graphs, graph, spmm_impl, optimizer, lr, kw):
     want, jtr = _jax_losses(jm, params, jg, JaxTrainConfig(**cfg), 5)
     tr = FullGraphTrainer(tm, tg, TrainConfig(**cfg))
     np.testing.assert_array_equal(tr.train_nodes, jtr.train_nodes)
-    assert (tr._spmm_override is None) == (spmm_impl == "auto")
     result = tr.run(log=None)
     np.testing.assert_allclose(result["losses"], want, rtol=1e-5)
     assert want[-1] < want[0]
 
 
-def test_bucketed_needs_a_symmetric_graph(graphs):
-    _, tg = graphs["directed"]
-    _, _, tm = _models("bucketed_ell")
-    with pytest.raises(ValueError, match="symmetric adjacency"):
-        FullGraphTrainer(tm, tg, TrainConfig(test_size=40, val_size=30))
+@pytest.mark.parametrize("spmm_impl", ["bucketed_ell", "atuo"])
+def test_unknown_spmm_impl_raises(spmm_impl):
+    """``spmm_impl`` names a route of ``ops.aggregate.spmm_mean``; the
+    degree-bucketed pass is the JAX package's alone."""
+    with pytest.raises(ValueError, match=f"unknown spmm_impl '{spmm_impl}'"):
+        GraphSAGE(GRAPH["num_feats"], GRAPH["num_classes"], spmm_impl=spmm_impl, device="cpu")
 
 
 def test_not_ported_arguments_raise(graphs):

@@ -842,12 +842,11 @@ def test_bf16_model_step_on_the_card(cuda):
         assert scale > 0 and float((p.grad.cpu() - q.grad).abs().max()) <= 2e-2 * scale, name
 
 
-@pytest.mark.parametrize("spmm_impl", ["auto", "bucketed_ell"])
-def test_full_graph_step_on_the_card(cuda, spmm_impl):
-    """One ``FullGraphTrainer`` step: with ``"auto"`` kernel 3 launches once
-    per layer in the forward and once per layer that needs a gradient in the
-    backward (two layers, the first projecting first: 2 + 2), with
-    ``"bucketed_ell"`` never; loss and gradients equal the CPU's."""
+def test_full_graph_step_on_the_card(cuda):
+    """One ``FullGraphTrainer`` step: kernel 3 launches once per layer in the
+    forward and once per layer that needs a gradient in the backward (two
+    layers, the first projecting first: 2 + 2); loss and gradients equal the
+    CPU's."""
     import copy
 
     from graphsage_torch import FullGraphTrainer, GraphSAGE, TrainConfig
@@ -855,7 +854,7 @@ def test_full_graph_step_on_the_card(cuda, spmm_impl):
 
     g = power_law_graph(2000, 12000, num_feats=64, num_classes=5, homophily=0.8,
                         device=cuda)
-    model = GraphSAGE(64, 5, (32, 32), (None, None), spmm_impl=spmm_impl, device=cuda)
+    model = GraphSAGE(64, 5, (32, 32), (None, None), device=cuda)
     cpu_model = copy.deepcopy(model).to("cpu")
     cfg = TrainConfig(num_steps=1, test_size=200, val_size=100, log_every=0)
     before = sp.launches
@@ -863,7 +862,7 @@ def test_full_graph_step_on_the_card(cuda, spmm_impl):
     loss = tr._loss()
     loss.backward()
     torch.cuda.synchronize()
-    assert sp.launches - before == (4 if spmm_impl == "auto" else 0)
+    assert sp.launches - before == 4
     cpu_tr = FullGraphTrainer(cpu_model, g.to("cpu"), cfg)
     cpu_loss = cpu_tr._loss()
     cpu_loss.backward()

@@ -4,7 +4,7 @@ full-graph max-pooling model, held to the benchmark's plain reference
 
 On the CPU: the full-graph max-pool model through ``FullGraphTrainer.step``
 (loss, every leaf's first gradient, every leaf after 3 Adam steps), the
-op's plain route forward and backward at planted ties, rows without
+model's full-graph segment max running the op, the op's plain route forward and backward at planted ties, rows without
 neighbours and a row wider than the ELL cap of 256, and the card's route for
 full ties (moved to the front, summed over the CSR, added back) run with
 the plain sum. Marked ``gpu`` (they skip without a card): the kernel against
@@ -199,6 +199,65 @@ def test_full_graph_maxpool_trainer_matches_the_reference():
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("path", ["forward_full_graph", "layer0_full_table"])
+def test_cpu_full_graph_maxpool_runs_the_op(monkeypatch, path):
+    """On the CPU the model's full-graph segment max is the op the card runs,
+    looked up by name in ``graphsage_torch.models.graphsage`` at the call:
+    ``_SegmentMax`` forward and its plain backward, once per layer. Its output
+    equals ``segment_max_csr`` over the per-edge gather bitwise, and the
+    leaves' gradients match that route's."""
+    import graphsage_torch.models.graphsage as gs
+
+    n, feats, classes = 360, 12, 4
+    pairs = _pairs(n, 600, seed=9)
+    rng = np.random.default_rng(10)
+    graph = build_graph(rng.standard_normal((n, feats)).astype(np.float32),
+                        rng.integers(0, classes, n), pairs, num_classes=classes, device="cpu")
+    layer0 = "full" if path == "layer0_full_table" else "sampled"
+    model = GraphSAGE(feats, classes, (16, 8), (None, None), aggregator="maxpool", pool_dim=24,
+                      layer0=layer0, device="cpu")
+    calls = {"forward": 0, "backward": 0}
+    op, backward = gs.segment_max, smx.segment_max_backward_plain
+
+    def counted(*args, **kwargs):
+        out = op(*args, **kwargs)
+        assert type(out.grad_fn).__name__ == "_SegmentMaxBackward"
+        calls["forward"] += 1
+        return out
+
+    def counted_backward(*args):
+        calls["backward"] += 1
+        return backward(*args)
+
+    monkeypatch.setattr(gs, "segment_max", counted)
+    monkeypatch.setattr(smx, "segment_max_backward_plain", counted_backward)
+
+    def per_edge(pooled):
+        return segment_max_csr(gather(pooled, graph.edge_dst), graph.edge_src,
+                               graph.edge_mask, graph.num_nodes)
+
+    def run(segmax):
+        model.zero_grad()
+        if path == "forward_full_graph":
+            out = model.forward_full_graph(graph, segmax_override=segmax)
+        else:
+            out = model.layer0_full_table(graph.features, graph, segmax=segmax)
+        w = torch.randn(out.shape, generator=torch.Generator().manual_seed(11))
+        (out * w).sum().backward()
+        return out.detach(), {k: p.grad.clone() for k, p in model.named_parameters()
+                              if p.grad is not None}
+
+    got, got_grads = run(None)
+    layers = model.num_layers if path == "forward_full_graph" else 1
+    assert calls == {"forward": layers, "backward": layers}
+    want, want_grads = run(per_edge)
+    assert calls == {"forward": layers, "backward": layers}
+    assert torch.equal(got, want)
+    assert got_grads.keys() == want_grads.keys() and got_grads
+    for k, gk in got_grads.items():
+        torch.testing.assert_close(gk, want_grads[k], **TOL)
+
+
 # ------------------------------------------------------------------ on the card
 
 
@@ -267,8 +326,8 @@ def _graph(name, dev):
 
 
 def _plain_reference(x, indptr, edge_dst):
-    """``segment_max_csr`` over the padded per-edge gather, as the model's
-    plain route calls it."""
+    """``segment_max_csr`` over the padded per-edge gather, as the sharded
+    paths call it."""
     n = indptr.numel() - 1
     e = int(indptr[-1])
     deg = (indptr[1:] - indptr[:-1]).long()

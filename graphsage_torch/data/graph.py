@@ -18,7 +18,8 @@ means behind ``GraphSAGE(layer0="cached")``; :func:`quantize_graph` swaps the
 feature table for an int8 :class:`~graphsage_torch.ops.quantize.QuantizedTable`;
 :func:`disjoint_union` puts several graphs side by side in one;
 :func:`induced_subgraph` keeps the part of a graph on some of its nodes;
-:func:`relabel_graph` permutes its node ids.
+:func:`relabel_graph` permutes its node ids; :func:`row_block` cuts the CSR
+rows the full-graph loss reads, with their whole neighbour lists.
 
 A lazy graph (``load_*_lazy``) carries a zero-strided feature descriptor
 instead of a table (:func:`is_lazy_descriptor`); every function here that
@@ -140,6 +141,59 @@ def reject_lazy_descriptor(features, what: str) -> None:
             "store with shard_features_from_loader(row_loader, ...) and "
             "pass it as feature_store=, or load eagerly instead"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlock:
+    """Some rows of a graph's CSR adjacency, each with its whole neighbour
+    list in the graph's order (so its degree and mean are the graph's), the
+    rows the full-graph loss reads (:func:`row_block`). On a symmetric graph
+    it carries the CSR of its transpose ``A[:, rows]``: every node's
+    neighbours among ``rows``, as local ids, which sends a gradient of the
+    block's rows back to the table's."""
+
+    rows: torch.Tensor  # int64 [R], ascending
+    degrees: torch.Tensor  # int32 [R]
+    indptr: torch.Tensor  # int32 [R + 1]
+    edge_dst: torch.Tensor  # int32 [num_edges] (global ids)
+    edge_src: torch.Tensor  # int32 [num_edges] (local row per edge)
+    edge_mask: torch.Tensor  # bool [num_edges], all True (no padding)
+    num_edges: int
+    # (indptr [N + 1], local ids [num_edges]) of A[:, rows], or None.
+    transpose: tuple[torch.Tensor, torch.Tensor] | None
+
+    @property
+    def num_rows(self) -> int:
+        return self.rows.numel()
+
+
+def row_block(graph: Graph, rows: torch.Tensor) -> RowBlock:
+    """The :class:`RowBlock` of ``graph`` over the distinct ascending node ids
+    ``rows``, built on the graph's device by masking its edge list in CSR
+    order (no sort); the transpose only where ``graph.symmetric``."""
+    dev, n, e = graph.indptr.device, graph.num_nodes, graph.num_edges
+    rows = rows.to(dev, torch.int64)
+    is_row = torch.zeros(n, dtype=torch.bool, device=dev)
+    is_row[rows] = True
+    local = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    local[rows] = torch.arange(rows.numel(), dtype=torch.int32, device=dev)
+    src, dst = graph.edge_src[:e], graph.edge_dst[:e]
+    keep = is_row[src]
+    degrees = graph.degrees[rows]
+    indptr = torch.zeros(rows.numel() + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(degrees, 0, dtype=torch.int32, out=indptr[1:])
+    edge_src = local[src[keep]]
+    num_edges = edge_src.numel()
+    transpose = None
+    if graph.symmetric:
+        hit = is_row[dst]
+        ends = torch.zeros(e + 1, dtype=torch.int32, device=dev)
+        torch.cumsum(hit, 0, dtype=torch.int32, out=ends[1:])
+        transpose = (ends[graph.indptr], local[dst[hit]])
+    return RowBlock(rows=rows, degrees=degrees, indptr=indptr, edge_dst=dst[keep],
+                    edge_src=edge_src,
+                    edge_mask=torch.ones(num_edges, dtype=torch.bool, device=dev),
+                    num_edges=num_edges, transpose=transpose)
 
 
 def quantize_graph(graph: Graph) -> Graph:

@@ -35,7 +35,9 @@ layer's fanout governs the first expansion. With ``concat_self`` or
 neighborhoods (the mean through the CSR mean-SpMM, maxpool through the CSR
 segment max, lstm over the ELL rows in adjacency order) — the
 deterministic inference path behind the serving table tier and evaluation
-with ``eval_fanouts=None``.
+with ``eval_fanouts=None``. With ``rows`` (a row block of the graph, the
+rows the full-graph loss reads) its last layer and the head compute those
+rows alone.
 
 Reduced precision follows the JAX model cast for cast: ``compute_dtype``
 (``torch.bfloat16``) runs the products in bf16 with the weights kept f32
@@ -58,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from graphsage_torch._device import resolve_device
-from graphsage_torch.data.graph import Graph
+from graphsage_torch.data.graph import Graph, RowBlock
 from graphsage_torch.models.layers import (
     AGGREGATORS,
     SAGELayer,
@@ -80,6 +82,14 @@ from graphsage_torch.ops.sampling import sample_neighbors
 from graphsage_torch.ops.segment_max import segment_max, segment_max_bytes
 from graphsage_torch.ops.spmm import spmm_mean_bytes
 from graphsage_torch.utils import profiling
+
+
+def _walked(graph: Graph, rows: RowBlock | None):
+    """The CSR a full-graph aggregation walks, its row count, and the ops'
+    keywords for it: ``graph``'s, or its row block's."""
+    if rows is None:
+        return graph, graph.num_nodes, {}
+    return rows, rows.num_rows, dict(subset=True, transpose=rows.transpose)
 
 
 class Frontier(NamedTuple):
@@ -331,35 +341,41 @@ class GraphSAGE(nn.Module):
         return Frontier(ids=tuple(ids), masks=tuple(masks))
 
     # ---------------------------------------------------- layer-0 tables
-    def _spmm(self, graph: Graph):
-        """The full-graph mean over ``graph``'s CSR: ``x -> (mean, degrees)``."""
+    def _spmm(self, graph: Graph, rows: RowBlock | None = None):
+        """The full-graph mean over ``graph``'s CSR: ``x -> (mean, degrees)``;
+        with ``rows``, over that block of it (the rows' means and degrees)."""
+        csr, n, subset = _walked(graph, rows)
+
         def spmm(x):
             with profiling.span("agg.spmm_mean", device=x.device):
                 if profiling.recording():
                     profiling.count("agg.spmm_mean.bytes", spmm_mean_bytes(
-                        graph.num_nodes, x.shape[1], x.element_size(), graph.num_edges))
+                        x.shape[0], x.shape[1], x.element_size(), csr.num_edges, n))
                 mean = spmm_mean(
-                    x, graph.edge_src, graph.edge_dst, graph.edge_mask,
-                    graph.num_nodes, indptr=graph.indptr, impl=self.spmm_impl,
-                    symmetric=graph.symmetric, num_edges=graph.num_edges,
+                    x, csr.edge_src, csr.edge_dst, csr.edge_mask, n,
+                    indptr=csr.indptr, impl=self.spmm_impl,
+                    symmetric=graph.symmetric, num_edges=csr.num_edges, **subset,
                 )
-            return mean, graph.degrees
+            return mean, csr.degrees
         return spmm
 
     @staticmethod
-    def _segmax(graph: Graph):
-        """The full-graph guarded max over ``graph``'s CSR:
+    def _segmax(graph: Graph, rows: RowBlock | None = None):
+        """The full-graph guarded max over ``graph``'s CSR (with ``rows``,
+        over that block of it):
         :func:`graphsage_torch.ops.segment_max.segment_max`, which picks its
         route from the device (``pooled`` is a ReLU output, so a max of 0
         sends no gradient)."""
+        csr, n, subset = _walked(graph, rows)
+
         def segmax(pooled):
             with profiling.span("agg.segment_max", device=pooled.device):
                 if profiling.recording():
                     profiling.count("agg.segment_max.bytes", segment_max_bytes(
-                        graph.num_nodes, pooled.shape[1], pooled.element_size(),
-                        graph.num_edges))
-                return segment_max(pooled, graph.indptr, graph.edge_dst,
-                                   symmetric=graph.symmetric)
+                        pooled.shape[0], pooled.shape[1], pooled.element_size(),
+                        csr.num_edges, n))
+                return segment_max(pooled, csr.indptr, csr.edge_dst,
+                                   symmetric=graph.symmetric, **subset)
         return segmax
 
     def layer0_full_table(self, features, graph: Graph | None, *, spmm=None,
@@ -627,7 +643,7 @@ class GraphSAGE(nn.Module):
     # --------------------------------------------------------- full graph
     def forward_full_graph(
         self, graph: Graph, return_embeddings: bool = False, spmm_override=None,
-        segmax_override=None,
+        segmax_override=None, rows: RowBlock | None = None,
     ) -> torch.Tensor:
         """Deterministic logits for every node, using complete neighborhoods
         (the reference with ``num_sample=None``, quirk Q7). The LSTM reads
@@ -640,7 +656,16 @@ class GraphSAGE(nn.Module):
         guarded per-node max``) maxpool's segment max, as the
         edge-partitioned path
         (:func:`graphsage_torch.parallel.distributed.distributed_full_graph_logits`)
-        does; lstm rejects both."""
+        does; lstm rejects both.
+
+        ``rows`` (a :class:`~graphsage_torch.data.graph.RowBlock` of
+        ``graph``): the logits of those rows alone, ``[R, C]``, in row order.
+        The layers before the last run over every node (the rows'
+        neighbours); the last layer's aggregation runs over the block (its
+        backward over the block's transpose) and it and the head map the
+        ``R`` rows. The lstm computes every row and keeps the block's."""
+        if rows is not None and (spmm_override is not None or segmax_override is not None):
+            raise ValueError("forward_full_graph takes rows= or an override, not both")
         if self.aggregator == "lstm" and (spmm_override is not None
                                           or segmax_override is not None):
             raise ValueError(
@@ -662,21 +687,26 @@ class GraphSAGE(nn.Module):
         spmm = self._spmm(graph) if spmm_override is None else spmm_override
         segmax = self._segmax(graph) if segmax_override is None else segmax_override
         for l, layer in enumerate(self.layers):
+            block = rows if l == self.num_layers - 1 else None
+            keep = None if block is None else block.rows
             if self.aggregator == "mean":
                 h = apply_full_graph_mean_layer(
-                    layer, h, spmm,
+                    layer, h, spmm if block is None else self._spmm(graph, block),
                     self_loop=self.self_loop,
                     project_first=self.use_project_first(l, h.shape[-1]),
-                    activation=self.layer_activation(l),
+                    activation=self.layer_activation(l), rows=keep,
                 )
             elif self.aggregator == "maxpool":
                 h = apply_full_graph_maxpool_layer(
-                    layer, h, segmax, self_loop=self.self_loop,
-                    activation=self.layer_activation(l))
+                    layer, h, segmax if block is None else self._segmax(graph, block),
+                    self_loop=self.self_loop, activation=self.layer_activation(l),
+                    rows=keep)
             else:
                 h = layer(h if self.concat_self else None,
                           *self._ell_sequences(graph, h),
                           activation=self.layer_activation(l))
+                if block is not None:
+                    h = h[keep]
         return self._head(h, return_embeddings)
 
     def _ell_sequences(self, graph: Graph, h: torch.Tensor):

@@ -220,6 +220,7 @@ def apply_full_graph_mean_layer(
     self_loop: bool,
     project_first: bool,
     activation=torch.relu,
+    rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One full-graph mean layer over every node, in ``h``'s dtype (the
     weights are cast to it). ``activation=None`` leaves the output linear
@@ -229,11 +230,16 @@ def apply_full_graph_mean_layer(
     (exact: the mean is linear), so the SpMM moves ``d_out``-wide rows; the
     sums that follow it are f32. ``self_loop`` folds the node itself into the
     mean: ``(mean * cnt + self) / (cnt + 1)``.
+
+    ``rows``: only those nodes' outputs ``[R, d_out]``; ``spmm`` then gives
+    their means and degrees (over a row block of the graph) and the self
+    terms read their rows of ``h``.
     """
     if activation is None:
         activation = _identity
     d_in = h.shape[-1]
     w = layer.weight.to(h.dtype)
+    take = (lambda t: t) if rows is None else (lambda t: t[rows])  # noqa: E731
     if project_first:
         w_self, w_neigh = split_mean_weight(w, d_in, layer.concat_self)
         hp = h @ w_neigh
@@ -241,11 +247,13 @@ def apply_full_graph_mean_layer(
         pre = mean.to(torch.float32)
         if self_loop:
             c = cnt.to(torch.float32)[:, None]
-            pre = (pre * c + hp.to(torch.float32)) / (c + 1.0)
+            pre = (pre * c + take(hp).to(torch.float32)) / (c + 1.0)
         if layer.concat_self:
-            pre = pre + (h @ w_self).to(torch.float32)
+            pre = pre + (take(h) @ w_self).to(torch.float32)
         return activation(pre).to(h.dtype)
     mean, cnt = spmm(h)
+    if self_loop or layer.concat_self:
+        h = take(h)  # the self terms' rows
     if self_loop:
         c = cnt.to(mean.dtype)[:, None]
         mean = (mean * c + h) / (c + 1.0)
@@ -260,19 +268,22 @@ def apply_full_graph_maxpool_layer(
     *,
     self_loop: bool,
     activation=torch.relu,
+    rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One full-graph max-pooling layer over every node, in ``h``'s dtype:
     the pooling MLP once per node (the span ``agg.pool``), then ``segmax``
     (0 on rows without neighbors); ``activation=None`` leaves the output
-    linear."""
+    linear. ``rows``: only those nodes' outputs; the MLP still runs over
+    every node (the rows' neighbours), ``segmax`` gives the rows' maxima."""
     if activation is None:
         activation = _identity
+    take = (lambda t: t) if rows is None else (lambda t: t[rows])  # noqa: E731
     with profiling.span("agg.pool", device=h.device):
         pooled = pool(layer, h, h.dtype)
     agg = segmax(pooled).to(h.dtype)
     if self_loop:
         # pooled >= 0 (ReLU) and empty rows give 0, so an elementwise max
         # adds the self loop exactly.
-        agg = torch.maximum(agg, pooled)
-    combined = torch.cat([h, agg], dim=-1) if layer.concat_self else agg
+        agg = torch.maximum(agg, take(pooled))
+    combined = torch.cat([take(h), agg], dim=-1) if layer.concat_self else agg
     return activation(combined @ layer.weight.to(h.dtype))

@@ -168,17 +168,26 @@ def spmm_mean(
     impl: str = "auto",
     symmetric: bool = True,
     num_edges: int | None = None,
+    *,
+    subset: bool = False,
+    transpose: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Full-graph mean aggregation ``out[v] = mean_{(v,u) in E} features[u]``
     (the row-normalized SpMM ``D^-1 A X``) in the features' dtype, summed in
     f32, as JAX's ``"auto"`` (``"xla"``) returns it. ``symmetric``
     (``Graph.symmetric``) picks the kernel route's backward; ``num_edges``
-    (``Graph.num_edges``) lets it count its bytes."""
+    (``Graph.num_edges``) lets it count its bytes.
+
+    ``subset``: the edges are those of ``num_nodes`` rows of the table's
+    adjacency (a :class:`~graphsage_torch.data.graph.RowBlock`: ``edge_src``
+    local row ids, ``indptr`` their CSR), and the result is ``[num_nodes,
+    F]``; ``transpose``, the CSR of the rows' transpose, lets the kernel
+    route's backward run kernel 3 (:func:`graphsage_torch.ops.spmm.spmm_mean`)."""
     if impl in ("auto", "pallas_vmem"):
         if indptr is None:
             raise ValueError(f"spmm_mean impl={impl!r} requires indptr")
         return _spmm_mean_kernel(features, indptr, edge_dst, symmetric=symmetric,
-                                 num_edges=num_edges)
+                                 num_edges=num_edges, subset=subset, transpose=transpose)
     if impl == "xla":
         return segment_mean_csr(gather(features, edge_dst), edge_src, edge_mask, num_nodes)
     raise ValueError(f"unknown spmm_mean impl {impl!r}")

@@ -41,6 +41,14 @@ card's memory. The kernel walks the CSR as kernel 3 does
 (:func:`~graphsage_torch.ops.spmm.chunking`) and, for a table larger than
 L2, column panels (:func:`~graphsage_torch.ops.spmm.panels`).
 
+``subset=True`` computes ``R`` of the ``N`` rows: ``indptr[R+1]`` and
+``edge_dst`` are the CSR of those rows (each with its whole neighbour list,
+global ids into ``x``), and out and rec are ``[R, F]``; the scatter and the
+tie pass send to ``x``'s rows unchanged. Its full ties need ``transpose``,
+the CSR of the rows' transpose (``A[:, rows]``, ids local to the rows,
+:class:`graphsage_torch.data.graph.RowBlock`): kernel 3 sums ``R`` rows of
+shares into the ``N`` rows of ``dx``. Without it the tie pass sends them.
+
 A CUDA tensor goes to the kernel (or an exception); a CPU tensor goes to
 the plain PyTorch versions :func:`segment_max_plain` and
 :func:`segment_max_backward_plain`, which keep the record and its backward
@@ -64,18 +72,25 @@ launches = 0
 TIE_PIECE = 512
 
 
-def segment_max_bytes(rows: int, cols: int, elem: int, num_edges: int) -> int:
+def segment_max_bytes(rows: int, cols: int, elem: int, num_edges: int,
+                      out_rows: int | None = None) -> int:
     """The bytes one forward call must move, from sizes the host knows: the
-    input rows once, ``indptr`` and the ids of the ``num_edges`` edges in
-    use (int32), the output once and the int32 record. The recorder's
-    counter ``agg.segment_max.bytes``."""
-    return 2 * rows * cols * elem + 4 * rows * cols + 4 * (rows + 1) + 4 * num_edges
+    ``rows`` input rows once, ``indptr`` and the ids of the ``num_edges``
+    edges in use (int32), the output once and the int32 record, ``out_rows``
+    rows each (the CSR's; by default ``rows``). The recorder's counter
+    ``agg.segment_max.bytes``."""
+    out_rows = rows if out_rows is None else out_rows
+    return (rows * cols * elem + out_rows * cols * (elem + 4) + 4 * (out_rows + 1)
+            + 4 * num_edges)
 
 
-def segment_max_backward_bytes(rows: int, cols: int, elem: int) -> int:
+def segment_max_backward_bytes(rows: int, cols: int, elem: int,
+                               in_rows: int | None = None) -> int:
     """The bytes one backward call must move: the gradient and the record
-    read once, the input's gradient written once."""
-    return 2 * rows * cols * elem + 4 * rows * cols
+    (``rows`` rows) read once, the input's gradient (``in_rows``, by default
+    ``rows``) written once."""
+    in_rows = rows if in_rows is None else in_rows
+    return (rows + in_rows) * cols * elem + 4 * rows * cols
 
 
 def _edge_rows(indptr: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -156,8 +171,12 @@ def _launch(x: torch.Tensor, indptr: torch.Tensor,
     return out, rec
 
 
-def _launch_backward(g, x, out, rec, indptr, edge_dst, symmetric=False) -> torch.Tensor:
+def _launch_backward(g, x, out, rec, indptr, edge_dst, symmetric=False,
+                     transpose=None) -> torch.Tensor:
     n, f = rec.shape
+    # A row subset's full ties need its transpose to go through kernel 3;
+    # without it the tie pass sends them.
+    symmetric = symmetric and (transpose is not None or n == x.shape[0])
     dx = torch.zeros((x.shape[0], f), dtype=torch.float32, device=x.device)
     if n == 0 or f == 0:
         return dx.to(x.dtype)
@@ -172,7 +191,7 @@ def _launch_backward(g, x, out, rec, indptr, edge_dst, symmetric=False) -> torch
             TIE_PIECE, num_pieces, int(symmetric), stream)
     _build.check(err, "segment_max backward kernel")
     if symmetric:
-        _add_full_ties(dx, g, rec, indptr, edge_dst, full_cols)
+        _add_full_ties(dx, g, rec, indptr, edge_dst, full_cols, transpose)
     return dx if x.dtype == torch.float32 else dx.to(x.dtype)
 
 
@@ -183,27 +202,30 @@ def _full_tie_columns(full_cols):
     return order, full_cols.sum(dtype=torch.int32).reshape(1)
 
 
-def _add_full_ties_plain(dx, g, rec, indptr, edge_dst, full_cols) -> None:
+def _add_full_ties_plain(dx, g, rec, indptr, edge_dst, full_cols, transpose=None) -> None:
     """:func:`_add_full_ties` in PyTorch ops, over every column (the
     reference for the kernels' route): ``g / deg`` at the full ties, the
     flagged columns moved to the front, their CSR sum, added back."""
     order, live = _full_tie_columns(full_cols)
     deg = (indptr[1:] - indptr[:-1])[:, None]
     share = torch.where((rec < -1) & (rec == -deg), g.to(torch.float32) / deg, 0.0)
-    total = spmm.spmm_block_sum(share[:, order], indptr, edge_dst, live_cols=live)
+    total = spmm.spmm_block_sum(share[:, order], *(transpose or (indptr, edge_dst)),
+                                live_cols=live)
     # On the card the columns of the panels past the count are unwritten.
     kept = torch.arange(rec.shape[1], device=dx.device) < live
     dx.index_add_(1, order, torch.where(kept, total, 0.0))
 
 
-def _add_full_ties(dx, g, rec, indptr, edge_dst, full_cols) -> None:
+def _add_full_ties(dx, g, rec, indptr, edge_dst, full_cols, transpose=None) -> None:
     """``dx += A (g / deg)`` at the entries that are a full tie (``rec = -deg
     v``, flagged by column in ``full_cols``), on the card: their columns moved
     to the front (``segment_max_full_cols``), kernel 3's plain sum over them,
     added back to their columns. Kernel 3 and the moves read the columns'
     count on the card and touch the live columns alone, so nothing is read
-    back."""
+    back. For a row subset (``rec`` has fewer rows than ``dx``) the sum runs
+    over ``transpose``, the CSR of its transpose, into ``dx``'s rows."""
     n, f = rec.shape
+    t_indptr, t_dst = transpose or (indptr, edge_dst)
     order, live = _full_tie_columns(full_cols)
     share = torch.empty((n, f), dtype=torch.float32, device=dx.device)
     _, panel_cols = spmm.panels(n, f, 4, spmm.l2_bytes(dx.device.index),
@@ -215,11 +237,11 @@ def _add_full_ties(dx, g, rec, indptr, edge_dst, full_cols) -> None:
                     live.data_ptr(), share.data_ptr(), None, dx.data_ptr(), n, f, panel_cols,
                     1, stream)
     _build.check(err, "segment_max full ties")
-    total = spmm.spmm_block_sum(share, indptr, edge_dst, live_cols=live)
+    total = spmm.spmm_block_sum(share, t_indptr, t_dst, live_cols=live)
     with torch.cuda.device(dx.device):
-        err = entry(g.data_ptr(), rec.data_ptr(), indptr.data_ptr(), order.data_ptr(),
-                    live.data_ptr(), None, total.data_ptr(), dx.data_ptr(), n, f, panel_cols,
-                    0, stream)
+        err = entry(g.data_ptr(), rec.data_ptr(), t_indptr.data_ptr(), order.data_ptr(),
+                    live.data_ptr(), None, total.data_ptr(), dx.data_ptr(), dx.shape[0], f,
+                    panel_cols, 0, stream)
     _build.check(err, "segment_max full ties")
 
 
@@ -244,22 +266,30 @@ class _SegmentMax(torch.autograd.Function):
             x, out, rec, indptr, edge_dst = ctx.saved_tensors
             if profiling.recording():
                 profiling.count("agg.segment_max.bytes", segment_max_backward_bytes(
-                    rec.shape[0], rec.shape[1], grad.element_size()))
+                    rec.shape[0], rec.shape[1], grad.element_size(), x.shape[0]))
             dx = ctx.bwd(grad.contiguous(), x, out, rec, indptr, edge_dst)
         return dx, *rest
 
 
 def segment_max(x: torch.Tensor, indptr: torch.Tensor, edge_dst: torch.Tensor,
-                symmetric: bool = False) -> torch.Tensor:
-    """The CSR segment max ``[N, F]`` in ``x``'s dtype (see the module
-    docstring), differentiable in ``x``, a ReLU output: an entry whose max is
-    0 sends no gradient; ``symmetric``: the adjacency equals its transpose
-    (the card's backward sends full ties as a CSR sum)."""
-    spmm._check(x, indptr, edge_dst)
+                symmetric: bool = False, *, subset: bool = False,
+                transpose: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """The CSR segment max ``[R, F]`` in ``x``'s dtype (see the module
+    docstring), ``R = N`` unless ``subset``, differentiable in ``x``, a ReLU
+    output: an entry whose max is 0 sends no gradient; ``symmetric``: the
+    adjacency equals its transpose (the card's backward sends full ties as a
+    CSR sum; over a row subset, through ``transpose``)."""
+    spmm._check(x, indptr, edge_dst, square=not subset)
+    if transpose is not None:
+        if not subset:
+            raise ValueError("transpose= is the CSR of a row subset's transpose: "
+                             "pass subset=True")
+        spmm._check(x, *transpose)
     if x.device.type == "cpu":
         fwd, bwd = segment_max_plain, segment_max_backward_plain
     elif x.device.type == "cuda":
-        fwd, bwd = _launch, functools.partial(_launch_backward, symmetric=symmetric)
+        fwd, bwd = _launch, functools.partial(_launch_backward, symmetric=symmetric,
+                                              transpose=transpose)
     else:
         raise ValueError(f"no segment_max for device {x.device}")
     return _SegmentMax.apply(x, indptr, edge_dst, fwd, bwd)

@@ -23,6 +23,14 @@ so a bf16 table's backward moves bf16 rows too; the gradient has the
 features' dtype. Both devices go through one ``autograd.Function``, so the
 CPU runs the card's backward formula.
 
+``subset=True`` computes ``R`` of the ``N`` rows: ``indptr[R+1]`` and
+``edge_dst`` are the CSR of those rows (each with its whole neighbour list,
+so its mean is the full call's), over the whole table, and the result is
+``[R, F]``. Its backward sends ``gs [R, F]`` to the table's ``N`` rows
+through ``transpose``, the CSR of the rows' transpose (on a symmetric
+graph ``A[:, rows]``, ids local to the rows): the same kernel with
+``normalize=False`` over it; without it, the plain transpose.
+
 A CUDA tensor goes to the kernel (or an exception); a CPU tensor goes to
 the plain PyTorch version :func:`spmm_mean_plain`, which also serves as the
 reference the kernel is held against on the card. ``indptr`` must be a
@@ -81,12 +89,15 @@ def spmm_transpose_plain(
                                                    g.to(torch.float32)[src])
 
 
-def spmm_mean_bytes(rows: int, cols: int, elem: int, num_edges: int) -> int:
+def spmm_mean_bytes(rows: int, cols: int, elem: int, num_edges: int,
+                    out_rows: int | None = None) -> int:
     """The bytes one call must move, from sizes the host knows: ``rows`` input
     rows of ``cols`` elements of ``elem`` bytes once, ``indptr`` and the
     column ids of the ``num_edges`` edges in use (int32), and the output once
-    (in the input's dtype). The recorder's counter ``agg.spmm_mean.bytes``."""
-    return 2 * rows * cols * elem + 4 * (rows + 1) + 4 * num_edges
+    (in the input's dtype), ``out_rows`` rows (the CSR's; by default
+    ``rows``). The recorder's counter ``agg.spmm_mean.bytes``."""
+    out_rows = rows if out_rows is None else out_rows
+    return (rows + out_rows) * cols * elem + 4 * (out_rows + 1) + 4 * num_edges
 
 
 # The C entry point for each table dtype.
@@ -209,14 +220,16 @@ def _launch(features, indptr, edge_dst, normalize: bool,
 
 class _SpmmMean(torch.autograd.Function):
     """``forward(features, indptr, edge_dst, normalize, symmetric, fwd,
-    num_edges=None)`` runs ``fwd`` (the kernel wrapper or the plain
-    version); see the module docstring for the backward."""
+    num_edges=None, t_indptr=None, t_dst=None)`` runs ``fwd`` (the kernel
+    wrapper or the plain version); see the module docstring for the
+    backward."""
 
     @staticmethod
-    def forward(ctx, features, indptr, edge_dst, normalize, symmetric, fwd, num_edges=None):
-        ctx.save_for_backward(indptr, edge_dst)
+    def forward(ctx, features, indptr, edge_dst, normalize, symmetric, fwd, num_edges=None,
+                t_indptr=None, t_dst=None):
+        ctx.save_for_backward(indptr, edge_dst, t_indptr, t_dst)
         ctx.normalize, ctx.symmetric, ctx.fwd = normalize, symmetric, fwd
-        ctx.dtype, ctx.num_edges = features.dtype, num_edges
+        ctx.dtype, ctx.num_edges, ctx.rows = features.dtype, num_edges, features.shape[0]
         return fwd(features, indptr, edge_dst, normalize)
 
     @staticmethod
@@ -225,19 +238,22 @@ class _SpmmMean(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, *rest
         with profiling.span("agg.spmm_mean.backward", device=grad.device):
-            indptr, edge_dst = ctx.saved_tensors
+            indptr, edge_dst, t_indptr, t_dst = ctx.saved_tensors
             if ctx.num_edges is not None and profiling.recording():
                 profiling.count("agg.spmm_mean.bytes", spmm_mean_bytes(
-                    indptr.numel() - 1, grad.shape[1], grad.element_size(), ctx.num_edges))
+                    grad.shape[0], grad.shape[1], grad.element_size(), ctx.num_edges,
+                    out_rows=ctx.rows))
             gs = grad.to(torch.float32)
             if ctx.normalize:
                 deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(torch.float32)
                 gs = gs / deg[:, None]
             gs = gs.to(ctx.dtype).contiguous()
-            if ctx.symmetric:
+            if t_indptr is not None:
+                dx = ctx.fwd(gs, t_indptr, t_dst, False)
+            elif ctx.symmetric and indptr.numel() - 1 == ctx.rows:
                 dx = ctx.fwd(gs, indptr, edge_dst, False)
             else:
-                dx = spmm_transpose_plain(gs, indptr, edge_dst).to(ctx.dtype)
+                dx = spmm_transpose_plain(gs, indptr, edge_dst, num_rows=ctx.rows).to(ctx.dtype)
         return dx, *rest
 
 
@@ -248,20 +264,35 @@ def spmm_mean(
     normalize: bool = True,
     symmetric: bool = True,
     num_edges: int | None = None,
+    *,
+    subset: bool = False,
+    transpose: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """CSR (mean-)SpMM ``[N, F]`` in the features' dtype (see module
-    docstring). ``symmetric``
+    """CSR (mean-)SpMM ``[R, F]`` in the features' dtype (see module
+    docstring), ``R = N`` unless ``subset``. ``symmetric``
     says that the adjacency equals its transpose, which picks the backward.
     ``num_edges`` (``indptr[N]``, where the caller knows it on the host)
-    lets the backward count its bytes into ``agg.spmm_mean.bytes``."""
-    _check(features, indptr, edge_dst)
+    lets the backward count its bytes into ``agg.spmm_mean.bytes``.
+
+    ``subset``: ``indptr`` covers ``R`` rows of the table's adjacency, not
+    all ``N`` (:class:`graphsage_torch.data.graph.RowBlock`); the backward
+    sums over ``transpose``, the CSR ``(indptr [N+1], ids [E])`` of the
+    rows' transpose with ids local to them, where it is given (kernel 3 on
+    the card), and takes the plain transpose where it is not."""
+    _check(features, indptr, edge_dst, square=not subset)
+    if transpose is not None:
+        if not subset:
+            raise ValueError("transpose= is the CSR of a row subset's transpose: "
+                             "pass subset=True")
+        _check(features, *transpose)
     if features.device.type == "cpu":
         fwd = spmm_mean_plain
     elif features.device.type == "cuda":
         fwd = _launch
     else:
         raise ValueError(f"no spmm_mean for device {features.device}")
-    return _SpmmMean.apply(features, indptr, edge_dst, normalize, symmetric, fwd, num_edges)
+    return _SpmmMean.apply(features, indptr, edge_dst, normalize, symmetric, fwd, num_edges,
+                           *(transpose or (None, None)))
 
 
 def spmm_block_sum(

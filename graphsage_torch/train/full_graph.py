@@ -2,12 +2,18 @@
 ``graphsage_tpu/train/full_graph.py`` on one device.
 
 Transductive full-batch training: every step runs the deterministic
-full-neighborhood forward over all nodes (the reference's
-``num_sample=None``, quirk Q7) and takes the classification loss over every
-node, weighted by the train split's mask. A mean model's full-graph SpMM is
-kernel 3 on the card (``ops/spmm.py``), forward and, on a symmetric graph,
+full-neighborhood forward (the reference's ``num_sample=None``, quirk Q7)
+and takes the classification loss weighted by the train split's mask. Its
+layers before the last run over every node; the last layer and the head
+run over the rows the mask weights (``data.graph.row_block``, built once:
+the CSR of those rows and, on a symmetric graph, of its transpose), since
+every other row's loss is multiplied by 0 and sends back a gradient of
+exactly 0. The loss, every gradient and the update are those of the
+weighted loss over every node. A mean model's full-graph SpMM is kernel 3
+on the card (``ops/spmm.py``), forward and, on a symmetric graph,
 backward, and a max-pool model's segment max is ``ops/segment_max.py``;
-each op picks its route from the device.
+each op picks its route from the device. The counter ``step.loss_rows``
+counts the rows the last layer computed, each step.
 
 With ``mesh=`` the same loss runs through the halo exchange
 (:mod:`graphsage_torch.parallel.halo`) over the mesh's ``axis``: each rank
@@ -28,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphsage_torch.data.graph import Graph, reject_lazy_descriptor
+from graphsage_torch.data.graph import Graph, reject_lazy_descriptor, row_block
 from graphsage_torch.models.graphsage import GraphSAGE
 from graphsage_torch.parallel import collectives
 from graphsage_torch.parallel.halo import build_node_partition, halo_full_graph_logits
@@ -85,6 +91,9 @@ class FullGraphTrainer(TrainLoop):
                 self._train_weight = stacked[self.shard.rank * np_:][:np_].to(self.device)
                 return
             self._train_weight = weight.to(self.device)
+            # The rows the loss reads; none when that is every node.
+            rows = torch.nonzero(self._train_weight).reshape(-1)
+            self._rows = row_block(graph, rows) if rows.numel() < graph.num_nodes else None
 
     def _logits(self, stacked: bool = False) -> torch.Tensor:
         """Full-graph logits ``[N, C]`` under the current parameters (with
@@ -97,8 +106,17 @@ class FullGraphTrainer(TrainLoop):
     def _loss(self) -> torch.Tensor:
         """The classification loss over every node, weighted by the train
         split's mask over the train count (on a mesh: this rank's part of
-        it)."""
-        if self.mesh is None:
+        it). On one device the logits are those of the rows the mask had at
+        construction; the others' losses enter as 0, in their places, so the
+        sum is the weighted one over every node, term for term, under the
+        mask as it is now."""
+        if self.mesh is None and self._rows is not None:
+            rows = self._rows.rows
+            per_row = self.model.classification_loss(
+                self.model.forward_full_graph(self.graph, rows=self._rows),
+                self.graph.labels[rows])
+            per_node = per_row.new_zeros(self.graph.num_nodes).index_copy(0, rows, per_row)
+        elif self.mesh is None:
             per_node = self.model.classification_loss(self._logits(), self.graph.labels)
         else:
             per_node = self.model.classification_loss(self._logits(stacked=True),
@@ -109,7 +127,10 @@ class FullGraphTrainer(TrainLoop):
         """One full-batch optimizer step; returns the loss as a 0-d tensor on
         the device (reading it waits for the step). Spans: ``step`` around
         ``step.forward`` (the logits and the loss), ``step.backward`` and
-        ``step.optimizer``."""
+        ``step.optimizer``; the counter ``step.loss_rows`` (one device)."""
+        if self.mesh is None and profiling.recording():
+            profiling.count("step.loss_rows", self.graph.num_nodes if self._rows is None
+                            else self._rows.num_rows)
         with profiling.span("step", device=self.device):
             with profiling.span("step.forward", device=self.device):
                 loss = self._loss()

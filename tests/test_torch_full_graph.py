@@ -26,6 +26,7 @@ from graphsage_torch.convert import LAYER_FIELDS
 from graphsage_torch.data.graph import build_graph
 from graphsage_torch.data.synthetic import power_law_graph
 from graphsage_torch.train.experiments import main, run_preset
+from graphsage_torch.utils.metrics import macro_f1, micro_f1
 
 torch.set_num_threads(1)
 
@@ -258,3 +259,74 @@ def test_forward_full_graph_spmm_override(graphs, aggregator):
         assert calls and not got.any() and want.any()
     else:
         assert not calls and torch.equal(got, want)
+
+
+# ------------------------------------------------ the loss's rows alone
+def _weighted_full_loss(tr):
+    """The weighted loss over every node from ``forward_full_graph(graph)``,
+    the formula the trainer's restricted step must equal."""
+    per = tr.model.classification_loss(tr.model.forward_full_graph(tr.graph), tr.graph.labels)
+    return (per * tr._train_weight).sum() / tr._train_count
+
+
+def _loss_and_grads(model, loss_fn):
+    loss = loss_fn()
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+@pytest.mark.parametrize("hidden", [(16, 12), (12, 16)], ids=["last-projects-first", "last-aggregates-first"])
+@pytest.mark.parametrize("self_term", ["none", "concat_self", "self_loop"])
+@pytest.mark.parametrize("graph", ["symmetric", "directed"])
+@pytest.mark.parametrize("aggregator", ["mean", "maxpool"])
+def test_step_over_the_loss_rows_equals_the_weighted_full_loss(graphs, aggregator, graph,
+                                                               self_term, hidden):
+    """The trainer's last layer and head over the train rows only (a row
+    block, and on a symmetric graph its transpose in the backward): the loss
+    and every parameter's gradient equal those of the full forward weighted
+    by the train mask, bitwise; evaluation and prediction still run every
+    row; and a mask zeroed in half after construction (the benchmark's
+    ``half_batch`` fault) moves the loss exactly as the full formula does."""
+    _, tg = graphs[graph]
+    kw = {} if self_term == "none" else {self_term: True}
+    model = GraphSAGE(GRAPH["num_feats"], GRAPH["num_classes"], hidden, (None, None),
+                      aggregator=aggregator, pool_dim=10, device="cpu",
+                      generator=torch.Generator().manual_seed(4), **kw)
+    tr = FullGraphTrainer(model, tg, TrainConfig(test_size=40, val_size=30, log_every=0))
+    block = tr._rows
+    assert block is not None and block.num_rows == len(tr.train_nodes)
+    assert (block.transpose is not None) == tg.symmetric
+    assert model.use_project_first(1, hidden[0]) == (aggregator == "mean" and hidden == (16, 12))
+    got, got_grads = _loss_and_grads(model, tr._loss)
+    want, want_grads = _loss_and_grads(model, lambda: _weighted_full_loss(tr))
+    assert torch.equal(got, want)
+    for (name, _), a, b in zip(model.named_parameters(), got_grads, want_grads):
+        assert torch.equal(a, b), name
+        assert b.any(), name
+    nodes = np.arange(tg.num_nodes)
+    with torch.no_grad():
+        full = model.predictions(model.forward_full_graph(tg))
+    np.testing.assert_array_equal(tr.predict(nodes), full)
+    truth = tg.labels.numpy()
+    assert tr.evaluate(nodes) == {"micro_f1": micro_f1(truth, full),
+                                  "macro_f1": macro_f1(truth, full, tg.num_classes)}
+    # The half_batch fault's move: half the train weights zeroed after
+    # construction, the count with them.
+    w = tr._train_weight
+    on = torch.nonzero(w).reshape(-1)
+    w[on[: on.numel() // 2]] = 0.0
+    tr._train_count = float(w.sum())
+    half, half_grads = _loss_and_grads(model, tr._loss)
+    want_half, want_half_grads = _loss_and_grads(model, lambda: _weighted_full_loss(tr))
+    assert torch.equal(half, want_half) and not torch.equal(half, got)
+    for a, b in zip(half_grads, want_half_grads):
+        assert torch.equal(a, b)
+
+
+def test_a_split_of_every_node_keeps_the_full_forward(graphs):
+    """No row left out: no block is built and the step is the full path's."""
+    _, tg = graphs["symmetric"]
+    model = GraphSAGE(GRAPH["num_feats"], GRAPH["num_classes"], (8, 8), (None, None),
+                      device="cpu")
+    tr = FullGraphTrainer(model, tg, TrainConfig(test_size=0, val_size=0, log_every=0))
+    assert tr._rows is None
+    assert torch.equal(tr._loss(), _weighted_full_loss(tr))

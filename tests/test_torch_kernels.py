@@ -322,6 +322,46 @@ def test_spmm_gradient_matches_plain(cuda, symmetric, n, f):
     torch.testing.assert_close(x_kern.grad, x_plain.grad, **TOL)
 
 
+@pytest.mark.parametrize("undirected", [True, False], ids=["symmetric", "directed"])
+@pytest.mark.parametrize("f", [45, 128])
+def test_spmm_kernel_over_a_row_subset_matches_plain(cuda, undirected, f):
+    """Kernel 3 over a row block of a graph with a hub and isolated nodes:
+    the forward against the plain route's and the full call's rows; the
+    backward of a gradient on the rows alone (kernel 3 over the block's
+    transpose on a symmetric graph, the plain transpose on a directed one)
+    against the plain full backward."""
+    from graphsage_torch.data.graph import build_graph, row_block
+
+    n = 3000
+    rng = np.random.default_rng(f)
+    edges = np.concatenate([rng.integers(0, n - 20, (12 * n, 2)),
+                            [[0, i] for i in range(1, 900)]])  # node 0: a hub
+    if not undirected:
+        edges = edges[edges[:, 0] < edges[:, 1]]
+    g = build_graph(np.zeros((n, 1), np.float32), np.zeros(n), edges, num_classes=1,
+                    undirected=undirected, device=cuda)
+    keep = rng.random(n) < 2 / 3
+    keep[0] = keep[-1] = True  # the hub and an isolated node
+    rows = torch.from_numpy(np.nonzero(keep)[0]).to(cuda)
+    block = row_block(g, rows)
+    x = torch.randn(n, f, generator=torch.Generator().manual_seed(3)).to(cuda)
+    grad = torch.randn(rows.numel(), f, generator=torch.Generator().manual_seed(4)).to(cuda)
+    xs = x.clone().requires_grad_(True)
+    before = sp.launches
+    sub = sp.spmm_mean(xs, block.indptr, block.edge_dst, symmetric=undirected, subset=True,
+                       transpose=block.transpose)
+    (got,) = torch.autograd.grad(sub, xs, grad)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 1 + undirected
+    torch.testing.assert_close(sub, sp.spmm_mean_plain(x, block.indptr, block.edge_dst), **TOL)
+    torch.testing.assert_close(sub, sp.spmm_mean(x, g.indptr, g.edge_dst)[rows], **TOL)
+    assert not sub[-1].any()
+    xp = x.clone().requires_grad_(True)
+    wide = torch.zeros_like(x).index_copy(0, rows, grad)
+    sp.spmm_mean_plain(xp, g.indptr, g.edge_dst).backward(wide)
+    torch.testing.assert_close(got, xp.grad, **TOL)
+
+
 # ------------------------------------------------ shapes of the redesigns
 # The gather-mean serves 32 // k rows per warp (one when k > 32); the SpMM
 # cuts row ends and edges into equal chunks (``sp.chunking``), so hub rows,

@@ -23,7 +23,7 @@ from graphsage_tpu.ops.aggregate import spmm_mean as jax_spmm_mean
 from graphsage_tpu.ops.pallas_gather import gather_mean as gather_mean_dma_pallas
 from graphsage_tpu.ops.pallas_onehot import onehot_gather_mean
 from graphsage_tpu.ops.pallas_spmm import _spmm_impl, spmm_mean_vmem
-from graphsage_torch.data.graph import build_graph
+from graphsage_torch.data.graph import build_graph, row_block
 from graphsage_torch.ops.aggregate import (
     gather_mean,
     masked_mean,
@@ -277,6 +277,58 @@ def test_spmm_dispatch_errors(csr):
         spmm_mean(*args)
     with pytest.raises(ValueError):
         spmm_mean(*args, indptr=tg.indptr, impl="nope")
+
+
+def _subset_case(undirected):
+    """A graph with a hub and isolated nodes (60..69), symmetric or with one
+    direction of each pair, and rows that hold the hub, rows with no edge
+    and rows whose neighbours lie outside them."""
+    rng = np.random.default_rng(8)
+    n = 70
+    edges = np.concatenate([rng.integers(0, 60, (150, 2)), [[0, i] for i in range(1, 40)]])
+    if not undirected:
+        edges = edges[edges[:, 0] < edges[:, 1]]
+    g = build_graph(rng.normal(size=(n, 3)).astype(np.float32), np.zeros(n), edges,
+                    num_classes=1, undirected=undirected, device="cpu")
+    rows = torch.tensor(sorted(set(range(0, n, 3)) | {0, 61, 62}))
+    return g, rows, torch.from_numpy(rng.normal(size=(n, 24)).astype(np.float32))
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+@pytest.mark.parametrize("undirected", [True, False], ids=["symmetric", "directed"])
+def test_spmm_over_a_row_subset_equals_the_full_calls_rows(impl, undirected):
+    """``spmm_mean`` over a row block (its CSR, local ``edge_src``, and on a
+    symmetric graph its transpose for the backward): the full call's rows,
+    and, for a gradient on those rows alone, the full call's backward,
+    bitwise (the same sums in the same order, less terms of 0)."""
+    g, rows, x = _subset_case(undirected)
+    block = row_block(g, rows)
+    assert (block.transpose is not None) == undirected and g.symmetric == undirected
+    assert torch.equal(block.degrees, g.degrees[rows])
+    xs = x.clone().requires_grad_(True)
+    full = spmm_mean(xs, g.edge_src, g.edge_dst, g.edge_mask, g.num_nodes, indptr=g.indptr,
+                     impl=impl, symmetric=g.symmetric)
+    sub = spmm_mean(xs, block.edge_src, block.edge_dst, block.edge_mask, block.num_rows,
+                    indptr=block.indptr, impl=impl, symmetric=g.symmetric, subset=True,
+                    transpose=block.transpose)
+    assert sub.shape == (rows.numel(), x.shape[1]) and torch.equal(sub, full[rows])
+    assert not sub[-2:].any() and sub[0].any()  # rows 61, 62 have no edge; 0 is the hub
+    grad = torch.randn(sub.shape, generator=torch.Generator().manual_seed(1))
+    (got,) = torch.autograd.grad(sub, xs, grad)
+    (want,) = torch.autograd.grad(full, xs, torch.zeros_like(full).index_copy(0, rows, grad))
+    assert torch.equal(got, want) and got.any()
+
+
+def test_spmm_takes_a_row_subset_only_when_told():
+    g, rows, x = _subset_case(True)
+    block = row_block(g, rows)
+    with pytest.raises(ValueError, match="indptr must be"):
+        sp.spmm_mean(x, block.indptr, block.edge_dst)
+    with pytest.raises(ValueError, match="pass subset=True"):
+        sp.spmm_mean(x, g.indptr, g.edge_dst, transpose=block.transpose)
+    with pytest.raises(ValueError, match="indptr must be"):  # a transpose of the wrong rows
+        sp.spmm_mean(x, block.indptr, block.edge_dst, subset=True,
+                     transpose=(block.indptr, block.transpose[1]))
 
 
 def test_segment_mean_csr_matches_jax(csr):

@@ -24,6 +24,7 @@ import torch
 import graphsage_torch.ops.segment_max as smx
 import graphsage_torch.ops.spmm as sp
 from graphsage_torch import FullGraphTrainer, GraphSAGE, TrainConfig, build_graph
+from graphsage_torch.data.graph import row_block
 from graphsage_torch.ops.aggregate import gather, segment_max_csr
 from graphsage_torch.utils import profiling
 from perfbench.reference.maxpool import CsrMax, full_logits
@@ -125,6 +126,66 @@ def test_full_ties_as_a_csr_sum_match_the_plain_backward(full):
     smx._add_full_ties_plain(got, grad, rec, indptr, edge_dst, full_cols)
     size = smx.segment_max_backward_plain(grad.abs(), x, out, rec, indptr, edge_dst)
     _assert_grads_close(got, want, size)
+
+
+def _subset_graph(n, num_pairs, undirected, seed, dev="cpu"):
+    """``_pairs``' graph (both directions of each pair, or ``a -> b`` alone)
+    and about two thirds of its rows, the hub (node 0) and an isolated node
+    (the last) among them."""
+    g = build_graph(np.zeros((n, 1), np.float32), np.zeros(n), _pairs(n, num_pairs, seed),
+                    num_classes=1, undirected=undirected, device=dev)
+    keep = np.random.default_rng(seed).random(n) < 2 / 3
+    keep[0] = keep[-1] = True
+    return g, torch.from_numpy(np.nonzero(keep)[0]).to(dev)
+
+
+@pytest.mark.parametrize("undirected", [True, False], ids=["symmetric", "directed"])
+@pytest.mark.parametrize("values", list(VALUES))
+def test_plain_route_over_a_row_subset_equals_the_full_calls_rows(values, undirected):
+    """The segment max over a row block (a full-tie column, the hub, a row
+    with no edge among its rows): the full call's rows, and for a gradient
+    on those rows alone the full call's backward, bitwise; on a symmetric
+    graph the card's route for the full ties, in PyTorch ops, through the
+    block's transpose, against the plain backward."""
+    n, f = 400, 24
+    g, rows = _subset_graph(n, 900, undirected, seed=18)
+    block = row_block(g, rows)
+    assert (block.transpose is not None) == undirected
+    gen = torch.Generator().manual_seed(19)
+    x = VALUES[values](gen, (n, f))
+    x[:, 3] = 0.5  # a unit that reads one value on every node
+    grad = torch.randn(rows.numel(), f, generator=gen)
+    xs = x.clone().requires_grad_(True)
+    sub = smx.segment_max(xs, block.indptr, block.edge_dst, g.symmetric, subset=True,
+                          transpose=block.transpose)
+    full = smx.segment_max(xs, g.indptr, g.edge_dst, g.symmetric)
+    assert sub.shape == (rows.numel(), f) and torch.equal(sub, full[rows])
+    assert (sub[-1] == 0).all() and block.degrees[-1] == 0
+    (got,) = torch.autograd.grad(sub, xs, grad)
+    (want,) = torch.autograd.grad(full, xs, torch.zeros_like(full).index_copy(0, rows, grad))
+    assert torch.equal(got, want) and got.any()
+    if not undirected:
+        return
+    out, rec = smx.segment_max_plain(x, block.indptr, block.edge_dst)
+    is_full = (rec < -1) & (rec == -block.degrees[:, None])
+    full_cols = is_full.any(0).to(torch.int32)
+    assert full_cols[3] == 1
+    routed = smx.segment_max_backward_plain(grad, x, out, torch.where(is_full, -1, rec),
+                                            block.indptr, block.edge_dst)
+    smx._add_full_ties_plain(routed, grad, rec, block.indptr, block.edge_dst, full_cols,
+                             block.transpose)
+    size = smx.segment_max_backward_plain(grad.abs(), x, out, rec, block.indptr, block.edge_dst)
+    _assert_grads_close(routed, got, size)
+
+
+def test_segment_max_takes_a_row_subset_only_when_told():
+    g, rows = _subset_graph(400, 900, True, seed=18)
+    block = row_block(g, rows)
+    x = torch.rand(400, 8)
+    with pytest.raises(ValueError, match="indptr must be"):
+        smx.segment_max(x, block.indptr, block.edge_dst)
+    with pytest.raises(ValueError, match="pass subset=True"):
+        smx.segment_max(x, g.indptr, g.edge_dst, True, transpose=block.transpose)
 
 
 def test_plain_route_matches_segment_max_csr_on_padded_edges():
@@ -493,3 +554,36 @@ def test_kernel_full_ties_equal_the_plain_route(cuda, monkeypatch, dtype, panel_
     smx._add_full_ties(got, grad, rec, indptr, edge_dst, full_cols)
     smx._add_full_ties_plain(want, grad, rec, indptr, edge_dst, full_cols)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("undirected", [True, False], ids=["symmetric", "directed"])
+def test_kernel_over_a_row_subset_matches_the_plain_route(cuda, undirected):
+    """The kernel over a row block (a hub, a row with no edge, a full-tie
+    column): the forward bitwise equal to the plain route's and to the full
+    call's rows; the backward, whose full ties on a symmetric graph go
+    through kernel 3 over the block's transpose (one launch), against the
+    plain full backward of a gradient on the rows alone."""
+    n, f = 20000, 64
+    g, rows = _subset_graph(n, 100000, undirected, seed=4, dev=cuda)
+    block = row_block(g, rows)
+    gen = torch.Generator().manual_seed(20)
+    x = torch.relu(torch.randn((n, f), generator=gen))
+    x[:, 3] = 0.5  # every row ties with all its neighbours there
+    x = x.to(cuda)
+    grad = torch.randn((rows.numel(), f), generator=gen).to(cuda)
+    xs = x.clone().requires_grad_(True)
+    sub = smx.segment_max(xs, block.indptr, block.edge_dst, g.symmetric, subset=True,
+                          transpose=block.transpose)
+    assert torch.equal(sub, smx.segment_max_plain(x, block.indptr, block.edge_dst)[0])
+    assert torch.equal(sub, smx._launch(x, g.indptr, g.edge_dst)[0][rows])
+    before = sp.launches
+    (got,) = torch.autograd.grad(sub, xs, grad)
+    torch.cuda.synchronize()
+    assert sp.launches == before + undirected
+    plain = lambda t: _plain_reference(t, g.indptr, g.edge_dst)  # noqa: E731
+    wide = torch.zeros((n, f), device=cuda).index_copy(0, rows, grad)
+    want = torch.where(x == 0, 0.0, _grad(plain, x, wide))
+    size = _grad(plain, x, wide.abs())
+    _assert_grads_close(got, want, size)
+    assert got.any()

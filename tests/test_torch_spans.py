@@ -156,23 +156,23 @@ def test_spans_sit_on_the_profilers_clock(recorder, tmp_path):
         assert abs(theirs - mine) < 1e3, name
 
 
-def spmm_call_bytes(graph, cols, elem):
-    """The benchmark's bytes of one CSR-mean call
+def spmm_call_bytes(rows_in, rows_out, cols, elem, num_edges):
+    """The bytes of one CSR-mean call: its input rows once, the CSR of its
+    ``rows_out`` output rows (int32), their edges' ids, the output once. Over
+    a whole graph (``rows_in == rows_out``) this is the benchmark's
     (``perfbench/metrics/spmm_mean_roofline.py:call_bytes``)."""
-    indptr = graph.indptr
-    return (graph.num_nodes * cols * elem + indptr.numel() * indptr.element_size()
-            + int(indptr[-1]) * graph.edge_dst.element_size() + graph.num_nodes * cols * elem)
+    return (rows_in + rows_out) * cols * elem + 4 * (rows_out + 1) + 4 * num_edges
 
 
 def test_full_graph_step_tree_and_bytes(graph, recorder, monkeypatch):
     from graphsage_torch.models import graphsage as gs
 
     trainer = full_graph_trainer(graph)
-    calls = []  # (width, takes a gradient) of each CSR mean
+    calls = []  # (input rows, output rows, width, edges, takes a gradient) of each CSR mean
     inner = gs.spmm_mean
 
     def noted(x, *args, **kwargs):
-        calls.append((x.shape[1], x.requires_grad))
+        calls.append((x.shape[0], args[3], x.shape[1], kwargs["num_edges"], x.requires_grad))
         return inner(x, *args, **kwargs)
     monkeypatch.setattr(gs, "spmm_mean", noted)
     profiling.reset()
@@ -183,13 +183,46 @@ def test_full_graph_step_tree_and_bytes(graph, recorder, monkeypatch):
         [None, "step", "step", "step"]
     fwd, bwd = by_name["agg.spmm_mean"], by_name["agg.spmm_mean.backward"]
     assert len(fwd) == len(calls) == trainer.model.num_layers
-    assert len(bwd) == sum(g for _, g in calls) >= 1
+    assert len(bwd) == sum(c[-1] for c in calls) >= 1
     assert {parent_name(e, by_id) for e in fwd} == {"step.forward"}
     assert {parent_name(e, by_id) for e in bwd} == {"step.backward"}
+    # Layer 0 over every node, the last layer over the train rows.
+    assert [c[:2] for c in calls] == [(graph.num_nodes, graph.num_nodes),
+                                      (graph.num_nodes, len(trainer.train_nodes))]
+    assert calls[0][3] == graph.num_edges > calls[1][3]
     # The forward calls, and the backward of each whose input takes a
-    # gradient: its rows are the gradient's, of the same width and dtype.
-    want = sum(spmm_call_bytes(graph, w, 4) * (1 + g) for w, g in calls)
+    # gradient: from the gradient's rows back to the input's, over the
+    # transpose of the same edges.
+    want = sum(spmm_call_bytes(n, r, w, 4, e) + g * spmm_call_bytes(r, n, w, 4, e)
+               for n, r, w, e, g in calls)
     assert counters()["agg.spmm_mean.bytes"] == want
+
+
+def test_loss_rows_counter_counts_the_last_layers_rows(graph, monkeypatch):
+    """``step.loss_rows``: the rows the full-graph step's last layer and head
+    computed, once a step while the recorder is on (the train rows here, all
+    N where the split leaves none out); off, the step makes no call to the
+    recorder's counter."""
+    calls = []
+    count = profiling.count
+    monkeypatch.setattr(profiling, "count", lambda *a: (calls.append(a), count(*a)))
+    trainer = full_graph_trainer(graph)
+    every = full_graph_trainer(graph, test_size=0, val_size=0)
+    profiling.disable()
+    profiling.reset()
+    trainer.step()
+    every.step()
+    assert calls == [] and counters() == {}
+    profiling.enable()
+    try:
+        for t in (trainer, trainer, every):
+            t.step()
+        c = counters()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert len(trainer.train_nodes) < graph.num_nodes
+    assert c["step.loss_rows"] == 2 * len(trainer.train_nodes) + graph.num_nodes
 
 
 def test_build_graph_phases(graph, recorder):
